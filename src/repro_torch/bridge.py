@@ -1,0 +1,93 @@
+"""Weights across the two packages, and random weights for the port.
+
+`params_from_numpy` takes the reference's params pytree as
+`jax.tree.map(np.asarray, params)` gives it (nested dict/tuple/list of
+numpy arrays) and returns the same nesting of tensors, the stacked `groups`
+leaves included. `params_to_numpy` is the reverse. A bf16 leaf is an
+`ml_dtypes.bfloat16` array, which `torch.from_numpy` rejects: it crosses as
+its uint16 bits.
+
+`init_params` draws the port's own weights with the reference's
+distributions. torch cannot reproduce `jax.random`, so parity tests always
+carry JAX-initialized weights across with `params_from_numpy`.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.attention import attention_init
+from repro_torch.models.layers import (dense_init, embedding_init,
+                                       rmsnorm_init, swiglu_init, torch_dtype)
+from repro_torch.models.model import check_supported, padded_vocab
+
+
+def _tree_map(fn: Callable, tree: Any) -> Any:
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def _leaf_from_numpy(arr, device) -> torch.Tensor:
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":
+        bits = np.array(arr.view(np.uint16), order="C")
+        return torch.from_numpy(bits).view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(arr, order="C")).to(device)
+
+
+def _leaf_to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes  # only where bf16 arrays are wanted back
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def params_from_numpy(tree: Any, device) -> Any:
+    """numpy pytree -> tensor pytree on `device`, same nesting."""
+    return _tree_map(lambda a: _leaf_from_numpy(a, device), tree)
+
+
+def params_to_numpy(tree: Any) -> Any:
+    """tensor pytree -> numpy pytree (bf16 as `ml_dtypes.bfloat16`)."""
+    return _tree_map(_leaf_to_numpy, tree)
+
+
+def params_to(tree: Any, device) -> Any:
+    """The same pytree with every tensor on `device` (no copy where it is
+    already there)."""
+    return _tree_map(lambda t: t.to(device), tree)
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                device=None) -> Any:
+    """Random params with the reference's distributions (`Model.init`):
+    dense weights normal * 1/sqrt(d_in), the embedding normal * 0.02, norm
+    scales ones. Drawn in fp32 on `device`, which must be the generator's
+    (default), and stored there in `cfg.param_dtype`."""
+    check_supported(cfg)
+    device = generator.device if device is None else torch.device(device)
+    if device.type != generator.device.type:
+        raise ValueError(f"generator on {generator.device}, params wanted "
+                         f"on {device}: draw them where they will live")
+    dt = torch_dtype(cfg.param_dtype)
+    vp = padded_vocab(cfg)
+    lead = (cfg.num_groups,)
+    p = {"embed": embedding_init(generator, vp, cfg.d_model, dt),
+         "final_norm": rmsnorm_init(cfg.d_model, dt, device)}
+    if not cfg.tie_embeddings:
+        p["lm_head"] = dense_init(generator, cfg.d_model, vp, dt)
+    p["groups"] = tuple(
+        {"pre_norm": rmsnorm_init(cfg.d_model, dt, device, lead),
+         "mixer": attention_init(generator, cfg, lead),
+         "post_norm": rmsnorm_init(cfg.d_model, dt, device, lead),
+         "ffn": swiglu_init(generator, cfg.d_model, cfg.d_ff or 4 * cfg.d_model,
+                            dt, lead)}
+        for _ in cfg.pattern)
+    return p

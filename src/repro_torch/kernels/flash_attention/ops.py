@@ -1,0 +1,96 @@
+"""Public wrapper of the flash attention kernel.
+
+A CPU tensor goes to the plain version (`ref.attention_ref`). A CUDA tensor
+launches the Hopper kernel (`csrc/flash_attention.cu`) or raises: there is
+no fallback on the card. `flash_attention.launches` counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention.ref import attention_ref
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (32, 64, 128)
+
+
+@functools.lru_cache(maxsize=None)
+def _entry():
+    lib = _build.load("flash_attention")
+    fn = lib.repro_flash_attention_fwd
+    i32, i64, ptr = ctypes.c_int, ctypes.c_int64, ctypes.c_void_p
+    fn.argtypes = ([i32, ptr, ptr, ptr, ptr] + [i32] * 6 + [i64] * 12
+                   + [i32, i32, ptr])
+    fn.restype = i32
+    lib.repro_cuda_error_string.argtypes = [i32]
+    lib.repro_cuda_error_string.restype = ctypes.c_char_p
+    return fn, lib.repro_cuda_error_string
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int):
+    if not (q.device == k.device == v.device):
+        raise ValueError(f"q, k, v on different devices: "
+                         f"{q.device}, {k.device}, {v.device}")
+    if q.dtype not in _DTYPES or not (q.dtype == k.dtype == v.dtype):
+        raise TypeError(f"flash_attention takes float32 or bfloat16 q, k, v "
+                        f"of one dtype; got {q.dtype}, {k.dtype}, {v.dtype}")
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"want q (B,H,S,hd), k = v (B,Hkv,T,hd); got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    b, h, s, hd = q.shape
+    _, hkv, t, hdk = k.shape
+    if k.shape[0] != b or hdk != hd or hkv == 0 or h % hkv:
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} do not "
+                         "match (batch, head_dim, H % Hkv == 0)")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} not in the kernel's {HEAD_DIMS}")
+    if s == 0 or t == 0:
+        raise ValueError(f"empty sequence: S={s}, T={t}")
+    if window < 0:
+        raise ValueError(f"window {window} < 0")
+    if window > 0 and s >= t + window:
+        raise ValueError(f"S={s} >= T+window={t + window}: the last query "
+                         "rows would see no key")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.stride(-1) != 1:
+            raise ValueError(f"{name} needs a contiguous head_dim axis; "
+                             f"strides {x.stride()}")
+    if max(b, h, s, t) >= 2 ** 31 or max(b, h) > 65535:
+        raise ValueError(f"shape {tuple(q.shape)} beyond the launch grid")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """q: (B,H,S,hd); k,v: (B,Hkv,T,hd) -> (B,H,S,hd) in q.dtype.
+
+    Inputs are read by strides, so (B,S,H,hd) activations can be passed as
+    `.transpose(1, 2)` views without a copy. On the card the output is a
+    (B,H,S,hd) view of a (B,S,H,hd)-contiguous tensor, so
+    `out.transpose(1, 2)` is contiguous again."""
+    if q.device.type == "cpu" and k.device.type == "cpu" \
+            and v.device.type == "cpu":
+        return attention_ref(q, k, v, causal=causal, window=window)
+    _check(q, k, v, window)
+    b, h, s, hd = q.shape
+    hkv, t = k.shape[1], k.shape[2]
+    out = torch.empty((b, s, h, hd), dtype=q.dtype,
+                      device=q.device).transpose(1, 2)
+    fn, err_str = _entry()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 out.data_ptr(), b, h, hkv, s, t, hd,
+                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                 *out.stride()[:3], int(causal), int(window), stream)
+    if err:
+        raise RuntimeError(f"flash_attention kernel launch failed: "
+                           f"{err_str(err).decode()} (cudaError {err})")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

@@ -1,0 +1,194 @@
+"""The port's flash attention on the CPU: the plain version against the JAX
+kernel (interpret mode) and the JAX oracle, the wrapper's routing and
+checks, and the kernel build logic. The Hopper kernel itself is held
+against the plain version on the card by chip_smoke.py."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels.flash_attention import attention_ref as jax_attention_ref  # noqa: E402
+from repro.kernels.flash_attention import flash_attention as jax_flash_attention  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.flash_attention import ops  # noqa: E402
+from repro_torch.kernels.flash_attention import attention_ref, flash_attention  # noqa: E402
+
+# fp32 2e-5; bf16 2e-2 (one bf16 rounding of the output), compared in fp32
+TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
+       "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+
+
+def _inputs(seed, b, hq, hkv, s, t, hd, dtype):
+    """Same numbers for both sides: numpy fp32, rounded to `dtype` once."""
+    rng = np.random.default_rng(seed)
+    arrs = [rng.standard_normal((b, h, n, hd), dtype=np.float32)
+            for h, n in ((hq, s), (hkv, t), (hkv, t))]
+    jx = [jnp.asarray(a).astype(dtype) for a in arrs]
+    tt = [torch.from_numpy(a).to(getattr(torch, dtype)) for a in arrs]
+    return jx, tt
+
+
+def _compare(out_t, ref_j, dtype):
+    np.testing.assert_allclose(out_t.float().numpy(),
+                               np.asarray(ref_j, np.float32), **TOL[dtype])
+
+
+SHAPES = [  # (b, hq, hkv, s, t, hd): tests/test_kernels.py shapes + ragged S
+    (2, 4, 4, 128, 128, 64),     # MHA
+    (2, 8, 2, 256, 256, 64),     # GQA 4:1
+    (2, 4, 1, 128, 128, 128),    # MQA, wide head
+    (2, 4, 4, 8, 8, 32),         # ragged: one short prompt
+    (2, 4, 4, 40, 40, 32),       # ragged: not a multiple of any tile
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,hq,hkv,s,t,hd", SHAPES)
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 64), (False, 0)])
+def test_plain_version_matches_jax(dtype, b, hq, hkv, s, t, hd, causal,
+                                   window):
+    (qj, kj, vj), (q, k, v) = _inputs(0, b, hq, hkv, s, t, hd, dtype)
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    assert out.shape == q.shape and out.dtype == q.dtype
+    _compare(out, jax_attention_ref(qj, kj, vj, causal=causal, window=window),
+             dtype)
+    _compare(out, jax_flash_attention(qj, kj, vj, causal=causal,
+                                      window=window, backend="interpret"),
+             dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_version_cross_lengths(dtype):
+    (qj, kj, vj), (q, k, v) = _inputs(1, 1, 2, 2, 64, 256, 64, dtype)
+    out = attention_ref(q, k, v, causal=False)
+    _compare(out, jax_attention_ref(qj, kj, vj, causal=False), dtype)
+    _compare(out, jax_flash_attention(qj, kj, vj, causal=False, bq=64, bk=64,
+                                      backend="interpret"), dtype)
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,t,hd,causal,window", [
+    (1, 4, 4, 1, 1, 64, True, 0),            # one row
+    (1, 4, 2, 129, 129, 64, True, 100),      # odd S, window off the tile
+    (1, 4, 4, 100, 160, 32, False, 64),      # non-causal window, S < T
+])
+def test_plain_version_odd_shapes(b, hq, hkv, s, t, hd, causal, window):
+    """Shapes the JAX kernel's divisibility assert refuses: the oracle only."""
+    (qj, kj, vj), (q, k, v) = _inputs(4, b, hq, hkv, s, t, hd, "float32")
+    _compare(flash_attention(q, k, v, causal=causal, window=window),
+             jax_attention_ref(qj, kj, vj, causal=causal, window=window),
+             "float32")
+
+
+def test_strided_views_give_the_same_result():
+    """The model hands the wrapper (B,S,H,hd) tensors as transposed views."""
+    _, (q, k, v) = _inputs(2, 2, 8, 2, 40, 40, 32, "float32")
+    qs, ks, vs = (x.transpose(1, 2).contiguous().transpose(1, 2)
+                  for x in (q, k, v))
+    assert not qs.is_contiguous()
+    torch.testing.assert_close(flash_attention(qs, ks, vs, window=16),
+                               flash_attention(q, k, v, window=16),
+                               rtol=0, atol=0)
+
+
+def test_cpu_tensors_do_not_launch():
+    before = flash_attention.launches
+    _, (q, k, v) = _inputs(3, 1, 2, 2, 16, 16, 32, "float32")
+    flash_attention(q, k, v)
+    assert flash_attention.launches == before == 0
+
+
+def test_non_cpu_tensors_never_fall_back(monkeypatch):
+    """A tensor that is not on the CPU goes to the kernel or raises: here the
+    build is made to fail, and the plain version must not answer."""
+    def no_build(name):
+        raise RuntimeError(f"cannot build {name}")
+    monkeypatch.setattr(_build, "load", no_build)
+    ops._entry.cache_clear()
+    q = torch.empty(1, 2, 8, 32, device="meta")
+    with pytest.raises(RuntimeError, match="cannot build flash_attention"):
+        flash_attention(q, q, q)
+    ops._entry.cache_clear()
+    assert flash_attention.launches == 0
+
+
+@pytest.mark.parametrize("shapes,kw,err", [
+    (((1, 2, 8, 48), (1, 2, 8, 48)), {}, "head_dim 48"),
+    (((1, 3, 8, 32), (1, 2, 8, 32)), {}, "do not match"),
+    (((1, 2, 8, 32), (2, 2, 8, 32)), {}, "do not match"),
+    (((1, 2, 8, 32, 1), (1, 2, 8, 32)), {}, "want q"),
+    (((1, 2, 0, 32), (1, 2, 8, 32)), {}, "empty"),
+    (((1, 2, 80, 32), (1, 2, 8, 32)), {"window": 16}, "see no key"),
+    (((1, 2, 8, 32), (1, 2, 8, 32)), {"window": -1}, "window"),
+])
+def test_wrapper_checks(shapes, kw, err):
+    q = torch.zeros(shapes[0])
+    k = torch.zeros(shapes[1])
+    with pytest.raises(ValueError, match=err):
+        ops._check(q, k, k, kw.get("window", 0))
+
+
+def test_wrapper_checks_dtype_and_strides():
+    q = torch.zeros(1, 2, 8, 32, dtype=torch.float16)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ops._check(q, q, q, 0)
+    q = torch.zeros(1, 2, 32, 8).transpose(2, 3)
+    with pytest.raises(ValueError, match="contiguous head_dim"):
+        ops._check(q, q, q, 0)
+    ops._check(torch.zeros(1, 2, 8, 32), torch.zeros(1, 1, 8, 32),
+               torch.zeros(1, 1, 8, 32), 0)
+
+
+# ---------------------------------------------------------------- the build
+
+def _fake_nvcc(path, body):
+    path.write_text("#!/bin/sh\n" + body)
+    path.chmod(0o755)
+    return str(path)
+
+
+def test_build_compiles_once_per_source_hash(tmp_path, monkeypatch):
+    log = tmp_path / "calls"
+    # writes its -o argument and records the call
+    nvcc = _fake_nvcc(tmp_path / "nvcc", f"""
+out=""; prev=""
+for a in "$@"; do [ "$prev" = "-o" ] && out="$a"; prev="$a"; done
+echo "$@" >> {log}
+echo built > "$out"
+""")
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_nvcc", lambda: nvcc)
+    paths = _build.build_all()
+    assert set(paths) == {"flash_attention"}
+    assert paths["flash_attention"].read_text() == "built\n"
+    calls = log.read_text().splitlines()
+    assert len(calls) == 1
+    assert "arch=compute_90a,code=sm_90a" in calls[0]
+    assert calls[0].endswith("csrc/flash_attention.cu")
+    assert _build.build_all() == paths            # unchanged tree: no rebuild
+    assert len(log.read_text().splitlines()) == 1
+    assert not list((tmp_path / "build").glob("*.tmp.so"))
+
+
+def test_build_failure_raises_with_nvcc_stderr(tmp_path, monkeypatch):
+    nvcc = _fake_nvcc(tmp_path / "nvcc", "echo 'error: bad kernel' >&2\nexit 2\n")
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_nvcc", lambda: nvcc)
+    with pytest.raises(RuntimeError, match="(?s)exit 2.*error: bad kernel"):
+        _build.build_all()
+
+
+def test_build_without_nvcc_raises(tmp_path, monkeypatch):
+    monkeypatch.setattr(_build.shutil, "which", lambda _: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build._nvcc()
+
+
+def test_library_name_follows_source_and_flags(monkeypatch):
+    src = _build.sources()["flash_attention"]
+    name = _build.library_path(src)
+    assert name.parent == _build.BUILD_DIR
+    assert name.name.startswith("libflash_attention-")
+    monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-G",))
+    assert _build.library_path(src) != name
