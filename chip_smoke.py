@@ -7,24 +7,35 @@ Phases, each of which raises (and so exits non-zero) on any failure:
   1. build    compile every CUDA C++ kernel of the port from the sources in
               this checkout (nvcc, sm_90a) into build/.
   2. kernels  hold each kernel against its plain PyTorch version on the card
-              at the shapes of the serve path, and time kernel, plain
-              version and the PyTorch library call that computes the same
-              function (a yardstick only; the port never calls it).
-  3. parity   stablelm-1.6b at full width, 2 layers, fp32: the port on the
-              card against the port on the CPU (the CPU path is the one the
-              tests hold against the JAX reference).
+              at the shapes of the serve and train paths, and time kernel,
+              plain version and, where there is one, the PyTorch library
+              call that computes the same function (a yardstick only; the
+              port never calls it).
+  3. parity   at full width, 2 layers, fp32, the port on the card against
+              the port on the CPU (the CPU path is the one the tests hold
+              against the JAX reference): stablelm-1.6b prefill and greedy
+              tokens; xlstm-125m (one sLSTM, one mLSTM layer) loss and every
+              gradient leaf, prefill logits and 4 decode steps.
   4. serve    stablelm-1.6b at full width and depth (24 layers, bf16,
               random weights from a seed) serves requests drawn from the
               load module's length mix plus two 2048-token prompts through
-              `ServingEngine`, the port's main path; every kernel must have
-              launched there. Then torch.profiler over its shortest and its
-              longest wave says where their time goes.
+              `ServingEngine`, the port's serving path; flash_attention must
+              have launched there. Then torch.profiler over its shortest and
+              its longest wave says where their time goes.
+  5. train    xlstm-125m at full width and depth (12 layers, bf16 params,
+              fp32 AdamW moments, random weights from a seed) trains through
+              `repro_torch.train.lm.train_lm`, the port's training path, with
+              train_lm.py's settings (global batch 8 in 2 shards, lr 1e-3) at
+              seq_len 512: 1 warm-up step, then 8 timed steps whose losses
+              must be finite and fall, with mlstm_scan launched once per
+              mLSTM layer, shard and step. Then torch.profiler over one step.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Without a card it exits 1.
 """
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -43,13 +54,32 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES_PER_S = 3.35e12
 # Kernel vs plain version, compared in fp32: |a - b| <= tol + tol * |b|.
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# mlstm_scan: fp32 1e-4, as the kernel and the plain version sum in other
+# orders (fma chains vs einsum) through the exp-weighted state over many
+# chunks; bf16 5e-2, the bound of tests/test_kernels.py:95 (y rounded to
+# bf16). The state out is fp32 whatever q's type, and held at fp32's 1e-4.
+MLSTM_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
 # Port on the card vs port on the CPU, fp32 prefill logits.
 PARITY_TOL = 1e-3
+# xlstm card vs CPU, fp32: the loss to 1e-5 of its value; each gradient leaf
+# to 1e-3 of its largest entry. The two sides differ only in the order of
+# sums (the kernel's fma chains, cuBLAS against the CPU's GEMMs), which the
+# backward carries through 2 layers and a 50,688-wide softmax.
+LOSS_RTOL = 1e-5
+GRAD_RTOL = 1e-3
 SEED = 0
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def timed(phase: str, fn, *args):
+    """Run one phase and log its wall time."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log(f"[time] {phase}: {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
@@ -66,6 +96,14 @@ def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def reset_launch_counts() -> None:
+    """Every kernel wrapper's launch count to 0, just before a main path."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.mlstm_scan import mlstm_scan
+    flash_attention.launches = 0
+    mlstm_scan.launches = 0
 
 
 # ------------------------------------------------------------------ phase 2
@@ -150,7 +188,6 @@ def check_flash_attention(gen):
         "launches": None,
         "max_abs_err": err,
         "ms": kernel_ms,
-        "kernel_ms": kernel_ms,
         "plain_ms": plain_ms,
         "bound_ms": max(t_ops, t_bytes) * 1e3,
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
@@ -160,6 +197,124 @@ def check_flash_attention(gen):
     }
     log(f"[kernels] flash_attention at {entry['shape']}: kernel {kernel_ms:.4f} "
         f"ms, plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
+        f"{entry['bound_ms']:.4f} ms ({entry['bound_by']}: {flops} flop, "
+        f"{nbytes} bytes)")
+    return entry
+
+
+def _mlstm_inputs(gen, b, h, s, hd, dtype, with_state=False):
+    """q, k, v (B,H,S,hd) and gates (B,H,S) as views of (B,S,H,..) tensors,
+    the layout the model hands the kernel; gates as the kernel tests make
+    them; optionally a non-zero state (C [k, v], n, m)."""
+    def mk(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+    q, k, v = (mk(b, s, h, hd).to(dtype).transpose(1, 2) for _ in range(3))
+    log_i = (mk(b, s, h) * 0.5).transpose(1, 2)
+    log_f = torch.nn.functional.logsigmoid(mk(b, s, h) + 2.0).transpose(1, 2)
+    state = None
+    if with_state:
+        state = (mk(b, h, hd, hd) * 0.3, mk(b, h, hd) * 0.3, mk(b, h))
+    return (q, k, v, log_i, log_f), state
+
+
+def _mlstm_err(label, dt, got, want) -> float:
+    """Max abs error of y and the state out; raises beyond the tolerance."""
+    (y, st), (ry, rst) = got, want
+    err = 0.0
+    for name, a, b in zip(("y", "C", "n", "m"), (y, *st), (ry, *rst)):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            raise AssertionError(f"mlstm_scan {label} {name}: "
+                                 f"{a.shape}/{a.dtype} vs {b.shape}/{b.dtype}")
+        diff = (a.float() - b.float()).abs()
+        tol = MLSTM_TOL[dt if name == "y" else torch.float32]
+        bad = diff > tol + tol * b.float().abs()
+        if not torch.isfinite(a).all() or bool(bad.any()):
+            raise AssertionError(f"mlstm_scan {label} {dt} {name}: max abs err "
+                                 f"{float(diff.max())} beyond tol {tol}")
+        err = max(err, float(diff.max()))
+    return err
+
+
+def _mlstm_work(q, state) -> tuple:
+    """Useful flops and bytes of one call, by the kernel's own tiling of 32
+    rows a chunk: per (b, h) the in-chunk causal scores and their weighted
+    sum (2 flop a product each over hd), plus q.C and the C update at
+    2 S hd^2 each. Bytes: q, k, v and y, the gates, the state out and, if
+    given, the state in, each once."""
+    b, h, s, hd = q.shape
+    pairs = sum(n * (n + 1) // 2 for n in
+                [32] * (s // 32) + ([s % 32] if s % 32 else []))
+    flops = b * h * (4 * hd * pairs + 4 * s * hd * hd)
+    state_bytes = 4 * b * h * (hd * hd + hd + 1)
+    nbytes = (4 * q.numel() * q.element_size() + 2 * 4 * b * h * s
+              + state_bytes * (2 if state is not None else 1))
+    return flops, nbytes
+
+
+def check_mlstm_scan(gen):
+    from repro_torch.kernels.mlstm_scan import mlstm_scan, mlstm_scan_ref
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [  # (label, B, H, S, hd, dtypes, with_state)
+        ("xlstm-125m training shape", 4, 4, 512, 384, (bf16,), False),
+        *[(f"hd={hd}", 2, 4, 256, hd, (f32, bf16), False)
+          for hd in (32, 64, 256, 384)],
+        ("ragged S=40", 2, 4, 40, 64, (f32, bf16), False),
+        ("ragged S=77 with state", 1, 4, 77, 384, (f32,), True),
+        *[(f"decode S=1 with state hd={hd}", 4, 4, 1, hd, (f32, bf16), True)
+          for hd in (64, 384)],
+    ]
+    main = None
+    for label, b, h, s, hd, dtypes, with_state in cases:
+        for dt in dtypes:
+            args, state = _mlstm_inputs(gen, b, h, s, hd, dt, with_state)
+            got = mlstm_scan(*args, state)
+            want = mlstm_scan_ref(*args, state)
+            torch.cuda.synchronize()
+            err = _mlstm_err(label, dt, got, want)
+            log(f"[kernels] mlstm_scan {label} {str(dt)[6:]} B={b} H={h} "
+                f"S={s} hd={hd}: max_abs_err={err} (tol {MLSTM_TOL[dt]}) ok")
+            if main is None:
+                main = (args, err)
+
+    # chained: the state out of one call feeds the next, against one call
+    # over the whole sequence
+    for dt in (f32, bf16):
+        args, _ = _mlstm_inputs(gen, 2, 4, 200, 384, dt)
+        y1, st1 = mlstm_scan(*(x[:, :, :72] for x in args))
+        y2, st2 = mlstm_scan(*(x[:, :, 72:] for x in args), st1)
+        want = mlstm_scan_ref(*args)
+        torch.cuda.synchronize()
+        err = _mlstm_err("chained 72+128", dt, (torch.cat([y1, y2], dim=2),
+                                                st2), want)
+        log(f"[kernels] mlstm_scan chained 72+128 vs one call S=200 hd=384 "
+            f"{str(dt)[6:]}: max_abs_err={err} ok")
+
+    args, err = main
+    q = args[0]
+    b, h, s, hd = q.shape
+    kernel_ms = cuda_ms(lambda: mlstm_scan(*args), 20)
+    plain_ms = cuda_ms(lambda: mlstm_scan_ref(*args), 10)
+    flops, nbytes = _mlstm_work(q, None)
+    t_ops, t_bytes = flops / PEAK_FLOPS[q.dtype], nbytes / PEAK_BYTES_PER_S
+    entry = {
+        "name": "mlstm_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/mlstm_scan/csrc/mlstm_scan.cu",
+        "replaces": "src/repro/kernels/mlstm_scan/kernel.py:22",
+        "shape": f"bf16 B={b} H={h} S={s} hd={hd}",
+        "launches": None,
+        "max_abs_err": err,
+        "ms": kernel_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(t_ops, t_bytes) * 1e3,
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        # no single PyTorch call computes a chunkwise mLSTM
+        "library_ms": None,
+        "flops": flops,
+        "bytes": nbytes,
+    }
+    log(f"[kernels] mlstm_scan at {entry['shape']}: kernel {kernel_ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, no library call, bound "
         f"{entry['bound_ms']:.4f} ms ({entry['bound_by']}: {flops} flop, "
         f"{nbytes} bytes)")
     return entry
@@ -205,6 +360,68 @@ def check_card_vs_cpu():
         f"logits max "
         f"abs err card vs cpu {err} (tol {PARITY_TOL}); greedy tokens equal "
         f"for prompt lengths {[len(r.prompt) for r in requests]}")
+
+
+def check_xlstm_card_vs_cpu():
+    """xlstm-125m at full width, 2 layers (sLSTM, mLSTM), fp32: loss_fn and
+    every gradient leaf (the card's mLSTM: the kernel forward and its
+    recompute backward), prefill logits and 4 decode steps, card vs CPU."""
+    from repro_torch.bridge import init_params, params_to
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import DataConfig, batch_for_step
+    from repro_torch.models import build_model
+    from repro_torch.train.train_step import value_and_grad
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config("xlstm-125m").scaled(num_layers=2, param_dtype="float32")
+    model = build_model(cfg)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED))
+    cpu_params = params_to(params, "cpu")
+    tokens = torch.from_numpy(batch_for_step(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=64, global_batch=2), 0)["tokens"]
+    ).long()
+
+    (card_loss, _), card_grads = value_and_grad(model, params,
+                                                {"tokens": tokens.cuda()})
+    (cpu_loss, _), cpu_grads = value_and_grad(model, cpu_params,
+                                              {"tokens": tokens})
+    loss_err = abs(float(card_loss) - float(cpu_loss))
+    if not (math.isfinite(float(card_loss))
+            and loss_err <= LOSS_RTOL * abs(float(cpu_loss))):
+        raise AssertionError(f"xlstm loss card {float(card_loss)} vs cpu "
+                             f"{float(cpu_loss)}")
+    grad_err = 0.0
+    leaves = list(zip(tree_leaves(card_grads), tree_leaves(cpu_grads)))
+    for i, (a, b) in enumerate(leaves):
+        rel = float((a.cpu() - b).abs().max()) / max(float(b.abs().max()),
+                                                      1e-30)
+        if not (torch.isfinite(a).all() and rel <= GRAD_RTOL):
+            raise AssertionError(f"xlstm grad leaf {i} {tuple(a.shape)}: "
+                                 f"max err / max |g| = {rel} > {GRAD_RTOL}")
+        grad_err = max(grad_err, rel)
+
+    logit_err = 0.0
+    with torch.inference_mode():
+        outs = []
+        for dev, p in (("cuda", params), ("cpu", cpu_params)):
+            logits, cache = model.prefill(p, {"tokens": tokens[:, :60].to(dev)},
+                                          max_seq=64)
+            steps = [logits]
+            for t in range(60, 64):
+                logits, cache = model.decode_step(
+                    p, cache, tokens[:, t:t + 1].to(dev), t)
+                steps.append(logits)
+            outs.append(steps)
+        for a, b in zip(*outs):
+            logit_err = max(logit_err, float((a.cpu() - b).abs().max()))
+    if not logit_err <= PARITY_TOL:
+        raise AssertionError(f"xlstm prefill/decode logits card vs cpu: "
+                             f"{logit_err} > {PARITY_TOL}")
+    log(f"[parity] xlstm-125m d={cfg.d_model} 2 layers (sLSTM, mLSTM) fp32, "
+        f"2x64 tokens: loss card {float(card_loss)} cpu {float(cpu_loss)} "
+        f"(abs err {loss_err}); {len(leaves)} gradient leaves, max err / "
+        f"max |g| {grad_err} (tol {GRAD_RTOL}); prefill 60 + 4 decode steps "
+        f"logits max abs err {logit_err} (tol {PARITY_TOL})")
 
 
 # ------------------------------------------------------------------ phase 4
@@ -276,7 +493,7 @@ def serve_full_model(card: str):
     timed.decode_ms.clear()
     torch.cuda.reset_peak_memory_stats()
 
-    flash_attention.launches = 0
+    reset_launch_counts()
     t0 = time.perf_counter()
     responses = engine.serve(requests, max_wave)
     wall_s = time.perf_counter() - t0
@@ -314,33 +531,98 @@ def serve_full_model(card: str):
 
 
 def profile_waves(engine, waves) -> None:
-    """Where a wave's time goes: torch.profiler over one served wave, device
-    busy time (sum of kernel times on the one stream) against the wall
-    time, and the kernels that take most of it. The profiler's own host
-    cost inflates the wall time, so the idle share here is an upper bound."""
-    from torch.profiler import ProfilerActivity, profile
+    """Where a wave's time goes (`profiled`), for each of `waves`."""
     for wave in waves:
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            engine.serve(wave, len(wave))
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        kernels = [e for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and e.self_device_time_total > 0]
-        busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
         desc = f"{len(wave)}x{len(wave[0].prompt)}+{wave[0].max_new_tokens}"
-        if not kernels:
-            log(f"[profile] wave {desc}: the profiler saw no device time")
-            continue
-        log(f"[profile] wave {desc}: wall {wall_ms:.3f} ms under the "
-            f"profiler, device busy {busy_ms:.3f} ms, idle share "
-            f"{1 - busy_ms / wall_ms:.3f}, "
-            f"{sum(e.count for e in kernels)} kernel launches")
-        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
-            log(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms "
-                f"{e.count:6d}x  {e.key[:90]}")
+        profiled(f"wave {desc}", lambda: engine.serve(wave, len(wave)))
+
+
+def profiled(desc: str, fn, host_ops: bool = True) -> None:
+    """torch.profiler over one call of `fn`: device busy time (sum of kernel
+    times on the one stream) against the wall time, and the kernels that
+    take most of it. The profiler's own host cost inflates the wall time,
+    so the idle share here is an upper bound. `host_ops=False` records the
+    device activity alone, which keeps a call of some 500,000 launches
+    cheap to trace."""
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CUDA]
+    if host_ops:
+        activities.append(ProfilerActivity.CPU)
+    torch.cuda.synchronize()
+    t_trace = time.perf_counter()
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    if not kernels:
+        log(f"[profile] {desc}: the profiler saw no device time")
+        return
+    log(f"[profile] {desc}: wall {wall_ms:.3f} ms under the "
+        f"profiler, device busy {busy_ms:.3f} ms, idle share "
+        f"{1 - busy_ms / wall_ms:.3f}, "
+        f"{sum(e.count for e in kernels)} kernel launches; tracing took "
+        f"{time.perf_counter() - t_trace:.1f} s")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
+        log(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms "
+            f"{e.count:6d}x  {e.key[:90]}")
+
+
+# ------------------------------------------------------------------ phase 5
+
+def train_full_model() -> int:
+    """Full xlstm-125m through `train_lm`; returns mlstm_scan's launches in
+    the 8 timed steps."""
+    from repro_torch.bridge import init_params
+    from repro_torch.configs.base import MLSTM
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.mlstm_scan import mlstm_scan
+    from repro_torch.train.lm import train_lm
+
+    cfg = get_config("xlstm-125m")
+    batch, shards, seq_len, steps = 8, 2, 512, 8
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED + 2))
+    torch.cuda.synchronize()
+    log(f"[train] xlstm-125m {cfg.num_layers} layers d={cfg.d_model} "
+        f"{cfg.param_dtype} params, {cfg.opt_state_dtype} moments: "
+        f"{_numel(params)} params initialized in "
+        f"{time.perf_counter() - t0:.1f} s")
+    warm = train_lm(cfg, 1, batch, seq_len, shards, params=params)
+    log(f"[train] warm-up step: {warm.step_ms[0]:.1f} ms, loss "
+        f"{warm.losses[0]}")
+    torch.cuda.reset_peak_memory_stats()
+
+    reset_launch_counts()
+    res = train_lm(cfg, steps, batch, seq_len, shards, params=params)
+    launches = mlstm_scan.launches
+
+    want = cfg.pattern.count(MLSTM) * cfg.num_groups * shards * steps
+    if launches != want:
+        raise AssertionError(f"mlstm_scan launched {launches} times, want "
+                             f"{want} (mLSTM layers x shards x steps)")
+    if not all(math.isfinite(x) for x in res.losses):
+        raise AssertionError(f"non-finite loss: {res.losses}")
+    if not res.losses[-1] < res.losses[0]:
+        raise AssertionError(f"loss did not fall: {res.losses}")
+    step_ms = statistics.median(res.step_ms)
+    log(f"[train] {steps} steps, global batch {batch} x {seq_len} tokens in "
+        f"{shards} shards: losses {res.losses}")
+    log(f"[train] mlstm_scan launches {launches} = "
+        f"{want // (shards * steps)} mLSTM layers x {shards} shards x "
+        f"{steps} steps")
+    log(f"[train] step ms (host clock, synced): median {step_ms:.3f}, all "
+        f"{[round(x, 3) for x in res.step_ms]}; "
+        f"{batch * seq_len / (step_ms / 1e3):.1f} tokens/s; "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated()} bytes")
+    profiled(f"train step {batch}x{seq_len} in {shards} shards",
+             lambda: train_lm(cfg, 1, batch, seq_len, shards, params=params),
+             host_ops=False)
+    return launches
 
 
 def main() -> int:
@@ -364,11 +646,14 @@ def main() -> int:
     log(f"[build] {sorted(libs)} built in {time.perf_counter() - t0:.1f} s")
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    entry = check_flash_attention(gen)
-    check_card_vs_cpu()
-    entry["launches"] = serve_full_model(card)
+    flash = timed("kernels flash_attention", check_flash_attention, gen)
+    mlstm = timed("kernels mlstm_scan", check_mlstm_scan, gen)
+    timed("parity stablelm", check_card_vs_cpu)
+    timed("parity xlstm", check_xlstm_card_vs_cpu)
+    flash["launches"] = timed("serve", serve_full_model, card)
+    mlstm["launches"] = timed("train", train_full_model)
 
-    print(json.dumps({"kernels": [entry]}), flush=True)
+    print(json.dumps({"kernels": [flash, mlstm]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -13,24 +13,18 @@ carry JAX-initialized weights across with `params_from_numpy`.
 """
 from __future__ import annotations
 
-from typing import Any, Callable
+from typing import Any
 
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ATTN, DENSE, MLSTM, SLSTM, ModelConfig
 from repro_torch.models.attention import attention_init
 from repro_torch.models.layers import (dense_init, embedding_init,
                                        rmsnorm_init, swiglu_init, torch_dtype)
 from repro_torch.models.model import check_supported, padded_vocab
-
-
-def _tree_map(fn: Callable, tree: Any) -> Any:
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (tuple, list)):
-        return type(tree)(_tree_map(fn, v) for v in tree)
-    return fn(tree)
+from repro_torch.models.xlstm import mlstm_init, slstm_init
+from repro_torch.tree import tree_map
 
 
 def _leaf_from_numpy(arr, device) -> torch.Tensor:
@@ -51,26 +45,30 @@ def _leaf_to_numpy(t: torch.Tensor) -> np.ndarray:
 
 def params_from_numpy(tree: Any, device) -> Any:
     """numpy pytree -> tensor pytree on `device`, same nesting."""
-    return _tree_map(lambda a: _leaf_from_numpy(a, device), tree)
+    return tree_map(lambda a: _leaf_from_numpy(a, device), tree)
 
 
 def params_to_numpy(tree: Any) -> Any:
     """tensor pytree -> numpy pytree (bf16 as `ml_dtypes.bfloat16`)."""
-    return _tree_map(_leaf_to_numpy, tree)
+    return tree_map(_leaf_to_numpy, tree)
 
 
 def params_to(tree: Any, device) -> Any:
     """The same pytree with every tensor on `device` (no copy where it is
     already there)."""
-    return _tree_map(lambda t: t.to(device), tree)
+    return tree_map(lambda t: t.to(device), tree)
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device=None) -> Any:
     """Random params with the reference's distributions (`Model.init`):
     dense weights normal * 1/sqrt(d_in), the embedding normal * 0.02, norm
-    scales ones. Drawn in fp32 on `device`, which must be the generator's
-    (default), and stored there in `cfg.param_dtype`."""
+    scales ones; for xLSTM layers the conv normal * 1/sqrt(kernel), the
+    sLSTM recurrence normal * 1/sqrt(head_dim), the gate biases [0]*h ++
+    [3]*h (mLSTM) and [0]*d ++ [3]*d ++ [0]*2d (sLSTM), and the gate
+    weights `w_if`, `w_in` in fp32 whatever `param_dtype` is. Drawn in fp32
+    on `device`, which must be the generator's (default), and stored there
+    in `cfg.param_dtype`. Tied embeddings have no `lm_head`."""
     check_supported(cfg)
     device = generator.device if device is None else torch.device(device)
     if device.type != generator.device.type:
@@ -83,11 +81,15 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
          "final_norm": rmsnorm_init(cfg.d_model, dt, device)}
     if not cfg.tie_embeddings:
         p["lm_head"] = dense_init(generator, cfg.d_model, vp, dt)
-    p["groups"] = tuple(
-        {"pre_norm": rmsnorm_init(cfg.d_model, dt, device, lead),
-         "mixer": attention_init(generator, cfg, lead),
-         "post_norm": rmsnorm_init(cfg.d_model, dt, device, lead),
-         "ffn": swiglu_init(generator, cfg.d_model, cfg.d_ff or 4 * cfg.d_model,
-                            dt, lead)}
-        for _ in cfg.pattern)
+    mixer_init = {ATTN: attention_init, MLSTM: mlstm_init, SLSTM: slstm_init}
+    groups = []
+    for kind, ffn in zip(cfg.pattern, cfg.ffn_pattern):
+        layer = {"pre_norm": rmsnorm_init(cfg.d_model, dt, device, lead),
+                 "mixer": mixer_init[kind](generator, cfg, lead)}
+        if ffn == DENSE:
+            layer["post_norm"] = rmsnorm_init(cfg.d_model, dt, device, lead)
+            layer["ffn"] = swiglu_init(generator, cfg.d_model,
+                                       cfg.d_ff or 4 * cfg.d_model, dt, lead)
+        groups.append(layer)
+    p["groups"] = tuple(groups)
     return p

@@ -1,11 +1,12 @@
 """Architecture registry of the port: only the arches that are ported."""
 from __future__ import annotations
 
-from repro_torch.configs import stablelm_1_6b
+from repro_torch.configs import stablelm_1_6b, xlstm_125m
 from repro_torch.configs.base import ModelConfig
 
 _MODULES = {
     "stablelm-1.6b": stablelm_1_6b,
+    "xlstm-125m": xlstm_125m,
 }
 
 ARCH_IDS = tuple(_MODULES)

@@ -1,0 +1,124 @@
+"""Plain PyTorch versions of the chunkwise mLSTM kernel.
+
+`mlstm_chunk` is the port of `repro.models.xlstm._mlstm_chunk`: one chunk of
+the stabilized chunkwise mLSTM in the model's layout. `mlstm_scan_ref` runs
+it chunk after chunk over (B,H,S,hd) inputs with the state in and out: what
+the Hopper kernel computes. `mlstm_ref` is the port of the reference's
+sequential oracle (`repro.kernels.mlstm_scan.ref.mlstm_ref`).
+
+The stabilizers use `amax` and `torch.maximum`, which split the gradient
+between tied entries as JAX's `max` and `maximum` do.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+
+NEG = -1e30
+State = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def mlstm_chunk(q, k, v, log_i, log_f, state: State, scale: float):
+    """One chunk. q,k,v: (B,C,H,hd); log_i/log_f: (B,C,H) fp32; state =
+    (C (B,H,hd_k,hd_v), n (B,H,hd), m (B,H)) fp32. Returns (y fp32
+    (B,C,H,hd), new state)."""
+    c_mat, n_vec, m_run = state
+    c = q.shape[1]
+    bcum = torch.cumsum(log_f, dim=1)                              # (B,C,H)
+    # intra-chunk log decay matrix: b_i - b_j + log_i_j for j <= i
+    logd = (bcum[:, :, None, :] - bcum[:, None, :, :]
+            + log_i[:, None, :, :])                                # (B,i,j,H)
+    tri = torch.ones(c, c, dtype=torch.bool, device=q.device).tril()
+    logd = torch.where(tri[None, :, :, None], logd, NEG)
+    m_intra = logd.amax(dim=2)                                     # (B,C,H)
+    m_new = torch.maximum(m_intra, bcum + m_run[:, None, :])
+    w_intra = torch.exp(logd - m_new[:, :, None, :])
+    w_state = torch.exp(bcum + m_run[:, None, :] - m_new)
+
+    qf = q.float() * scale
+    kf = k.float()
+    vf = v.float()
+    scores = torch.einsum("bihd,bjhd->bijh", qf, kf) * w_intra
+    num = (torch.einsum("bijh,bjhd->bihd", scores, vf)
+           + w_state[..., None] * torch.einsum("bihd,bhde->bihe", qf, c_mat))
+    den_raw = (scores.sum(dim=2)
+               + w_state * torch.einsum("bihd,bhd->bih", qf, n_vec))
+    den = torch.maximum(den_raw.abs(), torch.exp(-m_new))
+    y = num / den[..., None]
+
+    # carry the state to the end of the chunk
+    btot = bcum[:, -1, :]                                          # (B,H)
+    m_next = torch.maximum(btot + m_run,
+                           (btot[:, None] - bcum + log_i).amax(dim=1))
+    w_upd = torch.exp(btot[:, None] - bcum + log_i - m_next[:, None])
+    decay = torch.exp(btot + m_run - m_next)
+    c_next = (decay[:, :, None, None] * c_mat
+              + torch.einsum("bch,bchd,bche->bhde", w_upd, kf, vf))
+    n_next = (decay[:, :, None] * n_vec
+              + torch.einsum("bch,bchd->bhd", w_upd, kf))
+    return y, (c_next, n_next, m_next)
+
+
+def zero_state(b: int, h: int, hd: int, device) -> State:
+    """C = n = 0 and m = 0 (`xlstm.py:140-142`; not -1e30)."""
+    f32 = torch.float32
+    return (torch.zeros(b, h, hd, hd, dtype=f32, device=device),
+            torch.zeros(b, h, hd, dtype=f32, device=device),
+            torch.zeros(b, h, dtype=f32, device=device))
+
+
+def mlstm_scan_ref(q, k, v, log_i, log_f, state: Optional[State] = None, *,
+                   bc: int = 256):
+    """q,k,v: (B,H,S,hd); log_i/log_f: (B,H,S) fp32 -> (y (B,H,S,hd) in
+    q.dtype, (C, n, m)). Chunks of `bc` rows, the last one ragged."""
+    b, h, s, hd = q.shape
+    if state is None:
+        state = zero_state(b, h, hd, q.device)
+    scale = 1.0 / math.sqrt(hd)
+    qs, ks, vs = (x.transpose(1, 2) for x in (q, k, v))   # (B,S,H,hd)
+    lis, lfs = log_i.transpose(1, 2), log_f.transpose(1, 2)
+    ys = []
+    for t0 in range(0, s, bc):
+        sl = slice(t0, t0 + bc)
+        y, state = mlstm_chunk(qs[:, sl], ks[:, sl], vs[:, sl], lis[:, sl],
+                               lfs[:, sl], state, scale)
+        ys.append(y)
+    y = torch.cat(ys, dim=1).to(q.dtype).transpose(1, 2)
+    return y, state
+
+
+def mlstm_ref(q, k, v, log_i, log_f):
+    """q,k,v: (B,H,S,hd); log_i/log_f: (B,H,S) -> (B,H,S,hd).
+
+    C_t = f'_t C_{t-1} + i'_t v_t k_t^T ;  n_t = f'_t n_{t-1} + i'_t k_t
+    h_t = (C_t q_t) / max(|n_t . q_t|, exp(-m_t))  with the max-stabilizer
+    m_t = max(log f_t + m_{t-1}, log i_t). One step at a time; C is kept
+    [v, k] here, as in the reference oracle (the cache layout is [k, v])."""
+    b, h, s, hd = q.shape
+    scale = 1.0 / math.sqrt(hd)
+    qf = q.float() * scale
+    kf = k.float()
+    vf = v.float()
+    li = log_i.float()
+    lf = log_f.float()
+    c_mat = torch.zeros(b, h, hd, hd, dtype=torch.float32, device=q.device)
+    n_vec = torch.zeros(b, h, hd, dtype=torch.float32, device=q.device)
+    m = torch.zeros(b, h, dtype=torch.float32, device=q.device)
+    ys = []
+    for t in range(s):
+        m_new = torch.maximum(lf[:, :, t] + m, li[:, :, t])
+        i_g = torch.exp(li[:, :, t] - m_new)
+        f_g = torch.exp(lf[:, :, t] + m - m_new)
+        c_mat = (f_g[..., None, None] * c_mat
+                 + i_g[..., None, None]
+                 * vf[:, :, t, :, None] * kf[:, :, t, None, :])
+        n_vec = f_g[..., None] * n_vec + i_g[..., None] * kf[:, :, t]
+        num = torch.einsum("bhvk,bhk->bhv", c_mat, qf[:, :, t])
+        den = torch.maximum(
+            torch.einsum("bhk,bhk->bh", n_vec, qf[:, :, t]).abs(),
+            torch.exp(-m_new))
+        m = m_new
+        ys.append(num / den[..., None])
+    return torch.stack(ys, dim=2).to(q.dtype)

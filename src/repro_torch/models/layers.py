@@ -1,5 +1,5 @@
-"""Common layers: norms, RoPE, SwiGLU, embeddings. The port of
-`repro.models.layers`.
+"""Common layers: norms, RoPE, SwiGLU, embeddings, the cross-entropy. The
+port of `repro.models.layers`.
 
 Params are plain nested dicts of tensors. Initializers take a
 `torch.Generator` and return the param subtree; `lead` prepends stacking
@@ -133,3 +133,21 @@ def unembed(params: Params, x: torch.Tensor, tied: bool,
     if tied:
         return x @ params["table"].T
     return x @ head
+
+
+# ---------------------------------------------------------------- loss
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 mask: Optional[torch.Tensor] = None,
+                 logit_softcap: float = 0.0) -> torch.Tensor:
+    """Mean next-token cross-entropy in fp32. logits (B,S,V), labels (B,S)."""
+    lf = logits.float()
+    if logit_softcap:
+        lf = torch.tanh(lf / logit_softcap) * logit_softcap
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    nll = lse - gold
+    if mask is not None:
+        nll = nll * mask
+        return nll.sum() / torch.clamp_min(mask.sum(), 1.0)
+    return nll.mean()

@@ -1,21 +1,23 @@
-"""The decoder model: the port of `repro.models.model` for the attention +
-dense-FFN pattern (stablelm-1.6b's `(ATTN,)` / `(DENSE,)`).
+"""The decoder model: the port of `repro.models.model` for the mixer kinds
+attention (GQA), sLSTM and mLSTM, with dense (SwiGLU) or no FFN: stablelm-
+1.6b's `(ATTN,)`/`(DENSE,)` and xlstm-125m's `(SLSTM, MLSTM)`/`(NONE, NONE)`.
 
 Params keep the reference's nesting: `embed.table`, `final_norm.scale`,
-`lm_head`, and `groups`, a tuple with one layer subtree per pattern entry
-whose leaves are stacked along a leading `num_groups` axis. A Python loop
-over that axis takes the place of the reference's `lax.scan`. The decode
-cache is stacked the same way.
+`lm_head` (absent with tied embeddings), and `groups`, a tuple with one
+layer subtree per pattern entry whose leaves are stacked along a leading
+`num_groups` axis. A Python loop over that axis takes the place of the
+reference's `lax.scan`. The decode cache is stacked the same way.
 
 Public surface:
     model = build_model(cfg)
     logits, aux = model.forward(params, batch)
+    loss, aux = model.loss_fn(params, batch)
     logits, cache = model.prefill(params, batch, max_seq)   # builds the cache
     logits, cache = model.decode_step(params, cache, tokens, pos)
     cache = model.init_cache(batch_size, max_seq, device)
 
-Other mixer and FFN kinds, the encoder, modality inputs and `first_k_dense`
-layers raise `NotImplementedError` until their slices.
+Other mixer and FFN kinds, the encoder, modality inputs, `first_k_dense`
+layers and the chunked loss raise `NotImplementedError` until their slices.
 """
 from __future__ import annotations
 
@@ -23,12 +25,16 @@ from typing import Any, Dict, Tuple
 
 import torch
 
-from repro_torch.configs.base import ATTN, DENSE, ModelConfig
+from repro_torch.configs.base import (ATTN, DENSE, MLSTM, NONE, SLSTM,
+                                      ModelConfig)
 from repro_torch.models import attention as attn
-from repro_torch.models.layers import (embed_tokens, rmsnorm, swiglu,
-                                       torch_dtype, unembed)
+from repro_torch.models import xlstm
+from repro_torch.models.layers import (embed_tokens, rmsnorm, softmax_xent,
+                                       swiglu, torch_dtype, unembed)
 
 Params = Dict[str, Any]
+MIXERS = (ATTN, SLSTM, MLSTM)
+FFNS = (DENSE, NONE)
 
 
 def padded_vocab(cfg: ModelConfig) -> int:
@@ -37,13 +43,15 @@ def padded_vocab(cfg: ModelConfig) -> int:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError naming what this slice does not port."""
+    """Raise NotImplementedError naming what the port does not have yet."""
     for kind in cfg.pattern:
-        if kind != ATTN:
+        if kind not in MIXERS:
             raise NotImplementedError(f"mixer kind {kind!r} is not ported")
     for kind in cfg.ffn_pattern:
-        if kind != DENSE:
+        if kind not in FFNS:
             raise NotImplementedError(f"ffn kind {kind!r} is not ported")
+    if (SLSTM in cfg.pattern or MLSTM in cfg.pattern) and cfg.xlstm is None:
+        raise ValueError(f"{cfg.name}: xLSTM layers need cfg.xlstm")
     for field, value in (("first_k_dense", cfg.first_k_dense),
                          ("encoder_layers", cfg.encoder_layers)):
         if value:
@@ -59,7 +67,22 @@ def _layer(group: Params, g: int) -> Params:
     return group[g]
 
 
+def _store(stacked: Params, g: int, core: Params) -> None:
+    """Write one layer's cache entries into the stacked cache, in place. A
+    conv tail shorter than the cache's (a prompt shorter than the conv
+    kernel) goes to its end: the zero rows before it are the conv's own
+    left padding."""
+    for key, val in core.items():
+        dst = stacked[key][g]
+        if key == "conv":
+            dst = dst[:, dst.shape[1] - val.shape[1]:]
+        dst.copy_(val)
+
+
 class Model:
+    # vocabularies at/above this size use the chunked loss (not ported)
+    CHUNKED_LOSS_VOCAB = 131_072
+
     def __init__(self, cfg: ModelConfig):
         check_supported(cfg)
         self.cfg = cfg
@@ -71,7 +94,9 @@ class Model:
             for i in range(len(cfg.pattern)):
                 yield i, g, _layer(params["groups"][i], g)
 
-    def _ffn(self, lp: Params, h):
+    def _ffn(self, lp: Params, i: int, h):
+        if self.cfg.ffn_pattern[i] == NONE:
+            return h
         f_in = rmsnorm(lp["post_norm"], h, self.cfg.norm_eps)
         return h + swiglu(lp["ffn"], f_in)
 
@@ -81,33 +106,84 @@ class Model:
         return unembed(params["embed"], h, cfg.tie_embeddings,
                        params.get("lm_head"))
 
+    @staticmethod
+    def _zero_aux(device) -> Dict[str, torch.Tensor]:
+        """The MoE aux losses: zero, the pattern has no MoE layer."""
+        zero = torch.zeros((), dtype=torch.float32, device=device)
+        return {"moe_lb_loss": zero, "moe_z_loss": zero}
+
     # ------------------------------------------------------------- forward
 
-    def forward(self, params: Params, batch) -> Tuple[torch.Tensor, Dict]:
-        """Full-sequence logits (B,S,V_padded) and the aux losses (zero:
-        the pattern has no MoE layer)."""
+    def _mix(self, lp: Params, kind: str, x):
         cfg = self.cfg
-        h = embed_tokens(params["embed"], batch["tokens"])
-        for _, _, lp in self._layers(params):
+        if kind == ATTN:
+            return attn.attention_forward(lp["mixer"], cfg, x)
+        if kind == MLSTM:
+            return xlstm.mlstm_mix(lp["mixer"], cfg, x)[0]
+        return xlstm.slstm_mix(lp["mixer"], cfg, x)[0]
+
+    def _backbone(self, params: Params, tokens):
+        """Hidden states before the final norm."""
+        cfg = self.cfg
+        h = embed_tokens(params["embed"], tokens)
+        for i, _, lp in self._layers(params):
             mix_in = rmsnorm(lp["pre_norm"], h, cfg.norm_eps)
-            h = h + attn.attention_forward(lp["mixer"], cfg, mix_in)
-            h = self._ffn(lp, h)
-        zero = torch.zeros((), dtype=torch.float32, device=h.device)
-        return self._logits(params, h), {"moe_lb_loss": zero,
-                                         "moe_z_loss": zero}
+            h = self._ffn(lp, i, h + self._mix(lp, cfg.pattern[i], mix_in))
+        return h
+
+    def forward(self, params: Params, batch) -> Tuple[torch.Tensor, Dict]:
+        """Full-sequence logits (B,S,V_padded) and the aux losses."""
+        h = self._backbone(params, batch["tokens"])
+        return self._logits(params, h), self._zero_aux(h.device)
+
+    def loss_fn(self, params: Params, batch) -> Tuple[torch.Tensor, Dict]:
+        """Mean next-token cross-entropy over the unchunked logits, padded
+        vocab rows masked to -1e30; total = xent + 0.01 lb + 1e-3 z."""
+        cfg = self.cfg
+        vp = padded_vocab(cfg)
+        tokens = batch["tokens"]
+        if vp >= self.CHUNKED_LOSS_VOCAB and tokens.shape[1] > 1024:
+            raise NotImplementedError("the chunked loss is not ported")
+        logits, aux = self.forward(params, batch)
+        if vp != cfg.vocab_size:
+            pad = torch.arange(vp, device=logits.device) >= cfg.vocab_size
+            logits = torch.where(pad, -1e30, logits.float())
+        loss = softmax_xent(logits[:, :-1], tokens[:, 1:],
+                            logit_softcap=cfg.logit_softcap)
+        total = loss + 0.01 * aux["moe_lb_loss"] + 1e-3 * aux["moe_z_loss"]
+        return total, dict(aux, xent=loss)
 
     # ------------------------------------------------------------- caches
 
+    def _init_layer_cache(self, kind: str, batch: int, max_seq: int, dt,
+                          device) -> Params:
+        cfg = self.cfg
+        lead = (cfg.num_groups,)
+        if kind == ATTN:
+            return attn.init_attn_cache(cfg, batch, max_seq, dtype=dt,
+                                        device=device, lead=lead)
+        if kind == MLSTM:
+            return xlstm.init_mlstm_cache(cfg, batch, dt, device, lead)
+        return xlstm.init_slstm_cache(cfg, batch, dt, device, lead)
+
     def init_cache(self, batch: int, max_seq: int, device=None,
                    dtype=None) -> Params:
-        cfg = self.cfg
-        dt = dtype or torch_dtype(cfg.param_dtype)
+        dt = dtype or torch_dtype(self.cfg.param_dtype)
         return {"groups": tuple(
-            attn.init_attn_cache(cfg, batch, max_seq, dtype=dt, device=device,
-                                 lead=(cfg.num_groups,))
-            for _ in cfg.pattern)}
+            self._init_layer_cache(kind, batch, max_seq, dt, device)
+            for kind in self.cfg.pattern)}
 
     # ------------------------------------------------------------ prefill
+
+    def _mix_prefill(self, lp: Params, kind: str, x, max_seq: int):
+        cfg = self.cfg
+        if kind == ATTN:
+            return attn.attention_prefill(lp["mixer"], cfg, x, max_seq=max_seq)
+        if kind == MLSTM:
+            out, ((c, n, m), tail) = xlstm.mlstm_mix(lp["mixer"], cfg, x)
+            return out, {"C": c, "n": n, "m": m, "conv": tail}
+        out, ((c, n, m, hh), tail) = xlstm.slstm_mix(lp["mixer"], cfg, x)
+        return out, {"c": c, "n": n, "m": m, "h": hh, "conv": tail}
 
     def prefill(self, params: Params, batch, max_seq: int = 0):
         """Full-sequence forward that also builds the decode cache. Returns
@@ -120,11 +196,9 @@ class Model:
         cache = self.init_cache(tokens.shape[0], max_seq, h.device, h.dtype)
         for i, g, lp in self._layers(params):
             mix_in = rmsnorm(lp["pre_norm"], h, cfg.norm_eps)
-            out, c = attn.attention_prefill(lp["mixer"], cfg, mix_in,
-                                            max_seq=max_seq)
-            for key, val in c.items():
-                cache["groups"][i][key][g] = val
-            h = self._ffn(lp, h + out)
+            out, core = self._mix_prefill(lp, cfg.pattern[i], mix_in, max_seq)
+            _store(cache["groups"][i], g, core)
+            h = self._ffn(lp, i, h + out)
         return self._logits(params, h[:, -1:]), cache
 
     # ------------------------------------------------------------- decode
@@ -135,10 +209,18 @@ class Model:
         cfg = self.cfg
         h = embed_tokens(params["embed"], tokens)
         for i, g, lp in self._layers(params):
+            kind = cfg.pattern[i]
             mix_in = rmsnorm(lp["pre_norm"], h, cfg.norm_eps)
-            out, _ = attn.attention_decode(lp["mixer"], cfg, mix_in,
-                                           _layer(cache["groups"][i], g), pos)
-            h = self._ffn(lp, h + out)
+            layer_cache = _layer(cache["groups"][i], g)
+            if kind == ATTN:
+                out, _ = attn.attention_decode(lp["mixer"], cfg, mix_in,
+                                               layer_cache, pos)
+            else:
+                decode = (xlstm.mlstm_decode if kind == MLSTM
+                          else xlstm.slstm_decode)
+                out, core = decode(lp["mixer"], cfg, mix_in, layer_cache)
+                _store(cache["groups"][i], g, core)
+            h = self._ffn(lp, i, h + out)
         return self._logits(params, h), cache
 
 

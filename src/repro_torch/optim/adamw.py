@@ -1,0 +1,89 @@
+"""AdamW with global-norm clipping: the port of `repro.optim.adamw`.
+
+Moments are kept in `state_dtype`; the update math always runs in fp32,
+with bias correction and the decoupled decay `lr * wd * p` inside the step.
+Unlike the reference, whose arrays are immutable, `adamw_update` writes the
+new params and moments into the given tensors in place, under
+`torch.no_grad()`, and returns the same trees: no second copy of the model
+and its optimizer state is held during the step.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any, Dict, Tuple
+
+import torch
+
+from repro_torch.tree import tree_leaves, tree_map
+
+
+@dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    state_dtype: str = "float32"
+
+
+def adamw_init(params, state_dtype: str = "float32") -> Dict[str, Any]:
+    dt = getattr(torch, state_dtype)
+    leaves = tree_leaves(params)
+    device = leaves[0].device if leaves else None
+    return {
+        "m": tree_map(lambda p: torch.zeros(p.shape, dtype=dt,
+                                            device=p.device), params),
+        "v": tree_map(lambda p: torch.zeros(p.shape, dtype=dt,
+                                            device=p.device), params),
+        "step": torch.zeros((), dtype=torch.int32, device=device),
+    }
+
+
+def global_norm(tree) -> torch.Tensor:
+    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
+                          for x in tree_leaves(tree)))
+
+
+def clip_by_global_norm(tree, max_norm: float):
+    norm = global_norm(tree)
+    scale = torch.clamp_max(max_norm / torch.clamp_min(norm, 1e-9), 1.0)
+    return tree_map(lambda g: (g.float() * scale).to(g.dtype), tree), norm
+
+
+@torch.no_grad()
+def adamw_update(cfg: AdamWConfig, grads, opt_state, params, lr_scale=1.0
+                 ) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
+    """One step. Updates `params` and the moments of `opt_state` in place;
+    returns (params, opt_state, {"grad_norm"})."""
+    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+    step = opt_state["step"] + 1
+    sf = step.float()
+    bc1 = 1.0 - torch.pow(cfg.b1, sf)
+    bc2 = 1.0 - torch.pow(cfg.b2, sf)
+    lr = cfg.lr * lr_scale
+    sd = getattr(torch, cfg.state_dtype)
+    for g, m, v, p in zip(tree_leaves(grads), tree_leaves(opt_state["m"]),
+                          tree_leaves(opt_state["v"]), tree_leaves(params)):
+        gf = g.float()
+        mf = cfg.b1 * m.float() + (1 - cfg.b1) * gf
+        vf = cfg.b2 * v.float() + (1 - cfg.b2) * gf * gf
+        mh = mf / bc1
+        vh = vf / bc2
+        pf = p.float()
+        pf = pf - lr * (mh / (torch.sqrt(vh) + cfg.eps) + cfg.weight_decay * pf)
+        p.copy_(pf)
+        m.copy_(mf.to(sd))
+        v.copy_(vf.to(sd))
+    return params, dict(opt_state, step=step), {"grad_norm": gnorm}
+
+
+def cosine_schedule(step, *, peak_lr_scale=1.0, warmup=100, total=10_000,
+                    min_frac=0.1):
+    sf = step.float()
+    warm = sf / max(warmup, 1)
+    prog = torch.clamp((sf - warmup) / max(total - warmup, 1), 0.0, 1.0)
+    cos = min_frac + (1 - min_frac) * 0.5 * (1 + torch.cos(math.pi * prog))
+    return peak_lr_scale * torch.where(sf < warmup, warm, cos)

@@ -15,8 +15,8 @@ from repro_torch.bridge import (init_params, params_from_numpy,  # noqa: E402
 from repro_torch.configs.registry import get_smoke_config as torch_smoke_config  # noqa: E402
 
 
-def _jax_params(dtype):
-    cfg = get_smoke_config("stablelm-1.6b").scaled(param_dtype=dtype)
+def _jax_params(dtype, arch="stablelm-1.6b"):
+    cfg = get_smoke_config(arch).scaled(param_dtype=dtype)
     params = build_model(cfg).init(jax.random.PRNGKey(0))
     return cfg, jax.tree.map(np.asarray, params)
 
@@ -77,14 +77,48 @@ def test_params_to_moves_every_leaf():
     assert params_to(tp, "cpu")["lm_head"] is tp["lm_head"]
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_init_params_matches_reference_structure(dtype):
-    cfg, tree = _jax_params(dtype)
-    tp = init_params(torch_smoke_config("stablelm-1.6b").scaled(
+def _same_structure(dtype, arch):
+    cfg, tree = _jax_params(dtype, arch)
+    tp = init_params(torch_smoke_config(arch).scaled(
         param_dtype=dtype), torch.Generator().manual_seed(0))
     ref = [(p, a.shape, a.dtype.name) for p, a in _leaves(tree)]
     got = [(p, tuple(t.shape), str(t.dtype)[6:]) for p, t in _leaves(tp)]
     assert got == ref
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_init_params_matches_reference_structure(dtype):
+    _same_structure(dtype, "stablelm-1.6b")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_init_params_matches_reference_structure_xlstm(dtype):
+    """The same keys, shapes and dtypes as the JAX tree: the gate weights
+    `w_if`, `w_in`, `r_rec` and biases stay fp32 whatever `param_dtype`
+    is, and tied embeddings have no `lm_head`."""
+    _same_structure(dtype, "xlstm-125m")
+
+
+def test_init_params_xlstm_distributions():
+    """The xLSTM leaves' distributions, as `repro.models.xlstm` draws them:
+    gate biases [0]*h ++ [3]*h (mLSTM) and [0]*d ++ [3]*d ++ [0]*2d
+    (sLSTM), conv normal / sqrt(kernel), recurrence normal / sqrt(hd)."""
+    cfg = torch_smoke_config("xlstm-125m").scaled(
+        param_dtype="float32", num_layers=8, d_model=256)
+    p = init_params(cfg, torch.Generator().manual_seed(0))
+    assert "lm_head" not in p
+    sl, ml = p["groups"][0]["mixer"], p["groups"][1]["mixer"]
+    h, d, kk = cfg.num_heads, cfg.d_model, cfg.xlstm.conv1d_kernel
+    assert torch.equal(ml["b_if"], torch.tensor([0.0] * h + [3.0] * h)
+                       .expand(cfg.num_groups, 2 * h))
+    assert torch.equal(sl["b"], torch.tensor([0.0] * d + [3.0] * d + [0.0] * 2 * d)
+                       .expand(cfg.num_groups, 4 * d))
+    hd_s = d // cfg.xlstm.num_heads_slstm
+    for w, std in ((ml["conv_w"], 1 / math.sqrt(kk)),
+                   (sl["conv_w"], 1 / math.sqrt(kk)),
+                   (sl["r_rec"], 1 / math.sqrt(hd_s)),
+                   (ml["w_q"], 1 / math.sqrt(2 * d))):
+        assert abs(w.std().item() / std - 1.0) < 0.05
 
 
 def test_init_params_distributions_and_seed():

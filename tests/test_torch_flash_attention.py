@@ -159,14 +159,16 @@ echo built > "$out"
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     monkeypatch.setattr(_build, "_nvcc", lambda: nvcc)
     paths = _build.build_all()
-    assert set(paths) == {"flash_attention"}
-    assert paths["flash_attention"].read_text() == "built\n"
-    calls = log.read_text().splitlines()
-    assert len(calls) == 1
-    assert "arch=compute_90a,code=sm_90a" in calls[0]
-    assert calls[0].endswith("csrc/flash_attention.cu")
+    names = {"flash_attention", "mlstm_scan"}
+    assert set(paths) == names
+    assert all(p.read_text() == "built\n" for p in paths.values())
+    calls = sorted(log.read_text().splitlines(), key=lambda c: c.split()[-1])
+    assert len(calls) == len(names)               # one nvcc per source
+    for call, name in zip(calls, sorted(names)):
+        assert "arch=compute_90a,code=sm_90a" in call
+        assert call.endswith(f"csrc/{name}.cu")
     assert _build.build_all() == paths            # unchanged tree: no rebuild
-    assert len(log.read_text().splitlines()) == 1
+    assert len(log.read_text().splitlines()) == len(names)
     assert not list((tmp_path / "build").glob("*.tmp.so"))
 
 

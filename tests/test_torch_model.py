@@ -51,7 +51,8 @@ def test_smoke_config_is_the_reference_one():
 
 
 def test_registry_names_the_ported_arches():
-    with pytest.raises(KeyError, match="ported: \\['stablelm-1.6b'\\]"):
+    with pytest.raises(KeyError,
+                       match="ported: \\['stablelm-1.6b', 'xlstm-125m'\\]"):
         registry.get_config("gemma3-12b")
 
 
