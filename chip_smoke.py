@@ -7,21 +7,32 @@ Phases, each of which raises (and so exits non-zero) on any failure:
   1. build    compile every CUDA C++ kernel of the port from the sources in
               this checkout (nvcc, sm_90a) into build/.
   2. kernels  hold each kernel against its plain PyTorch version on the card
-              at the shapes of the serve and train paths, and time kernel,
+              at the shapes of the serve and train paths (flash_attention at
+              stablelm's and jamba's prefill, mlstm_scan at xlstm's training
+              step, ssm_scan at jamba's prefill and decode), and time kernel,
               plain version and, where there is one, the PyTorch library
               call that computes the same function (a yardstick only; the
               port never calls it).
-  3. parity   at full width, 2 layers, fp32, the port on the card against
-              the port on the CPU (the CPU path is the one the tests hold
-              against the JAX reference): stablelm-1.6b prefill and greedy
-              tokens; xlstm-125m (one sLSTM, one mLSTM layer) loss and every
-              gradient leaf, prefill logits and 4 decode steps.
+  3. parity   the port on the card against the port on the CPU (the CPU
+              path is the one the tests hold against the JAX reference), in
+              fp32: stablelm-1.6b at full width, 2 layers, prefill and greedy
+              tokens; xlstm-125m at full width, 2 layers (one sLSTM, one
+              mLSTM), loss and every gradient leaf, prefill logits and 4
+              decode steps; the jamba cut (one 8-layer group, dense FFNs) at
+              its smoke widths, prefill logits, 4 decode steps and greedy
+              tokens.
   4. serve    stablelm-1.6b at full width and depth (24 layers, bf16,
               random weights from a seed) serves requests drawn from the
               load module's length mix plus two 2048-token prompts through
               `ServingEngine`, the port's serving path; flash_attention must
               have launched there. Then torch.profiler over its shortest and
               its longest wave says where their time goes.
+  4b. serve   jamba-1.5-large-398b cut to one 8-layer group (7 Mamba layers,
+              1 attention layer) at full width, dense SwiGLU FFNs in place of
+              the experts, bf16, 8,999,034,880 random parameters: the same
+              kind of traffic through `ServingEngine`, with flash_attention
+              launched once a wave and ssm_scan 7 times a prefill and a
+              decode step; then the same profile.
   5. train    xlstm-125m at full width and depth (12 layers, bf16 params,
               fp32 AdamW moments, random weights from a seed) trains through
               `repro_torch.train.lm.train_lm`, the port's training path, with
@@ -34,6 +45,7 @@ last line is {"ok": true, "device": {...}}. Without a card it exits 1.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import statistics
@@ -54,6 +66,17 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES_PER_S = 3.35e12
 # Kernel vs plain version, compared in fp32: |a - b| <= tol + tol * |b|.
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# ssm_scan: fp32 1e-4, as the fp32 state runs through 2,048 sequential
+# steps whose fma contractions and exps differ from the plain version's by
+# an ulp each; bf16 2e-2, tests/test_kernels.py's TOL (y rounded to bf16).
+# The state out is fp32 whatever x's type, and held at fp32's 1e-4.
+SSM_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# The exps of a selective scan run on the special function units: 16 per SM
+# per clock on the H100's 132 SMs.
+SFU_PER_SM_CLOCK, SMS = 16, 132
+# jamba-1.5-large-398b cut to one group without experts: its parameters by
+# `jax.eval_shape` of the reference's init (tests/test_torch_jamba.py).
+JAMBA_CUT_PARAMS = 8_999_034_880
 # mlstm_scan: fp32 1e-4, as the kernel and the plain version sum in other
 # orders (fma chains vs einsum) through the exp-weighted state over many
 # chunks; bf16 5e-2, the bound of tests/test_kernels.py:95 (y rounded to
@@ -98,12 +121,21 @@ def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def release_memory() -> None:
+    """Free what the last phase left (its params and caches are garbage
+    once it returns) before the next phase allocates."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def reset_launch_counts() -> None:
     """Every kernel wrapper's launch count to 0, just before a main path."""
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.mlstm_scan import mlstm_scan
+    from repro_torch.kernels.ssm_scan import ssm_scan
     flash_attention.launches = 0
     mlstm_scan.launches = 0
+    ssm_scan.launches = 0
 
 
 # ------------------------------------------------------------------ phase 2
@@ -146,8 +178,10 @@ def check_flash_attention(gen):
          (torch.float32,)),
         ("non-causal window 64 S<T", 1, 4, 4, 100, 160, 32, False, 64,
          (torch.float32,)),
+        ("jamba prefill GQA 8:1 hd=128", 2, 64, 8, 2048, 2048, 128, True, 0,
+         (torch.bfloat16,)),
     ]
-    main = None
+    main = jamba = None
     for label, b, h, hkv, s, t, hd, causal, window, dtypes in cases:
         for dt in dtypes:
             q, k, v = _attn_inputs(gen, b, h, hkv, s, t, hd, dt)
@@ -168,25 +202,40 @@ def check_flash_attention(gen):
                 f"window={window}: max_abs_err={err} (tol {TOL[dt]}) ok")
             if label == "stablelm prefill S=2048":
                 main = (q, k, v, err)
+            elif label.startswith("jamba"):
+                jamba = (q, k, v, err)
 
     q, k, v, err = main
-    b, h, s, hd = q.shape
-    t = k.shape[2]
-    kernel_ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True), 20)
-    plain_ms = cuda_ms(lambda: attention_ref(q, k, v, causal=True), 10)
-    library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        q, k, v, is_causal=True), 20)
-    flops = 4 * b * h * hd * _valid_pairs(s, t, True, 0)
-    nbytes = sum(x.numel() * x.element_size() for x in (q, k, v, q))
-    t_ops, t_bytes = flops / PEAK_FLOPS[q.dtype], nbytes / PEAK_BYTES_PER_S
     entry = {
         "name": "flash_attention",
         "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:27",
-        "shape": f"bf16 B={b} H={h} S={s} T={t} hd={hd} causal",
         "launches": None,
         "max_abs_err": err,
+        **_flash_times(q, k, v),
+    }
+    q, k, v, err = jamba
+    entry["at_jamba_shape"] = dict(_flash_times(q, k, v), max_abs_err=err)
+    return entry
+
+
+def _flash_times(q, k, v) -> dict:
+    """Kernel, plain and SDPA ms of one causal call, and its bound."""
+    from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+    b, h, s, hd = q.shape
+    hkv, t = k.shape[1], k.shape[2]
+    kernel_ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True), 20)
+    plain_ms = cuda_ms(lambda: attention_ref(q, k, v, causal=True), 10)
+    gqa = {"enable_gqa": True} if hkv != h else {}
+    library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, is_causal=True, **gqa), 20)
+    flops = 4 * b * h * hd * _valid_pairs(s, t, True, 0)
+    nbytes = sum(x.numel() * x.element_size() for x in (q, k, v, q))
+    t_ops, t_bytes = flops / PEAK_FLOPS[q.dtype], nbytes / PEAK_BYTES_PER_S
+    times = {
+        "shape": f"{str(q.dtype)[6:]} B={b} H={h} Hkv={hkv} S={s} T={t} "
+                 f"hd={hd} causal",
         "ms": kernel_ms,
         "plain_ms": plain_ms,
         "bound_ms": max(t_ops, t_bytes) * 1e3,
@@ -195,11 +244,11 @@ def check_flash_attention(gen):
         "flops": flops,
         "bytes": nbytes,
     }
-    log(f"[kernels] flash_attention at {entry['shape']}: kernel {kernel_ms:.4f} "
-        f"ms, plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
-        f"{entry['bound_ms']:.4f} ms ({entry['bound_by']}: {flops} flop, "
-        f"{nbytes} bytes)")
-    return entry
+    log(f"[kernels] flash_attention at {times['shape']}: kernel "
+        f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} "
+        f"ms, bound {times['bound_ms']:.4f} ms ({times['bound_by']}: {flops} "
+        f"flop, {nbytes} bytes)")
+    return times
 
 
 def _mlstm_inputs(gen, b, h, s, hd, dtype, with_state=False):
@@ -320,6 +369,143 @@ def check_mlstm_scan(gen):
     return entry
 
 
+def _ssm_case(gen, b, s, di, ds, x_dtype, p_dtype, with_state=False,
+                views=False):
+    """x, dt (B,S,di), B, C (B,S,ds), A (di,ds), D (di,) as
+    tests/test_kernels.py makes them (x, B, C scaled by 0.5, dt =
+    softplus(0.3 n - 1), A = -exp(0.3 n), D = 0.1 n); x in `x_dtype`, dt, B,
+    C in `p_dtype`; optionally a non-zero state h0 (B,di,ds), and B and C as
+    column views of one (B,S,2ds+8) tensor, as the model's x_proj gives
+    them."""
+    def mk(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+    x = (mk(b, s, di) * 0.5).to(x_dtype)
+    dt = torch.nn.functional.softplus(mk(b, s, di) * 0.3 - 1.0).to(p_dtype)
+    if views:
+        x_db = (mk(b, s, 2 * ds + 8) * 0.5).to(p_dtype)
+        b_t, c_t = x_db[..., 8:8 + ds], x_db[..., 8 + ds:]
+    else:
+        b_t, c_t = ((mk(b, s, ds) * 0.5).to(p_dtype) for _ in range(2))
+    a = -torch.exp(mk(di, ds) * 0.3)
+    d = mk(di) * 0.1
+    h0 = mk(b, di, ds) * 0.3 if with_state else None
+    return (x, dt, b_t, c_t, a, d), h0
+
+
+def _ssm_err(label, got, want) -> float:
+    """Max abs error of y and the state out; raises beyond the tolerance."""
+    err = 0.0
+    for name, a, b in zip(("y", "h_last"), got, want):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            raise AssertionError(f"ssm_scan {label} {name}: "
+                                 f"{a.shape}/{a.dtype} vs {b.shape}/{b.dtype}")
+        diff = (a.float() - b.float()).abs()
+        tol = SSM_TOL[a.dtype]
+        bad = diff > tol + tol * b.float().abs()
+        if not torch.isfinite(a).all() or bool(bad.any()):
+            raise AssertionError(f"ssm_scan {label} {name}: max abs err "
+                                 f"{float(diff.max())} beyond tol {tol}")
+        err = max(err, float(diff.max()))
+    return err
+
+
+def _sm_clock_mhz() -> float:
+    """The card's highest SM clock, the one its peak rates assume."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        check=True, capture_output=True, text=True, timeout=60)
+    return float(out.stdout.strip().splitlines()[0])
+
+
+def check_ssm_scan(gen):
+    from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_ref
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [  # (label, B, S, di, ds, x dtype, dt/B/C dtype, state, views)
+        ("jamba prefill", 2, 2048, 16_384, 16, bf16, f32, False, False),
+        ("jamba decode S=1 with state", 4, 1, 16_384, 16, bf16, f32, True,
+         False),
+        *[(f"S={s} di={di} ds={ds}", 2, s, di, ds, dt, dt, False, False)
+          for s, di, ds in ((64, 128, 16), (128, 256, 16), (256, 128, 8))
+          for dt in (f32, bf16)],
+        *[("ragged S=77 di=384 with state, B/C views", 1, 77, 384, ds, x_dt,
+           f32, True, True) for ds in (8, 16) for x_dt in (f32, bf16)],
+    ]
+    main = None
+    for label, b, s, di, ds, x_dt, p_dt, with_state, views in cases:
+        args, h0 = _ssm_case(gen, b, s, di, ds, x_dt, p_dt, with_state,
+                               views)
+        got = ssm_scan(*args, h0)
+        want = ssm_scan_ref(*args, h0)
+        torch.cuda.synchronize()
+        err = _ssm_err(label, got, want)
+        log(f"[kernels] ssm_scan {label} x {str(x_dt)[6:]} dt/B/C "
+            f"{str(p_dt)[6:]} B={b} S={s} di={di} ds={ds}: max_abs_err={err} "
+            f"(tol {SSM_TOL[x_dt]}, h_last {SSM_TOL[f32]}) ok")
+        if main is None:
+            main = (args, err)
+
+    # chained: the state out of one call feeds the next, against one call
+    # over the whole sequence
+    for x_dt in (f32, bf16):
+        args, _ = _ssm_case(gen, 2, 200, 384, 16, x_dt, f32)
+        y1, h1 = ssm_scan(*(t[:, :72] for t in args[:4]), *args[4:])
+        y2, h2 = ssm_scan(*(t[:, 72:] for t in args[:4]), *args[4:], h1)
+        want = ssm_scan_ref(*args)
+        torch.cuda.synchronize()
+        err = _ssm_err("chained 72+128", (torch.cat([y1, y2], dim=1), h2),
+                       want)
+        log(f"[kernels] ssm_scan chained 72+128 vs one call S=200 di=384 x "
+            f"{str(x_dt)[6:]}: max_abs_err={err} ok")
+
+    args, err = main
+    x, dt, b_t, c_t, a, d = args
+    b, s, di = x.shape
+    ds = a.shape[1]
+    kernel_ms = cuda_ms(lambda: ssm_scan(*args), 20)
+    plain_ms = cuda_ms(lambda: ssm_scan_ref(*args), 3, warmup=1)
+    clock_mhz = _sm_clock_mhz()
+    updates = b * s * di * ds
+    # per state update: dt*A, dt*B*x (2), the fma into h (2), the fma of
+    # C.h (2); per channel and step D*x and its add
+    flops = 6 * updates + 2 * b * s * di
+    nbytes = (sum(t.numel() * t.element_size() for t in args)
+              + x.numel() * x.element_size() + 4 * b * di * ds)
+    t_exp = updates / (SMS * SFU_PER_SM_CLOCK * clock_mhz * 1e6)
+    t_ops = max(flops / PEAK_FLOPS[torch.float32], t_exp)
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    entry = {
+        "name": "ssm_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu",
+        "replaces": "src/repro/kernels/ssm_scan/kernel.py:21",
+        "shape": f"x bf16, dt/B/C fp32, B={b} S={s} di={di} ds={ds}",
+        "launches": None,
+        "max_abs_err": err,
+        "ms": kernel_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(t_ops, t_bytes) * 1e3,
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        # no single PyTorch call computes a selective scan
+        "library_ms": None,
+        "flops": flops,
+        "exps": updates,
+        "bytes": nbytes,
+        "sm_clock_max_mhz": clock_mhz,
+        "exp_ms": t_exp * 1e3,
+        "flop_ms": flops / PEAK_FLOPS[torch.float32] * 1e3,
+        "bytes_ms": t_bytes * 1e3,
+    }
+    log(f"[kernels] ssm_scan at {entry['shape']}: kernel {kernel_ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, no library call, bound "
+        f"{entry['bound_ms']:.4f} ms ({entry['bound_by']}: {updates} exps at "
+        f"{SFU_PER_SM_CLOCK}/SM/clock x {SMS} SMs x {clock_mhz} MHz = "
+        f"{entry['exp_ms']:.4f} ms; {flops} fp32 flop = "
+        f"{entry['flop_ms']:.4f} ms; {nbytes} bytes = "
+        f"{entry['bytes_ms']:.4f} ms)")
+    return entry
+
+
 # ------------------------------------------------------------------ phase 3
 
 def check_card_vs_cpu():
@@ -424,6 +610,66 @@ def check_xlstm_card_vs_cpu():
         f"logits max abs err {logit_err} (tol {PARITY_TOL})")
 
 
+def _jamba_cut(base):
+    """jamba-1.5-large-398b cut to one 8-layer group with dense FFNs: the
+    port has no MoE layer yet."""
+    from repro_torch.configs.base import DENSE
+    return base.scaled(num_layers=8, ffn_pattern=(DENSE,) * 8, moe=None)
+
+
+def check_jamba_card_vs_cpu():
+    """The jamba cut at its smoke widths, fp32 (7 Mamba layers through the
+    ssm_scan kernel at d_state 8, GQA attention at hd 32 through flash):
+    prefill logits, 4 decode steps and greedy tokens, card vs CPU."""
+    from repro_torch.bridge import init_params, params_to
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.models import build_model
+    from repro_torch.serving import load
+    from repro_torch.serving.engine import ServingEngine
+
+    cfg = _jamba_cut(get_smoke_config("jamba-1.5-large-398b")).scaled(
+        param_dtype="float32")
+    model = build_model(cfg)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED))
+    cpu_params = params_to(params, "cpu")
+    rng = np.random.default_rng(SEED)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(2, 36)))
+
+    logit_err = 0.0
+    with torch.inference_mode():
+        outs = []
+        for dev, p in (("cuda", params), ("cpu", cpu_params)):
+            logits, cache = model.prefill(p, {"tokens": tokens[:, :32].to(dev)},
+                                          max_seq=40)
+            steps = [logits]
+            for t in range(32, 36):
+                logits, cache = model.decode_step(
+                    p, cache, tokens[:, t:t + 1].to(dev), t)
+                steps.append(logits)
+            outs.append(steps)
+        for a, b in zip(*outs):
+            logit_err = max(logit_err, float((a.cpu() - b).abs().max()))
+    if not logit_err <= PARITY_TOL:
+        raise AssertionError(f"jamba prefill/decode logits card vs cpu: "
+                             f"{logit_err} > {PARITY_TOL}")
+
+    trace = load.poisson_trace(50.0, 10.0, seed=SEED, max_new_tokens=8)[:4]
+    requests = [r for _, r in load.materialize(trace, SEED, cfg.vocab_size)]
+    card = ServingEngine(model, params, max_seq=128).serve(requests, 4)
+    cpu = ServingEngine(model, cpu_params, max_seq=128,
+                        device="cpu").serve(requests, 4)
+    card_tok = {r.request_id: r.tokens for r in card}
+    cpu_tok = {r.request_id: r.tokens for r in cpu}
+    if card_tok != cpu_tok:
+        raise AssertionError(f"jamba greedy tokens differ: card {card_tok} "
+                             f"cpu {cpu_tok}")
+    log(f"[parity] jamba cut d={cfg.d_model} d_state={cfg.mamba.d_state} 8 "
+        f"layers (7 Mamba, 1 GQA attention) fp32: prefill 32 + 4 decode "
+        f"steps logits max abs err card vs cpu {logit_err} (tol "
+        f"{PARITY_TOL}); greedy tokens equal for prompt lengths "
+        f"{[len(r.prompt) for r in requests]}")
+
+
 # ------------------------------------------------------------------ phase 4
 
 def _numel(tree) -> int:
@@ -460,31 +706,28 @@ class _TimedModel:
                            cache, tokens, pos)
 
 
-def serve_full_model(card: str):
-    from repro_torch.bridge import init_params
-    from repro_torch.configs.registry import get_config
+def _serve(cfg, params, n_short: int, card: str):
+    """Serve `n_short` requests from the load module's trace (seed 0) and
+    two 2048-token prompts, 16 new tokens each, max_wave 4, through
+    `ServingEngine`, after a warm-up wave. Every request must be answered
+    in full. Returns the timed model, the waves and each kernel's launches
+    in the served set."""
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssm_scan import ssm_scan
     from repro_torch.models import build_model, padded_vocab
     from repro_torch.serving import load
     from repro_torch.serving.engine import (Request, ServingEngine,
                                             length_aligned_waves)
 
-    cfg = get_config("stablelm-1.6b")
     new_tokens, long_prompt, max_wave = 16, 2048, 4
-    t0 = time.perf_counter()
-    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED + 1))
-    torch.cuda.synchronize()
-    n_params = _numel(params)
-    log(f"[serve] stablelm-1.6b {cfg.num_layers} layers d={cfg.d_model} "
-        f"{cfg.param_dtype}: {n_params} params initialized in "
-        f"{time.perf_counter() - t0:.1f} s")
     timed = _TimedModel(build_model(cfg), padded_vocab(cfg))
     engine = ServingEngine(timed, params, max_seq=long_prompt + new_tokens)
-
     trace = load.poisson_trace(50.0, 10.0, seed=SEED, max_new_tokens=new_tokens)
     rng = np.random.default_rng(SEED)
-    requests = [r for _, r in load.materialize(trace[:8], SEED, cfg.vocab_size)]
-    requests += [Request(8 + i, rng.integers(0, cfg.vocab_size, long_prompt)
+    requests = [r for _, r in load.materialize(trace[:n_short], SEED,
+                                               cfg.vocab_size)]
+    requests += [Request(n_short + i, rng.integers(0, cfg.vocab_size,
+                                                   long_prompt)
                          .astype(np.int32), new_tokens) for i in range(2)]
     waves = length_aligned_waves(requests, max_wave)
 
@@ -497,7 +740,8 @@ def serve_full_model(card: str):
     t0 = time.perf_counter()
     responses = engine.serve(requests, max_wave)
     wall_s = time.perf_counter() - t0
-    launches = flash_attention.launches
+    launches = {"flash_attention": flash_attention.launches,
+                "ssm_scan": ssm_scan.launches}
 
     if sorted(r.request_id for r in responses) != \
             sorted(r.request_id for r in requests):
@@ -507,16 +751,15 @@ def serve_full_model(card: str):
         if len(r.tokens) != budget[r.request_id] or not all(
                 0 <= tok < padded_vocab(cfg) for tok in r.tokens):
             raise AssertionError(f"request {r.request_id}: tokens {r.tokens}")
-    if launches != cfg.num_layers * len(waves) or launches == 0:
-        raise AssertionError(f"flash_attention launched {launches} times, "
-                             f"want {cfg.num_layers} x {len(waves)} waves")
+    if len(timed.prefill_ms) != len(waves):
+        raise AssertionError(f"{len(timed.prefill_ms)} prefills for "
+                             f"{len(waves)} waves")
     generated = sum(len(r.tokens) for r in responses)
     wave_desc = [f"{len(w)}x{len(w[0].prompt)}" for w in waves]
     log(f"[serve] card: {card}")
     log(f"[serve] {len(responses)} requests in {len(waves)} waves "
         f"(batch x prompt: {wave_desc}), {new_tokens} new tokens each, "
-        f"max_wave {max_wave}: flash_attention launches {launches} "
-        f"= {cfg.num_layers} x {len(waves)}")
+        f"max_wave {max_wave}: launches {launches}")
     for w, ms in zip(wave_desc, timed.prefill_ms):
         log(f"[serve] prefill wave {w}: {ms:.3f} ms")
     log(f"[serve] decode per token (one step of the wave batch): median "
@@ -525,6 +768,61 @@ def serve_full_model(card: str):
     log(f"[serve] wall {wall_s:.3f} s, {generated} tokens, "
         f"{generated / wall_s:.1f} tokens/s; max_memory_allocated "
         f"{torch.cuda.max_memory_allocated()} bytes")
+    return timed, engine, waves, launches
+
+
+def _init_full(cfg, seed: int):
+    from repro_torch.bridge import init_params
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(seed))
+    torch.cuda.synchronize()
+    n_params = _numel(params)
+    log(f"[serve] {cfg.name} {cfg.num_layers} layers d={cfg.d_model} "
+        f"{cfg.param_dtype}: {n_params} params initialized in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return params, n_params
+
+
+def serve_full_model(card: str) -> int:
+    """stablelm-1.6b at full size; returns flash_attention's launches."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.serving.engine import ServingEngine
+
+    cfg = get_config("stablelm-1.6b")
+    params, _ = _init_full(cfg, SEED + 1)
+    timed, engine, waves, launches = _serve(cfg, params, 8, card)
+    flash = launches["flash_attention"]
+    if flash != cfg.num_layers * len(waves) or flash == 0:
+        raise AssertionError(f"flash_attention launched {flash} times, "
+                             f"want {cfg.num_layers} x {len(waves)} waves")
+    log(f"[serve] flash_attention launches {flash} = {cfg.num_layers} "
+        f"layers x {len(waves)} waves")
+    profile_waves(ServingEngine(timed.model, params, engine.max_seq),
+                  [waves[0], waves[-1]])
+    return flash
+
+
+def serve_jamba(card: str) -> dict:
+    """The jamba cut at full width; returns flash_attention's and
+    ssm_scan's launches."""
+    from repro_torch.configs.base import ATTN, MAMBA
+    from repro_torch.configs.registry import get_config
+    from repro_torch.serving.engine import ServingEngine
+
+    cfg = _jamba_cut(get_config("jamba-1.5-large-398b"))
+    params, n_params = _init_full(cfg, SEED + 3)
+    if n_params != JAMBA_CUT_PARAMS:
+        raise AssertionError(f"{n_params} params, want {JAMBA_CUT_PARAMS}")
+    timed, engine, waves, launches = _serve(cfg, params, 4, card)
+    n_attn, n_mamba = cfg.pattern.count(ATTN), cfg.pattern.count(MAMBA)
+    steps = len(timed.prefill_ms) + len(timed.decode_ms)
+    want = {"flash_attention": n_attn * len(waves), "ssm_scan": n_mamba * steps}
+    if launches != want:
+        raise AssertionError(f"launches {launches}, want {want}")
+    log(f"[serve] jamba launches: flash_attention {want['flash_attention']} "
+        f"= {n_attn} attention layer x {len(waves)} waves; ssm_scan "
+        f"{want['ssm_scan']} = {n_mamba} Mamba layers x ({len(timed.prefill_ms)} "
+        f"prefills + {len(timed.decode_ms)} decode steps)")
     profile_waves(ServingEngine(timed.model, params, engine.max_seq),
                   [waves[0], waves[-1]])
     return launches
@@ -648,12 +946,22 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     flash = timed("kernels flash_attention", check_flash_attention, gen)
     mlstm = timed("kernels mlstm_scan", check_mlstm_scan, gen)
+    ssm = timed("kernels ssm_scan", check_ssm_scan, gen)
     timed("parity stablelm", check_card_vs_cpu)
     timed("parity xlstm", check_xlstm_card_vs_cpu)
-    flash["launches"] = timed("serve", serve_full_model, card)
+    timed("parity jamba", check_jamba_card_vs_cpu)
+    release_memory()
+    stablelm_flash = timed("serve stablelm", serve_full_model, card)
+    release_memory()   # stablelm's engine and params, before jamba's 18 GB
+    jamba = timed("serve jamba", serve_jamba, card)
+    release_memory()
+    flash["launches"] = stablelm_flash + jamba["flash_attention"]
+    flash["launches_by_path"] = {"serve stablelm-1.6b": stablelm_flash,
+                                 "serve jamba cut": jamba["flash_attention"]}
+    ssm["launches"] = jamba["ssm_scan"]
     mlstm["launches"] = timed("train", train_full_model)
 
-    print(json.dumps({"kernels": [flash, mlstm]}), flush=True)
+    print(json.dumps({"kernels": [flash, mlstm, ssm]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

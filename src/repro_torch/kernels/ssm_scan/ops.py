@@ -1,0 +1,123 @@
+"""Public wrapper of the Mamba selective-scan kernel.
+
+A CPU tensor goes to the plain version (`ref.ssm_scan_ref`). A CUDA tensor
+launches the Hopper kernel (`csrc/ssm_scan.cu`) or raises: there is no
+fallback on the card. `ssm_scan.launches` counts kernel launches.
+
+The kernel has no backward yet: on the card a call that would need a
+gradient raises `NotImplementedError` (ROADMAP B4-bwd). Serving, the path
+this kernel is on, runs under `torch.inference_mode()`.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+STATE_DIMS = (8, 16)
+
+
+@functools.lru_cache(maxsize=None)
+def _entry():
+    lib = _build.load("ssm_scan")
+    fn = lib.repro_ssm_scan_fwd
+    i32, i64, ptr = ctypes.c_int, ctypes.c_int64, ctypes.c_void_p
+    fn.argtypes = [i32] * 3 + [ptr] * 9 + [i32] * 3 + [i64] * 10 + [ptr]
+    fn.restype = i32
+    lib.repro_cuda_error_string.argtypes = [i32]
+    lib.repro_cuda_error_string.restype = ctypes.c_char_p
+    return fn, lib.repro_cuda_error_string
+
+
+def _check(x, dt, b_t, c_t, a, d, h0: Optional[torch.Tensor]):
+    tensors = [x, dt, b_t, c_t, a, d] + ([h0] if h0 is not None else [])
+    if any(t.device != x.device for t in tensors):
+        raise ValueError(f"inputs on different devices: "
+                         f"{[str(t.device) for t in tensors]}")
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"ssm_scan takes float32 or bfloat16 x; got {x.dtype}")
+    if dt.dtype not in _DTYPES or not (dt.dtype == b_t.dtype == c_t.dtype):
+        raise TypeError(f"ssm_scan takes float32 or bfloat16 dt, B, C of one "
+                        f"dtype; got {dt.dtype}, {b_t.dtype}, {c_t.dtype}")
+    if x.dim() != 3 or dt.shape != x.shape:
+        raise ValueError(f"want x = dt (B,S,di); got {tuple(x.shape)}, "
+                         f"{tuple(dt.shape)}")
+    bsz, s, di = x.shape
+    if a.dim() != 2 or a.shape[0] != di:
+        raise ValueError(f"A must be (di, ds) with di = {di}; got "
+                         f"{tuple(a.shape)}")
+    ds = a.shape[1]
+    for name, t, shape in (("B", b_t, (bsz, s, ds)), ("C", c_t, (bsz, s, ds)),
+                           ("A", a, (di, ds)), ("D", d, (di,))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape}; got {tuple(t.shape)}")
+    for name, t in (("A", a), ("D", d)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32; got {t.dtype}")
+    if h0 is not None and (h0.dtype != torch.float32
+                           or tuple(h0.shape) != (bsz, di, ds)):
+        raise ValueError(f"h0 must be float32 {(bsz, di, ds)}; got "
+                         f"{h0.dtype} {tuple(h0.shape)}")
+    if ds not in STATE_DIMS:
+        raise ValueError(f"d_state {ds} not in the kernel's {STATE_DIMS}")
+    if s == 0:
+        raise ValueError("empty sequence")
+    for name, t in (("x", x), ("dt", dt), ("B", b_t), ("C", c_t)):
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name} needs a contiguous last axis; strides "
+                             f"{t.stride()}")
+    if max(s, di) >= 2 ** 31 or bsz > 65535:
+        raise ValueError(f"shape {tuple(x.shape)} beyond the launch grid")
+
+
+def _launch(x, dt, b_t, c_t, a, d, h0: Optional[torch.Tensor]):
+    bsz, s, di = x.shape
+    ds = a.shape[1]
+    dev = x.device
+    y = torch.empty((bsz, s, di), dtype=x.dtype, device=dev)
+    h1 = torch.empty((bsz, di, ds), dtype=torch.float32, device=dev)
+    a, d = a.contiguous(), d.contiguous()
+    h0 = None if h0 is None else h0.contiguous()
+    fn, err_str = _entry()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(_DTYPES[x.dtype], _DTYPES[dt.dtype], ds,
+                 x.data_ptr(), dt.data_ptr(), b_t.data_ptr(), c_t.data_ptr(),
+                 a.data_ptr(), d.data_ptr(),
+                 None if h0 is None else h0.data_ptr(),
+                 y.data_ptr(), h1.data_ptr(), bsz, s, di,
+                 *x.stride()[:2], *dt.stride()[:2], *b_t.stride()[:2],
+                 *c_t.stride()[:2], *y.stride()[:2], stream)
+    if err:
+        raise RuntimeError(f"ssm_scan kernel launch failed: "
+                           f"{err_str(err).decode()} (cudaError {err})")
+    ssm_scan.launches += 1
+    return y, h1
+
+
+def ssm_scan(x, dt, b_t, c_t, a, d, h0: Optional[torch.Tensor] = None):
+    """x, dt: (B,S,di); b_t, c_t: (B,S,ds); a: (di,ds) fp32; d: (di,) fp32;
+    h0: (B,di,ds) fp32 or None (zeros). x fp32 or bf16; dt, B, C fp32 or
+    bf16, one type for the three. Returns (y (B,S,di) in x.dtype, h_last
+    (B,di,ds) fp32).
+
+    x, dt, B and C are read by strides, so column slices of a wider
+    activation (the B and C of `x_proj`'s output) need no copy."""
+    tensors = [x, dt, b_t, c_t, a, d] + ([h0] if h0 is not None else [])
+    if all(t.device.type == "cpu" for t in tensors):
+        return ssm_scan_ref(x, dt, b_t, c_t, a, d, h0)
+    _check(x, dt, b_t, c_t, a, d, h0)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            "ssm_scan has no backward kernel yet (ROADMAP B4-bwd); call it "
+            "under torch.no_grad() or torch.inference_mode()")
+    return _launch(x, dt, b_t, c_t, a, d, h0)
+
+
+ssm_scan.launches = 0

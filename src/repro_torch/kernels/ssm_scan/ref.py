@@ -1,0 +1,36 @@
+"""Plain PyTorch version of the Mamba selective-scan kernel.
+
+`ssm_scan_ref` is the port of the reference's sequential oracle
+(`repro.kernels.ssm_scan.ref.ssm_scan_ref`), extended with the state in and
+out that the model's prefill hands to decode (`repro.models.ssm.mamba_mix`
+returns `h_last` for the cache). It is what the Hopper kernel computes, the
+CPU path of the wrapper, and the kernel's reference on the card.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+
+def ssm_scan_ref(x, dt, b_t, c_t, a, d, h0: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sequential over time, fp32 math, S >= 1.
+    x, dt: (B,S,di); b_t, c_t: (B,S,ds); a: (di,ds) fp32; d: (di,) fp32;
+    h0: (B,di,ds) fp32 or None (zeros) -> (y (B,S,di) in x.dtype,
+    h_last (B,di,ds) fp32).
+        h_t = exp(dt_t * A) h_{t-1} + dt_t * B_t x_t ;  y_t = C_t . h_t + D x_t
+    """
+    bsz, s, di = x.shape
+    ds = a.shape[1]
+    xf, dtf, bf, cf = (t.float() for t in (x, dt, b_t, c_t))
+    af, df = a.float(), d.float()
+    h = (torch.zeros(bsz, di, ds, dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
+    ys = []
+    for t in range(s):
+        decay = torch.exp(dtf[:, t, :, None] * af)                   # (B,di,ds)
+        drive = dtf[:, t, :, None] * bf[:, t, None, :] * xf[:, t, :, None]
+        h = decay * h + drive
+        ys.append(torch.einsum("bds,bs->bd", h, cf[:, t]) + df * xf[:, t])
+    return torch.stack(ys, dim=1).to(x.dtype), h

@@ -1,6 +1,10 @@
 """The decoder model: the port of `repro.models.model` for the mixer kinds
-attention (GQA), sLSTM and mLSTM, with dense (SwiGLU) or no FFN: stablelm-
-1.6b's `(ATTN,)`/`(DENSE,)` and xlstm-125m's `(SLSTM, MLSTM)`/`(NONE, NONE)`.
+attention (GQA), Mamba, sLSTM and mLSTM, with dense (SwiGLU) or no FFN:
+stablelm-1.6b's `(ATTN,)`/`(DENSE,)`, xlstm-125m's `(SLSTM, MLSTM)`/`(NONE,
+NONE)` and jamba's 8-layer group of 7 Mamba layers and one attention layer
+with dense FFNs (jamba's MoE layers are not ported). On the card the
+attention layers' prefill runs the flash attention kernel, the mLSTM layers
+the mlstm_scan kernel and the Mamba layers the ssm_scan kernel.
 
 Params keep the reference's nesting: `embed.table`, `final_norm.scale`,
 `lm_head` (absent with tied embeddings), and `groups`, a tuple with one
@@ -16,8 +20,9 @@ Public surface:
     logits, cache = model.decode_step(params, cache, tokens, pos)
     cache = model.init_cache(batch_size, max_seq, device)
 
-Other mixer and FFN kinds, the encoder, modality inputs, `first_k_dense`
-layers and the chunked loss raise `NotImplementedError` until their slices.
+Other mixer and FFN kinds (SWA, MLA, MoE), the encoder, modality inputs,
+`first_k_dense` layers and the chunked loss raise `NotImplementedError`
+until their slices.
 """
 from __future__ import annotations
 
@@ -25,15 +30,15 @@ from typing import Any, Dict, Tuple
 
 import torch
 
-from repro_torch.configs.base import (ATTN, DENSE, MLSTM, NONE, SLSTM,
+from repro_torch.configs.base import (ATTN, DENSE, MAMBA, MLSTM, NONE, SLSTM,
                                       ModelConfig)
 from repro_torch.models import attention as attn
-from repro_torch.models import xlstm
+from repro_torch.models import ssm, xlstm
 from repro_torch.models.layers import (embed_tokens, rmsnorm, softmax_xent,
                                        swiglu, torch_dtype, unembed)
 
 Params = Dict[str, Any]
-MIXERS = (ATTN, SLSTM, MLSTM)
+MIXERS = (ATTN, MAMBA, SLSTM, MLSTM)
 FFNS = (DENSE, NONE)
 
 
@@ -52,6 +57,8 @@ def check_supported(cfg: ModelConfig) -> None:
             raise NotImplementedError(f"ffn kind {kind!r} is not ported")
     if (SLSTM in cfg.pattern or MLSTM in cfg.pattern) and cfg.xlstm is None:
         raise ValueError(f"{cfg.name}: xLSTM layers need cfg.xlstm")
+    if MAMBA in cfg.pattern and cfg.mamba is None:
+        raise ValueError(f"{cfg.name}: Mamba layers need cfg.mamba")
     for field, value in (("first_k_dense", cfg.first_k_dense),
                          ("encoder_layers", cfg.encoder_layers)):
         if value:
@@ -118,6 +125,8 @@ class Model:
         cfg = self.cfg
         if kind == ATTN:
             return attn.attention_forward(lp["mixer"], cfg, x)
+        if kind == MAMBA:
+            return ssm.mamba_mix(lp["mixer"], cfg, x)[0]
         if kind == MLSTM:
             return xlstm.mlstm_mix(lp["mixer"], cfg, x)[0]
         return xlstm.slstm_mix(lp["mixer"], cfg, x)[0]
@@ -162,6 +171,8 @@ class Model:
         if kind == ATTN:
             return attn.init_attn_cache(cfg, batch, max_seq, dtype=dt,
                                         device=device, lead=lead)
+        if kind == MAMBA:
+            return ssm.init_mamba_cache(cfg, batch, dt, device, lead)
         if kind == MLSTM:
             return xlstm.init_mlstm_cache(cfg, batch, dt, device, lead)
         return xlstm.init_slstm_cache(cfg, batch, dt, device, lead)
@@ -179,6 +190,9 @@ class Model:
         cfg = self.cfg
         if kind == ATTN:
             return attn.attention_prefill(lp["mixer"], cfg, x, max_seq=max_seq)
+        if kind == MAMBA:
+            out, (h_last, tail) = ssm.mamba_mix(lp["mixer"], cfg, x)
+            return out, {"h": h_last, "conv": tail}
         if kind == MLSTM:
             out, ((c, n, m), tail) = xlstm.mlstm_mix(lp["mixer"], cfg, x)
             return out, {"C": c, "n": n, "m": m, "conv": tail}
@@ -216,8 +230,8 @@ class Model:
                 out, _ = attn.attention_decode(lp["mixer"], cfg, mix_in,
                                                layer_cache, pos)
             else:
-                decode = (xlstm.mlstm_decode if kind == MLSTM
-                          else xlstm.slstm_decode)
+                decode = {MAMBA: ssm.mamba_decode, MLSTM: xlstm.mlstm_decode,
+                          SLSTM: xlstm.slstm_decode}[kind]
                 out, core = decode(lp["mixer"], cfg, mix_in, layer_cache)
                 _store(cache["groups"][i], g, core)
             h = self._ffn(lp, i, h + out)

@@ -9,7 +9,9 @@ slot is uniform across lanes). Lanes that reach their token budget are
 masked out but keep riding the batch until the wave drains.
 
 The engine runs on the card unless `device="cpu"` is passed. On the card,
-prefill's attention is the Hopper flash attention kernel.
+prefill's attention is the Hopper flash attention kernel, and a Mamba
+layer's scan (jamba) is the Hopper ssm_scan kernel in prefill and decode;
+an mLSTM layer runs the mlstm_scan kernel likewise.
 `ServingReplica` and `ReplicaPool` wait for the runtime slice.
 """
 from __future__ import annotations

@@ -11,7 +11,7 @@ from repro.configs.registry import get_smoke_config  # noqa: E402
 from repro.models import build_model as jax_build_model  # noqa: E402
 from repro_torch.bridge import params_from_numpy  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
-from repro_torch.configs.base import MAMBA, MOE  # noqa: E402
+from repro_torch.configs.base import MLA, MOE  # noqa: E402
 from repro_torch.models import build_model, padded_vocab  # noqa: E402
 
 TOL = dict(rtol=2e-3, atol=2e-3)
@@ -51,13 +51,13 @@ def test_smoke_config_is_the_reference_one():
 
 
 def test_registry_names_the_ported_arches():
-    with pytest.raises(KeyError,
-                       match="ported: \\['stablelm-1.6b', 'xlstm-125m'\\]"):
+    with pytest.raises(KeyError, match="ported: \\['jamba-1.5-large-398b', "
+                       "'stablelm-1.6b', 'xlstm-125m'\\]"):
         registry.get_config("gemma3-12b")
 
 
 @pytest.mark.parametrize("override,name", [
-    (dict(pattern=(MAMBA,)), "mamba"),
+    (dict(pattern=(MLA,)), "mla"),
     (dict(ffn_pattern=(MOE,)), "moe"),
     (dict(pattern=("swa",)), "swa"),
 ])
