@@ -40,6 +40,28 @@ Phases, each of which raises (and so exits non-zero) on any failure:
               seq_len 512: 1 warm-up step, then 8 timed steps whose losses
               must be finite and fall, with mlstm_scan launched once per
               mLSTM layer, shard and step. Then torch.profiler over one step.
+  6. compute  the port's runtime and compute plane on a cluster of one
+              gpu-typed and one cpu node (`repro_torch.core`,
+              `repro_torch.compute`): int8_matmul against its plain version
+              at compute_bench.py's shape, tests/test_kernels.py's shapes and
+              stablelm-1.6b's MLP up-projection (K 2048, N 5632) at a 4-row
+              decode step and the 2 x 2048-token prefill wave, timed beside
+              dequantize + torch.matmul; int8_matmul run as a `kernel_task`
+              on the gpu node (max abs err < 1e-3, its launch counted, the
+              profiler counting the task); the kernel-task round trip against
+              the bare call of tanh(x @ x.T) at dim 384; `ParamSet`
+              publish/fetch of xlstm-125m's parameters from the card
+              (zero-copy views, bit-exact round trip).
+  7. train graph  xlstm-125m at full width and depth trains through the
+              task-graph mode of `train_lm` (one `kernel_task` grad shard a
+              data shard on its own gpu-typed node, reduce and AdamW apply
+              on a cpu node, one compiled graph a step, a `ParamSet`
+              published every 2 steps) with train_lm.py's defaults (global
+              batch 8 in 2 shards, seq_len 128, lr 1e-3): 1 warm-up step,
+              then 4 timed steps; the losses must be finite, fall and equal
+              the `--sync` loop's over the same 5 steps to 1e-5 of their
+              value, with mlstm_scan launched 6 x 2 x 4 times and 8 kernel
+              tasks counted by the profiler.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Without a card it exits 1.
 """
@@ -131,9 +153,11 @@ def release_memory() -> None:
 def reset_launch_counts() -> None:
     """Every kernel wrapper's launch count to 0, just before a main path."""
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.int8_matmul import int8_matmul
     from repro_torch.kernels.mlstm_scan import mlstm_scan
     from repro_torch.kernels.ssm_scan import ssm_scan
     flash_attention.launches = 0
+    int8_matmul.launches = 0
     mlstm_scan.launches = 0
     ssm_scan.launches = 0
 
@@ -305,6 +329,7 @@ def check_mlstm_scan(gen):
     f32, bf16 = torch.float32, torch.bfloat16
     cases = [  # (label, B, H, S, hd, dtypes, with_state)
         ("xlstm-125m training shape", 4, 4, 512, 384, (bf16,), False),
+        ("xlstm-125m task-graph shape", 4, 4, 128, 384, (bf16,), False),
         *[(f"hd={hd}", 2, 4, 256, hd, (f32, bf16), False)
           for hd in (32, 64, 256, 384)],
         ("ragged S=40", 2, 4, 40, 64, (f32, bf16), False),
@@ -890,13 +915,14 @@ def train_full_model() -> int:
         f"{cfg.param_dtype} params, {cfg.opt_state_dtype} moments: "
         f"{_numel(params)} params initialized in "
         f"{time.perf_counter() - t0:.1f} s")
-    warm = train_lm(cfg, 1, batch, seq_len, shards, params=params)
+    warm = train_lm(cfg, 1, batch, seq_len, shards, params=params, sync=True)
     log(f"[train] warm-up step: {warm.step_ms[0]:.1f} ms, loss "
         f"{warm.losses[0]}")
     torch.cuda.reset_peak_memory_stats()
 
     reset_launch_counts()
-    res = train_lm(cfg, steps, batch, seq_len, shards, params=params)
+    res = train_lm(cfg, steps, batch, seq_len, shards, params=params,
+                   sync=True)
     launches = mlstm_scan.launches
 
     want = cfg.pattern.count(MLSTM) * cfg.num_groups * shards * steps
@@ -918,8 +944,350 @@ def train_full_model() -> int:
         f"{batch * seq_len / (step_ms / 1e3):.1f} tokens/s; "
         f"max_memory_allocated {torch.cuda.max_memory_allocated()} bytes")
     profiled(f"train step {batch}x{seq_len} in {shards} shards",
-             lambda: train_lm(cfg, 1, batch, seq_len, shards, params=params),
+             lambda: train_lm(cfg, 1, batch, seq_len, shards, params=params,
+                              sync=True),
              host_ops=False)
+    return launches
+
+
+# ------------------------------------------------------------------ phase 6
+
+# stablelm-1.6b's MLP up-projection: d_model 2048 -> d_ff 5632.
+STABLELM_UP = (2048, 5632)
+# int8_matmul as a kernel task, the reference's gate (compute_bench.py:130).
+KERNEL_TASK_TOL = 1e-3
+
+
+# fp32 int8_matmul: the kernel's max error against the float64 product is at
+# most this many times the plain version's, plus TOL's fp32 2e-5
+INT8_F64_FACTOR = 2
+
+
+def int8_tol(dtype, k: int) -> float:
+    """tests/test_kernels.py's TOL: bf16 2e-2; fp32 2e-5, set there for K
+    up to 256. The rounding of an fp32 sum grows with its length (its worst
+    case as K times the unit roundoff), and two fp32 sums of the same 2,048
+    products in other orders differ by more than 2e-5 near zero: at larger K
+    the fp32 tolerance is 2e-5 * K / 256. The kernel's own error against
+    the float64 product is gated beside it (INT8_F64_FACTOR)."""
+    if dtype == torch.float32:
+        return 2e-5 * max(1.0, k / 256)
+    return TOL[dtype]
+
+
+def _int8_case(gen, m, k, n, dtype, row_stride=None):
+    """x (m,k) in `dtype`, optionally a column slice of a wider tensor, and
+    w (k,n) randn quantized by the port's `quantize_weights`, on the card."""
+    from repro_torch.kernels.int8_matmul import quantize_weights
+    width = row_stride or k
+    x = torch.randn(m, width, generator=gen, device="cuda").to(dtype)[:, :k]
+    wq, scales = quantize_weights(torch.randn(k, n, generator=gen,
+                                              device="cuda"))
+    return x, wq, scales
+
+
+def _int8_work(x, wq) -> tuple:
+    """flop (2 M K N) and bytes (x, wq, scales read once, out written once)
+    of one call."""
+    m, k = x.shape
+    n = wq.shape[1]
+    nbytes = (x.numel() * x.element_size() + wq.numel() + 4 * n
+              + m * n * x.element_size())
+    return 2 * m * k * n, nbytes
+
+
+def _int8_times(x, wq, scales) -> dict:
+    """Kernel, plain and dequantize + cuBLAS ms of one call, and its bound."""
+    from repro_torch.kernels.int8_matmul import int8_matmul, int8_matmul_ref
+    m, k = x.shape
+    n = wq.shape[1]
+    reps = 20 if m * k * n < 1e10 else 10
+    kernel_ms = cuda_ms(lambda: int8_matmul(x, wq, scales), reps)
+    plain_ms = cuda_ms(lambda: int8_matmul_ref(x, wq, scales), reps)
+    library_ms = cuda_ms(lambda: torch.matmul(x, wq.to(x.dtype)) * scales,
+                         reps)
+    flops, nbytes = _int8_work(x, wq)
+    t_ops, t_bytes = flops / PEAK_FLOPS[x.dtype], nbytes / PEAK_BYTES_PER_S
+    times = {
+        "shape": f"{str(x.dtype)[6:]} M={m} K={k} N={n}",
+        "ms": kernel_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(t_ops, t_bytes) * 1e3,
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        # a yardstick of three calls, not one: wq.to(x.dtype), torch.matmul
+        # (cuBLAS) and the scale
+        "library_ms": library_ms,
+        "library": "wq.to(x.dtype), torch.matmul, * scales (3 calls)",
+        "flops": flops,
+        "bytes": nbytes,
+    }
+    log(f"[compute] int8_matmul at {times['shape']}: kernel {kernel_ms:.4f} "
+        f"ms, plain {plain_ms:.4f} ms, dequantize + torch.matmul "
+        f"{library_ms:.4f} ms (3 calls), bound {times['bound_ms']:.4f} ms "
+        f"({times['bound_by']}: {flops} flop, {nbytes} bytes)")
+    return times
+
+
+def check_int8_matmul(gen) -> dict:
+    """int8_matmul against its plain version at every listed shape; times at
+    stablelm's up-projection. Returns the entry of the kernels line."""
+    from repro_torch.kernels.int8_matmul import int8_matmul, int8_matmul_ref
+    f32, bf16 = torch.float32, torch.bfloat16
+    k_up, n_up = STABLELM_UP
+    cases = [  # (label, M, K, N, dtypes, row stride of x)
+        ("compute_bench", 8, 128, 128, (f32,), None),
+        ("test_kernels", 64, 256, 128, (f32, bf16), None),
+        ("test_kernels", 128, 128, 256, (f32, bf16), None),
+        ("stablelm up-proj decode", 4, k_up, n_up, (bf16, f32), None),
+        ("stablelm up-proj prefill", 4096, k_up, n_up, (bf16,), None),
+        ("ragged, x a column slice", 77, 200, 333, (f32, bf16), 256),
+    ]
+    timed_at = []
+    for label, m, k, n, dtypes, stride in cases:
+        for dt in dtypes:
+            x, wq, scales = _int8_case(gen, m, k, n, dt, stride)
+            out = int8_matmul(x, wq, scales)
+            ref = int8_matmul_ref(x, wq, scales)
+            exact = (x.double() @ wq.double()) * scales.double()
+            torch.cuda.synchronize()
+            if out.shape != ref.shape or out.dtype != ref.dtype:
+                raise AssertionError(f"int8_matmul {label}: {out.shape}/"
+                                     f"{out.dtype} vs {ref.shape}/{ref.dtype}")
+            tol = int8_tol(dt, k)
+            diff = (out.float() - ref.float()).abs()
+            err = float(diff.max())
+            bad = diff > tol + tol * ref.float().abs()
+            if not torch.isfinite(out).all() or bool(bad.any()):
+                raise AssertionError(f"int8_matmul {label} {dt} M={m} K={k} "
+                                     f"N={n}: max abs err {err} beyond tol "
+                                     f"{tol} at {int(bad.sum())} entries")
+            k_err = float((out.double() - exact).abs().max())
+            p_err = float((ref.double() - exact).abs().max())
+            # the scaled fp32 limit above allows for the plain version's own
+            # rounding; this holds the kernel to fp32 accuracy itself
+            if dt == f32 and k_err > INT8_F64_FACTOR * p_err + TOL[f32]:
+                raise AssertionError(
+                    f"int8_matmul {label} fp32 M={m} K={k} N={n}: kernel "
+                    f"{k_err} from the float64 product, more than "
+                    f"{INT8_F64_FACTOR} x the plain version's {p_err} + "
+                    f"{TOL[f32]}")
+            log(f"[compute] int8_matmul {label} {str(dt)[6:]} M={m} K={k} "
+                f"N={n}: max_abs_err={err} (tol {tol}); against the float64 "
+                f"product: kernel {k_err}, plain {p_err} ok")
+            if label.startswith("stablelm"):
+                timed_at.append(dict(_int8_times(x, wq, scales),
+                                     max_abs_err=err))
+    return {
+        "name": "int8_matmul",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/int8_matmul/csrc/int8_matmul.cu",
+        "replaces": "src/repro/kernels/int8_matmul/kernel.py:18",
+        "launches": None,
+        "at_stablelm_up_proj": timed_at,
+    }
+
+
+def _kernel_task_smoke(entry: dict) -> None:
+    """compute_bench.py's pallas smoke: int8_matmul at 8 x 128 x 128 fp32 as
+    a `kernel_task` on the gpu node, against its plain version. The launch
+    count of this run is the kernel's on its main path."""
+    from repro_torch import core
+    from repro_torch.compute import kernel_task
+    from repro_torch.core import profiler
+    from repro_torch.core.api import _cluster
+    from repro_torch.kernels.int8_matmul import int8_matmul, int8_matmul_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    x, wq, scales = _int8_case(gen, 8, 128, 128, torch.float32)
+    kt = kernel_task(lambda xx: int8_matmul(xx, wq, scales),
+                     resources={"gpu": 1.0})
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = core.get(kt.submit(x), timeout=120)
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = int8_matmul.launches
+    ref = int8_matmul_ref(x, wq, scales)
+    err = float((out.float() - ref.float()).abs().max())
+    stats = profiler.summarize(_cluster().gcs)
+    if not (out.is_cuda and out.shape == (8, 128) and err < KERNEL_TASK_TOL):
+        raise AssertionError(f"kernel task: {out.device} {tuple(out.shape)}, "
+                             f"max abs err {err}")
+    if launches != 1 or stats["kernel_tasks"] != 1:
+        raise AssertionError(f"kernel task: {launches} launches, "
+                             f"{stats['kernel_tasks']} kernel tasks, want 1")
+    log(f"[compute] int8_matmul as a kernel_task on the gpu node, fp32 M=8 "
+        f"K=128 N=128: {ms:.3f} ms round trip, max_abs_err {err} (gate "
+        f"{KERNEL_TASK_TOL}), launches {launches}, profiler kernel_tasks "
+        f"{stats['kernel_tasks']}, kernel_time_ms_mean "
+        f"{stats['kernel_time_ms_mean']:.3f}")
+    entry.update(_int8_times(x, wq, scales), launches=launches,
+                 max_abs_err=err,
+                 launches_by_path={"kernel_task (compute_bench smoke)":
+                                   launches})
+
+
+def _host_percentiles(fn, n: int, warmup: int = 3) -> dict:
+    for _ in range(warmup):
+        fn()
+    ts = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        ts.append((time.perf_counter() - t0) * 1e6)
+    ts.sort()
+    return {"p50_us": statistics.median(ts),
+            "p90_us": ts[min(n - 1, int(0.9 * n))]}
+
+
+def _dispatch_round_trip() -> None:
+    """compute_bench.py's dispatch section: the same tanh(x @ x.T) at dim
+    384, a bare call against a kernel-task round trip (host clock, each
+    waited for on the card)."""
+    from repro_torch import core
+    from repro_torch.compute import kernel_task
+
+    def mm(x):
+        return torch.tanh(x @ x.T)
+
+    x = torch.randn(384, 384, generator=torch.Generator(device="cuda")
+                    .manual_seed(SEED), device="cuda")
+    n = 200
+    raw = _host_percentiles(lambda: (mm(x), torch.cuda.synchronize()), n)
+    kt = kernel_task(mm, resources={"gpu": 1.0}, warmup_args=(x,))
+    x_ref = core.put(x)
+    e2e = _host_percentiles(lambda: core.get(kt.submit(x_ref), timeout=60), n)
+    log(f"[compute] tanh(x @ x.T) dim 384 fp32, {n} calls each: bare call "
+        f"p50 {raw['p50_us']:.1f} us p90 {raw['p90_us']:.1f} us; kernel_task "
+        f"round trip p50 {e2e['p50_us']:.1f} us p90 {e2e['p90_us']:.1f} us; "
+        f"ratio of p50s {e2e['p50_us'] / raw['p50_us']:.2f}")
+
+
+def _paramset_round_trip() -> None:
+    """`ParamSet.publish`/`fetch` of xlstm-125m's parameters from the card:
+    bytes, ms, MB/s; fetched leaves are zero-copy views of their shard and
+    equal the card's weights bit for bit."""
+    from repro_torch.bridge import init_params
+    from repro_torch.compute import ParamSet
+    from repro_torch.compute.params import _flatten
+    from repro_torch.configs.registry import get_config
+
+    cfg = get_config("xlstm-125m")
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ps = ParamSet.publish("xlstm", params, num_shards=2)
+    publish_s = time.perf_counter() - t0
+    fresh = ParamSet.latest("xlstm")       # cold handle: no cached buffers
+    t0 = time.perf_counter()
+    fetched = fresh.fetch()
+    fetch_s = time.perf_counter() - t0
+    got, want = dict(_flatten(fetched)), dict(_flatten(params))
+    if sorted(got) != sorted(want):
+        raise AssertionError("ParamSet fetch: leaf paths differ")
+    exact = all(got[p].dtype == want[p].dtype
+                and got[p].shape == want[p].shape
+                and np.array_equal(got[p].view(np.uint8),
+                                   want[p].view(np.uint8)) for p in want)
+    zero_copy = all(
+        np.shares_memory(got[path], fresh._shard(s, timeout=10))
+        and not got[path].flags.writeable
+        for path, _, _, s, *_ in fresh.layout)
+    ParamSet.drop("xlstm")
+    if not (exact and zero_copy):
+        raise AssertionError(f"ParamSet round trip exact {exact}, zero_copy "
+                             f"{zero_copy}")
+    mb = ps.total_bytes / 1e6
+    log(f"[compute] ParamSet xlstm-125m ({len(got)} leaves, "
+        f"{ps.total_bytes} bytes, {len(ps.shard_ids)} shards): publish from "
+        f"the card {publish_s * 1e3:.3f} ms ({mb / publish_s:.1f} MB/s), "
+        f"fetch {fetch_s * 1e3:.3f} ms ({mb / fetch_s:.1f} MB/s); zero_copy "
+        f"{zero_copy}, round trip bit-exact {exact}")
+
+
+def compute_plane(gen) -> dict:
+    """Phase 6 on a cluster of one gpu-typed and one cpu node; returns the
+    int8_matmul entry of the kernels line."""
+    from repro_torch import core
+    entry = check_int8_matmul(gen)
+    core.init(node_resources=[{"cpu": 4.0, "gpu": 1.0}, {"cpu": 4.0}])
+    try:
+        _kernel_task_smoke(entry)
+        _dispatch_round_trip()
+        _paramset_round_trip()
+    finally:
+        core.shutdown()
+    return entry
+
+
+# ------------------------------------------------------------------ phase 7
+
+def train_graph() -> int:
+    """Full xlstm-125m through `train_lm`'s task-graph mode, held against
+    the `--sync` loop; returns mlstm_scan's launches in the timed steps."""
+    from repro_torch.bridge import init_params
+    from repro_torch.configs.base import MLSTM
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.mlstm_scan import mlstm_scan
+    from repro_torch.train.lm import train_lm
+
+    cfg = get_config("xlstm-125m")
+    batch, shards, seq_len, steps, every = 8, 2, 128, 4, 2
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED + 4))
+    warm = train_lm(cfg, 1, batch, seq_len, shards, params=params,
+                    publish_every=every)
+    log(f"[train graph] warm-up step: {warm.step_ms[0]:.1f} ms, loss "
+        f"{warm.losses[0]}")
+    reset_launch_counts()
+    res = train_lm(cfg, steps, batch, seq_len, shards, params=warm.params,
+                   publish_every=every)
+    launches = mlstm_scan.launches
+    stats = res.stats
+
+    # the --sync loop from the same weights over the same 1 + 4 steps
+    # (the task graph left `params` as they were)
+    sync_warm = train_lm(cfg, 1, batch, seq_len, shards, params=params,
+                         sync=True)
+    sync = train_lm(cfg, steps, batch, seq_len, shards, params=params,
+                    sync=True)
+    graph_losses = warm.losses + res.losses
+    sync_losses = sync_warm.losses + sync.losses
+
+    want = cfg.pattern.count(MLSTM) * cfg.num_groups * shards * steps
+    if launches != want:
+        raise AssertionError(f"mlstm_scan launched {launches} times, want "
+                             f"{want} (mLSTM layers x shards x steps)")
+    if stats["kernel_tasks"] != shards * steps:
+        raise AssertionError(f"{stats['kernel_tasks']} kernel tasks, want "
+                             f"{shards * steps}")
+    if stats["param_publishes"] != steps // every:
+        raise AssertionError(f"{stats['param_publishes']} ParamSet "
+                             f"publishes, want {steps // every}")
+    if not all(math.isfinite(x) for x in graph_losses):
+        raise AssertionError(f"non-finite loss: {graph_losses}")
+    if not graph_losses[-1] < graph_losses[0]:
+        raise AssertionError(f"loss did not fall: {graph_losses}")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(graph_losses, sync_losses))
+    if not rel <= LOSS_RTOL:
+        raise AssertionError(f"task graph losses {graph_losses} vs --sync "
+                             f"{sync_losses}: rel err {rel} > {LOSS_RTOL}")
+    step_ms = statistics.median(res.step_ms)
+    sync_ms = statistics.median(sync.step_ms)
+    log(f"[train graph] {steps} steps, global batch {batch} x {seq_len} "
+        f"tokens in {shards} kernel-task shards: losses {res.losses}")
+    log(f"[train graph] losses of the 1 + {steps} steps vs --sync: max rel "
+        f"err {rel} (tol {LOSS_RTOL}); --sync {sync_losses}")
+    log(f"[train graph] mlstm_scan launches {launches} = "
+        f"{want // (shards * steps)} mLSTM layers x {shards} shards x {steps} "
+        f"steps; profiler: kernel_tasks {stats['kernel_tasks']}, "
+        f"kernel_time_ms_mean {stats['kernel_time_ms_mean']:.3f}, "
+        f"device_waits {stats['device_waits']}, param_publishes "
+        f"{stats['param_publishes']}, graph_invocations "
+        f"{stats.get('graph_invocations')}")
+    log(f"[train graph] step ms (host clock): task graph median "
+        f"{step_ms:.3f}, all {[round(x, 3) for x in res.step_ms]}; --sync "
+        f"median {sync_ms:.3f}, all {[round(x, 3) for x in sync.step_ms]}; "
+        f"ratio {step_ms / sync_ms:.3f}; "
+        f"{batch * seq_len / (step_ms / 1e3):.1f} tokens/s")
     return launches
 
 
@@ -959,9 +1327,16 @@ def main() -> int:
     flash["launches_by_path"] = {"serve stablelm-1.6b": stablelm_flash,
                                  "serve jamba cut": jamba["flash_attention"]}
     ssm["launches"] = jamba["ssm_scan"]
-    mlstm["launches"] = timed("train", train_full_model)
+    mlstm_sync = timed("train", train_full_model)
+    release_memory()
+    int8 = timed("compute", compute_plane, gen)
+    release_memory()
+    mlstm_graph = timed("train graph", train_graph)
+    mlstm["launches"] = mlstm_sync + mlstm_graph
+    mlstm["launches_by_path"] = {"train --sync (phase 5)": mlstm_sync,
+                                 "train task graph (phase 7)": mlstm_graph}
 
-    print(json.dumps({"kernels": [flash, mlstm, ssm]}), flush=True)
+    print(json.dumps({"kernels": [flash, mlstm, ssm, int8]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -37,7 +37,9 @@ def _leaf_from_numpy(arr, device) -> torch.Tensor:
     return torch.from_numpy(np.array(arr, order="C")).to(device)
 
 
-def _leaf_to_numpy(t: torch.Tensor) -> np.ndarray:
+def leaf_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """One tensor as a numpy array on the host: a copy from the card, a view
+    of a CPU tensor; bf16 as `ml_dtypes.bfloat16`."""
     t = t.detach().cpu()
     if t.dtype == torch.bfloat16:
         import ml_dtypes  # only where bf16 arrays are wanted back
@@ -52,7 +54,7 @@ def params_from_numpy(tree: Any, device) -> Any:
 
 def params_to_numpy(tree: Any) -> Any:
     """tensor pytree -> numpy pytree (bf16 as `ml_dtypes.bfloat16`)."""
-    return tree_map(_leaf_to_numpy, tree)
+    return tree_map(leaf_to_numpy, tree)
 
 
 def params_to(tree: Any, device) -> Any:

@@ -18,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict
 
@@ -28,6 +29,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+# A device lane and the threads beside it may reach a kernel's first launch
+# at once: one build, one load.
+_lock = threading.Lock()
 
 
 def sources() -> Dict[str, Path]:
@@ -82,10 +86,11 @@ def build_all() -> Dict[str, Path]:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel `name`, built first if needed."""
-    if name not in _loaded:
-        paths = build_all()
-        if name not in paths:
-            raise KeyError(f"no CUDA source for kernel {name!r}; "
-                           f"have {sorted(paths)}")
-        _loaded[name] = ctypes.CDLL(str(paths[name]))
-    return _loaded[name]
+    with _lock:
+        if name not in _loaded:
+            paths = build_all()
+            if name not in paths:
+                raise KeyError(f"no CUDA source for kernel {name!r}; "
+                               f"have {sorted(paths)}")
+            _loaded[name] = ctypes.CDLL(str(paths[name]))
+        return _loaded[name]

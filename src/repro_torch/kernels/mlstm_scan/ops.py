@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import Optional
 
 import torch
@@ -24,6 +25,8 @@ from repro_torch.kernels.mlstm_scan.ref import State, mlstm_scan_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 256, 384)
+
+_LAUNCHES_LOCK = threading.Lock()
 
 
 @functools.lru_cache(maxsize=None)
@@ -102,7 +105,8 @@ def _launch(q, k, v, log_i, log_f, state: Optional[State], bc: int):
     if err:
         raise RuntimeError(f"mlstm_scan kernel launch failed: "
                            f"{err_str(err).decode()} (cudaError {err})")
-    mlstm_scan.launches += 1
+    with _LAUNCHES_LOCK:   # device lanes and callers may launch at once
+        mlstm_scan.launches += 1
     return y, (c1, n1, m1)
 
 

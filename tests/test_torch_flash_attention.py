@@ -159,7 +159,7 @@ echo built > "$out"
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     monkeypatch.setattr(_build, "_nvcc", lambda: nvcc)
     paths = _build.build_all()
-    names = {"flash_attention", "mlstm_scan", "ssm_scan"}
+    names = {"flash_attention", "int8_matmul", "mlstm_scan", "ssm_scan"}
     assert set(paths) == names
     assert all(p.read_text() == "built\n" for p in paths.values())
     calls = sorted(log.read_text().splitlines(), key=lambda c: c.split()[-1])

@@ -1,9 +1,12 @@
 """The port's training slice on the CPU against the JAX package: the data
 pipeline copy, AdamW and the cosine schedule, the train step with and
 without microbatches, and the `--sync` loop of `examples/train_lm.py`,
-from the same JAX-initialized xlstm weights (smoke config, fp32)."""
+from the same JAX-initialized xlstm weights (smoke config, fp32); then
+its task-graph mode against the `--sync` loop, also after a node loss."""
 import importlib.util
 import re
+import threading
+import time
 from pathlib import Path
 
 import numpy as np
@@ -250,7 +253,7 @@ def test_train_lm_matches_the_jax_sync_loop(pair):
 
     init = _by_path(_np(pair[2]))
     res = lm.train_lm(tcfg, 3, batch, seq_len, shards, "cpu",
-                      params=params_from_numpy(_np(pair[2]), "cpu"))
+                      params=params_from_numpy(_np(pair[2]), "cpu"), sync=True)
     np.testing.assert_allclose(res.losses, jlosses, **LOSS_TOL)
     assert len(res.step_ms) == 3 and int(res.opt_state["step"]) == 3
     # What the 3 steps moved, leaf by leaf. AdamW's first steps move a
@@ -276,9 +279,113 @@ def test_train_lm_main(capsys):
     assert "trained 3 steps" in out
 
 
-def test_train_lm_main_needs_sync():
-    with pytest.raises(NotImplementedError, match="A10"):
-        lm.main(["--device", "cpu"])
+def test_train_lm_main_runs_the_task_graph(capsys):
+    """`python -m repro_torch.train.lm --device cpu --steps 2` needs no
+    `--sync`: without it, it trains through the compiled task graph, and
+    the loss falls (at 2 x 16 tokens a step it does not, in either mode)."""
+    rc = lm.main(["--device", "cpu", "--steps", "2", "--batch", "4",
+                  "--seq-len", "32", "--publish-every", "1"])
+    out = capsys.readouterr().out
+    first, last = map(float, re.search(r"^loss (\S+) -> (\S+) ",
+                                       out, re.M).groups())
+    assert last < first and rc == 0
+    assert "kernel tasks: 4," in out and "param publishes 2" in out
+
+
+# ------------------------------------------------------------ task graph
+
+def _reduced():
+    """train_lm.py's reduced config, as `lm.main` builds it."""
+    return registry.get_smoke_config("xlstm-125m").scaled(
+        num_layers=4, d_model=256, param_dtype="float32",
+        vocab_size=2048).scaled(train_microbatch=0)
+
+
+# The task graph runs the `--sync` loop's ops on the same inputs, but on a
+# device lane's thread rather than the caller's (the plan co-locates the
+# graph's nodes, so the two grad shards run in turn on one lane), where the
+# CPU's intra-op work may split otherwise, so sums come out in other orders.
+GRAPH_RTOL = 1e-6
+BATCH, SEQ, SHARDS, STEPS = 4, 32, 2, 4
+
+
+@pytest.fixture(scope="module")
+def reduced_sync():
+    """The reduced model's init and its `--sync` run of STEPS steps."""
+    from repro_torch.bridge import init_params
+    cfg = _reduced()
+    init = init_params(cfg, torch.Generator().manual_seed(0))
+    copy = {"params": lm.tree_map(torch.clone, init)}
+    sync = lm.train_lm(cfg, STEPS, BATCH, SEQ, SHARDS, "cpu",
+                       params=copy["params"], sync=True)
+    return cfg, init, sync
+
+
+def test_task_graph_matches_the_sync_loop(reduced_sync):
+    """train_lm.py without --sync: the same losses as the --sync loop, a
+    ParamSet published every 2 steps, one kernel task a shard and step,
+    and the caller's params left as they were."""
+    cfg, init, sync = reduced_sync
+    before = lm.tree_map(torch.clone, init)
+    res = lm.train_lm(cfg, STEPS, BATCH, SEQ, SHARDS, "cpu", params=init,
+                      publish_every=2)
+    np.testing.assert_allclose(res.losses, sync.losses, rtol=GRAPH_RTOL)
+    assert res.losses[-1] < res.losses[0]
+    assert res.stats["kernel_tasks"] == SHARDS * STEPS
+    assert res.stats["param_publishes"] == STEPS // 2
+    assert res.stats["graph_invocations"] == STEPS
+    assert int(res.opt_state["step"]) == STEPS
+    for a, b in zip(tree_leaves(init), tree_leaves(before)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def _drain_runtime_threads(timeout=10.0):
+    """The cluster's threads end after `shutdown()` (a replayed task may
+    still be finishing a torch op)."""
+    def left():
+        return [t.name for t in threading.enumerate()
+                if t.name.startswith(("worker-", "lane-", "heartbeat-"))]
+    deadline = time.monotonic() + timeout
+    while left() and time.monotonic() < deadline:
+        time.sleep(0.02)
+    assert not left(), left()
+
+
+def _shard_batches(cfg, step):
+    dc = pipeline.DataConfig(vocab_size=cfg.vocab_size, seq_len=SEQ,
+                             global_batch=BATCH, num_shards=SHARDS)
+    return [{"tokens": torch.from_numpy(pipeline.batch_for_step(
+        pipeline.DataConfig(**{**dc.__dict__, "shard_id": s}), step)
+        ["tokens"]).long()} for s in range(SHARDS)]
+
+
+def test_task_graph_survives_losing_the_newest_params(reduced_sync):
+    """Kill every node that holds the newest params after step 2: lineage
+    replays the step's reduce and AdamW apply from the inputs still in the
+    object store, and the losses equal the undisturbed run's. An apply that
+    updated its inputs in place would apply step 2 twice here."""
+    from repro_torch import core
+    cfg, init, sync = reduced_sync
+    cluster = core.init(node_resources=(
+        [{"cpu": 2.0, "gpu": 1.0}] * SHARDS + [{"cpu": 2.0}]))
+    try:
+        graph = lm.StepGraph(build_model(cfg), adamw.AdamWConfig(lr=1e-3),
+                             init, adamw.adamw_init(init), SHARDS)
+        losses = []
+        for step in range(STEPS):
+            losses.append(graph.step(_shard_batches(cfg, step)))
+            if step == 1:
+                core.get(graph.params_ref, timeout=60)
+                victims = cluster.gcs.locations(graph.params_ref.id)
+                assert victims
+                for node in victims:
+                    cluster.kill_node(node)
+        kinds = [e[1] for e in cluster.gcs.events()]
+    finally:
+        core.shutdown()
+        _drain_runtime_threads()
+    assert {"node_failure", "reconstruct"} <= set(kinds)
+    np.testing.assert_allclose(losses, sync.losses, rtol=GRAPH_RTOL)
 
 
 def test_train_lm_defaults_to_the_card():
