@@ -5,14 +5,17 @@
 
 Phases, each of which raises (and so exits non-zero) on any failure:
   1. build    compile every CUDA C++ kernel of the port from the sources in
-              this checkout (nvcc, sm_90a) into build/.
+              this checkout (nvcc, sm_90a) into build/, and print each
+              kernel's registers, shared memory and spills as ptxas
+              reported them.
   2. kernels  hold each kernel against its plain PyTorch version on the card
               at the shapes of the serve and train paths (flash_attention at
-              stablelm's and jamba's prefill, mlstm_scan at xlstm's training
-              step, ssm_scan at jamba's prefill and decode), and time kernel,
-              plain version and, where there is one, the PyTorch library
-              call that computes the same function (a yardstick only; the
-              port never calls it).
+              stablelm's and jamba's prefill, every case in bf16 on the
+              tensor-core path and most in fp32 on the CUDA-core path,
+              mlstm_scan at xlstm's training step, ssm_scan at jamba's
+              prefill and decode), and time kernel, plain version and,
+              where there is one, the PyTorch library call that computes the
+              same function (a yardstick only; the port never calls it).
   3. parity   the port on the card against the port on the CPU (the CPU
               path is the one the tests hold against the JAX reference), in
               fp32: stablelm-1.6b at full width, 2 layers, prefill and greedy
@@ -44,9 +47,12 @@ Phases, each of which raises (and so exits non-zero) on any failure:
               gpu-typed and one cpu node (`repro_torch.core`,
               `repro_torch.compute`): int8_matmul against its plain version
               at compute_bench.py's shape, tests/test_kernels.py's shapes and
-              stablelm-1.6b's MLP up-projection (K 2048, N 5632) at a 4-row
-              decode step and the 2 x 2048-token prefill wave, timed beside
-              dequantize + torch.matmul; int8_matmul run as a `kernel_task`
+              stablelm-1.6b's MLP up-projection (K 2048, N 5632) at M 1, 4,
+              16, 17, 64 and 4096 on each of its paths (split-K GEMV at
+              M <= 16, tensor cores for bf16 above, fp32 tiles for fp32
+              above), timed at a 4-row decode step and the 2 x 2048-token
+              prefill wave beside dequantize + torch.matmul; int8_matmul run
+              as a `kernel_task`
               on the gpu node (max abs err < 1e-3, its launch counted, the
               profiler counting the task); the kernel-task round trip against
               the bare call of tanh(x @ x.T) at dim 384; `ParamSet`
@@ -70,6 +76,7 @@ from __future__ import annotations
 import gc
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -113,6 +120,8 @@ PARITY_TOL = 1e-3
 LOSS_RTOL = 1e-5
 GRAD_RTOL = 1e-3
 SEED = 0
+# extra columns of the wider tensor whose views one bf16 flash case reads
+FLASH_PAD = 64
 
 
 def log(msg: str) -> None:
@@ -162,14 +171,47 @@ def reset_launch_counts() -> None:
     ssm_scan.launches = 0
 
 
+# ------------------------------------------------------------------ phase 1
+
+def _demangle(names):
+    """C++ names of the mangled kernel symbols, where c++filt is at hand."""
+    tool = shutil.which("c++filt")
+    if not tool or not names:
+        return names
+    out = subprocess.run([tool], input="\n".join(names), capture_output=True,
+                         text=True, timeout=60).stdout.splitlines()
+    return out if len(out) == len(names) else names
+
+
+def build_report() -> None:
+    """Build every kernel (one nvcc a source, all at once) and print what
+    ptxas reported for each: registers, static shared memory, spills."""
+    from repro_torch.kernels import _build
+    t0 = time.perf_counter()
+    libs = _build.build_all()
+    log(f"[build] {sorted(libs)} built in {time.perf_counter() - t0:.1f} s")
+    for name in sorted(libs):
+        report = _build.ptxas_report(name)
+        if not report:
+            raise AssertionError(f"no ptxas report for {name}")
+        names = _demangle([k["kernel"] for k in report])
+        for k, pretty in zip(report, names):
+            pretty = pretty.replace("(anonymous namespace)::", "")
+            log(f"[build] {name}: {pretty[:110]}: {k['registers']} registers, "
+                f"{k['smem_bytes']} bytes static smem, spill stores "
+                f"{k['spill_stores']} / loads {k['spill_loads']} bytes")
+
+
 # ------------------------------------------------------------------ phase 2
 
-def _attn_inputs(gen, b, h, hkv, s, t, hd, dtype):
+def _attn_inputs(gen, b, h, hkv, s, t, hd, dtype, pad=0):
     """q (B,H,S,hd), k/v (B,Hkv,T,hd) as views of (B,S,H,hd) tensors, the
-    layout the model hands the kernel."""
+    layout the model hands the kernel; with `pad`, of the first H*hd
+    columns of (B,S,H*hd+pad) tensors (an S stride of H*hd+pad)."""
     def mk(n, heads):
-        x = torch.randn(b, n, heads, hd, generator=gen, device="cuda")
-        return x.to(dtype).transpose(1, 2)
+        x = torch.randn(b, n, heads * hd + pad, generator=gen, device="cuda")
+        x = x.to(dtype)[..., :heads * hd].unflatten(-1, (heads, hd))
+        return x.transpose(1, 2)
     return mk(s, h), mk(t, hkv), mk(t, hkv)
 
 
@@ -186,6 +228,7 @@ def _valid_pairs(s: int, t: int, causal: bool, window: int) -> int:
 
 def check_flash_attention(gen):
     from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+    from repro_torch.kernels.flash_attention.ops import PATHS
     cases = [  # (label, B, H, Hkv, S, T, hd, causal, window, dtypes)
         *[(f"stablelm prefill S={s}", 2, 32, 32, s, s, 64, True, 0,
            (torch.bfloat16,)) for s in (8, 64, 2048)],
@@ -197,18 +240,24 @@ def check_flash_attention(gen):
          (torch.float32, torch.bfloat16)),
         ("ragged S=40 hd=32", 2, 4, 4, 40, 40, 32, True, 0,
          (torch.float32, torch.bfloat16)),
-        ("one row S=1", 1, 4, 4, 1, 1, 64, True, 0, (torch.float32,)),
+        ("one row S=1", 1, 4, 4, 1, 1, 64, True, 0,
+         (torch.float32, torch.bfloat16)),
         ("odd S=129 GQA 2:1 window 100", 1, 4, 2, 129, 129, 64, True, 100,
-         (torch.float32,)),
+         (torch.float32, torch.bfloat16)),
         ("non-causal window 64 S<T", 1, 4, 4, 100, 160, 32, False, 64,
-         (torch.float32,)),
+         (torch.float32, torch.bfloat16)),
+        (f"S stride H*hd+{FLASH_PAD} (views)", 2, 8, 2, 200, 200, 64, True, 0,
+         (torch.bfloat16,)),
         ("jamba prefill GQA 8:1 hd=128", 2, 64, 8, 2048, 2048, 128, True, 0,
          (torch.bfloat16,)),
     ]
     main = jamba = None
     for label, b, h, hkv, s, t, hd, causal, window, dtypes in cases:
         for dt in dtypes:
-            q, k, v = _attn_inputs(gen, b, h, hkv, s, t, hd, dt)
+            pad = FLASH_PAD if label.startswith("S stride") else 0
+            q, k, v = _attn_inputs(gen, b, h, hkv, s, t, hd, dt, pad)
+            if pad and q.stride(2) != h * hd + pad:
+                raise AssertionError(f"{label}: q strides {q.stride()}")
             out = flash_attention(q, k, v, causal=causal, window=window)
             ref = attention_ref(q, k, v, causal=causal, window=window)
             torch.cuda.synchronize()
@@ -222,8 +271,9 @@ def check_flash_attention(gen):
                 raise AssertionError(f"flash_attention {label} {dt}: max abs "
                                      f"err {err} beyond tol {TOL[dt]}")
             log(f"[kernels] flash_attention {label} {str(dt)[6:]} "
-                f"B={b} H={h} Hkv={hkv} S={s} T={t} hd={hd} causal={causal} "
-                f"window={window}: max_abs_err={err} (tol {TOL[dt]}) ok")
+                f"({PATHS[dt]}) B={b} H={h} Hkv={hkv} S={s} T={t} "
+                f"hd={hd} causal={causal} window={window}: max_abs_err={err} "
+                f"(tol {TOL[dt]}) ok")
             if label == "stablelm prefill S=2048":
                 main = (q, k, v, err)
             elif label.startswith("jamba"):
@@ -235,6 +285,8 @@ def check_flash_attention(gen):
         "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:27",
+        "path": PATHS[q.dtype],
+        "paths": {str(dt)[6:]: path for dt, path in PATHS.items()},
         "launches": None,
         "max_abs_err": err,
         **_flash_times(q, k, v),
@@ -245,8 +297,10 @@ def check_flash_attention(gen):
 
 
 def _flash_times(q, k, v) -> dict:
-    """Kernel, plain and SDPA ms of one causal call, and its bound."""
+    """Kernel, plain and SDPA ms of one causal call, its bound, the achieved
+    rate and share of the bound, and the kernel/SDPA ratio."""
     from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+    from repro_torch.kernels.flash_attention.ops import PATHS
     b, h, s, hd = q.shape
     hkv, t = k.shape[1], k.shape[2]
     kernel_ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True), 20)
@@ -257,21 +311,28 @@ def _flash_times(q, k, v) -> dict:
     flops = 4 * b * h * hd * _valid_pairs(s, t, True, 0)
     nbytes = sum(x.numel() * x.element_size() for x in (q, k, v, q))
     t_ops, t_bytes = flops / PEAK_FLOPS[q.dtype], nbytes / PEAK_BYTES_PER_S
+    bound_ms = max(t_ops, t_bytes) * 1e3
     times = {
         "shape": f"{str(q.dtype)[6:]} B={b} H={h} Hkv={hkv} S={s} T={t} "
                  f"hd={hd} causal",
+        "path": PATHS[q.dtype],
         "ms": kernel_ms,
         "plain_ms": plain_ms,
-        "bound_ms": max(t_ops, t_bytes) * 1e3,
+        "bound_ms": bound_ms,
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": library_ms,
         "flops": flops,
         "bytes": nbytes,
+        "tflops": flops / kernel_ms / 1e9,
+        "share_of_bound": bound_ms / kernel_ms,
+        "kernel_over_library": kernel_ms / library_ms,
     }
-    log(f"[kernels] flash_attention at {times['shape']}: kernel "
-        f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} "
-        f"ms, bound {times['bound_ms']:.4f} ms ({times['bound_by']}: {flops} "
-        f"flop, {nbytes} bytes)")
+    log(f"[kernels] flash_attention ({times['path']}) at {times['shape']}: "
+        f"kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
+        f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({times['bound_by']}: "
+        f"{flops} flop, {nbytes} bytes); {times['tflops']:.1f} TFLOP/s, "
+        f"{times['share_of_bound']:.3f} of the bound, kernel / sdpa "
+        f"{times['kernel_over_library']:.3f}")
     return times
 
 
@@ -375,6 +436,7 @@ def check_mlstm_scan(gen):
         "route": "cuda",
         "source": "src/repro_torch/kernels/mlstm_scan/csrc/mlstm_scan.cu",
         "replaces": "src/repro/kernels/mlstm_scan/kernel.py:22",
+        "path": "cuda-core fp32, chunkwise",
         "shape": f"bf16 B={b} H={h} S={s} hd={hd}",
         "launches": None,
         "max_abs_err": err,
@@ -456,7 +518,7 @@ def check_ssm_scan(gen):
         *[("ragged S=77 di=384 with state, B/C views", 1, 77, 384, ds, x_dt,
            f32, True, True) for ds in (8, 16) for x_dt in (f32, bf16)],
     ]
-    main = None
+    main = decode = None
     for label, b, s, di, ds, x_dt, p_dt, with_state, views in cases:
         args, h0 = _ssm_case(gen, b, s, di, ds, x_dt, p_dt, with_state,
                                views)
@@ -468,7 +530,9 @@ def check_ssm_scan(gen):
             f"{str(p_dt)[6:]} B={b} S={s} di={di} ds={ds}: max_abs_err={err} "
             f"(tol {SSM_TOL[x_dt]}, h_last {SSM_TOL[f32]}) ok")
         if main is None:
-            main = (args, err)
+            main = (args, None, err)
+        elif label.startswith("jamba decode"):
+            decode = (args, h0, err)
 
     # chained: the state out of one call feeds the next, against one call
     # over the whole sequence
@@ -483,29 +547,44 @@ def check_ssm_scan(gen):
         log(f"[kernels] ssm_scan chained 72+128 vs one call S=200 di=384 x "
             f"{str(x_dt)[6:]}: max_abs_err={err} ok")
 
-    args, err = main
-    x, dt, b_t, c_t, a, d = args
-    b, s, di = x.shape
-    ds = a.shape[1]
-    kernel_ms = cuda_ms(lambda: ssm_scan(*args), 20)
-    plain_ms = cuda_ms(lambda: ssm_scan_ref(*args), 3, warmup=1)
     clock_mhz = _sm_clock_mhz()
-    updates = b * s * di * ds
-    # per state update: dt*A, dt*B*x (2), the fma into h (2), the fma of
-    # C.h (2); per channel and step D*x and its add
-    flops = 6 * updates + 2 * b * s * di
-    nbytes = (sum(t.numel() * t.element_size() for t in args)
-              + x.numel() * x.element_size() + 4 * b * di * ds)
-    t_exp = updates / (SMS * SFU_PER_SM_CLOCK * clock_mhz * 1e6)
-    t_ops = max(flops / PEAK_FLOPS[torch.float32], t_exp)
-    t_bytes = nbytes / PEAK_BYTES_PER_S
     entry = {
         "name": "ssm_scan",
         "route": "cuda",
         "source": "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu",
         "replaces": "src/repro/kernels/ssm_scan/kernel.py:21",
-        "shape": f"x bf16, dt/B/C fp32, B={b} S={s} di={di} ds={ds}",
+        "path": "cuda-core fp32, a thread per channel",
         "launches": None,
+        **_ssm_times(*main, clock_mhz),
+        # the 315 decode launches of phase 4b run at this shape
+        "at_decode": _ssm_times(*decode, clock_mhz),
+    }
+    return entry
+
+
+def _ssm_times(args, h0, err, clock_mhz) -> dict:
+    """Kernel and plain ms of one call and its bound: the larger of the
+    exps on the special function units, the fp32 flop and the bytes."""
+    from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_ref
+    x, dt, b_t, c_t, a, d = args
+    b, s, di = x.shape
+    ds = a.shape[1]
+    kernel_ms = cuda_ms(lambda: ssm_scan(*args, h0), 20)
+    plain_ms = cuda_ms(lambda: ssm_scan_ref(*args, h0), 3, warmup=1)
+    updates = b * s * di * ds
+    # per state update: dt*A, dt*B*x (2), the fma into h (2), the fma of
+    # C.h (2); per channel and step D*x and its add
+    flops = 6 * updates + 2 * b * s * di
+    state_bytes = 4 * b * di * ds * (2 if h0 is not None else 1)
+    nbytes = (sum(t.numel() * t.element_size() for t in args)
+              + x.numel() * x.element_size() + state_bytes)
+    t_exp = updates / (SMS * SFU_PER_SM_CLOCK * clock_mhz * 1e6)
+    t_ops = max(flops / PEAK_FLOPS[torch.float32], t_exp)
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    times = {
+        "shape": f"x {str(x.dtype)[6:]}, dt/B/C {str(dt.dtype)[6:]}, B={b} "
+                 f"S={s} di={di} ds={ds}"
+                 + (", state in" if h0 is not None else ""),
         "max_abs_err": err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
@@ -521,14 +600,14 @@ def check_ssm_scan(gen):
         "flop_ms": flops / PEAK_FLOPS[torch.float32] * 1e3,
         "bytes_ms": t_bytes * 1e3,
     }
-    log(f"[kernels] ssm_scan at {entry['shape']}: kernel {kernel_ms:.4f} ms, "
+    log(f"[kernels] ssm_scan at {times['shape']}: kernel {kernel_ms:.4f} ms, "
         f"plain {plain_ms:.4f} ms, no library call, bound "
-        f"{entry['bound_ms']:.4f} ms ({entry['bound_by']}: {updates} exps at "
+        f"{times['bound_ms']:.4f} ms ({times['bound_by']}: {updates} exps at "
         f"{SFU_PER_SM_CLOCK}/SM/clock x {SMS} SMs x {clock_mhz} MHz = "
-        f"{entry['exp_ms']:.4f} ms; {flops} fp32 flop = "
-        f"{entry['flop_ms']:.4f} ms; {nbytes} bytes = "
-        f"{entry['bytes_ms']:.4f} ms)")
-    return entry
+        f"{times['exp_ms']:.4f} ms; {flops} fp32 flop = "
+        f"{times['flop_ms']:.4f} ms; {nbytes} bytes = "
+        f"{times['bytes_ms']:.4f} ms)")
+    return times
 
 
 # ------------------------------------------------------------------ phase 3
@@ -893,6 +972,18 @@ def profiled(desc: str, fn, host_ops: bool = True) -> None:
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
         log(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms "
             f"{e.count:6d}x  {e.key[:90]}")
+    for name, tag in PORT_KERNELS.items():
+        mine = [e for e in kernels if tag in e.key]
+        if mine:
+            ms = sum(e.self_device_time_total for e in mine) / 1e3
+            log(f"[profile]   {name}: {ms:.3f} ms in "
+                f"{sum(e.count for e in mine)} launches, {ms / busy_ms:.4f} "
+                f"of the device busy time")
+
+
+# each port kernel's wrapper -> a substring of its CUDA kernels' names
+PORT_KERNELS = {"flash_attention": "flash_fwd", "mlstm_scan": "mlstm_fwd",
+                "ssm_scan": "ssm_scan_kernel", "int8_matmul": "int8_"}
 
 
 # ------------------------------------------------------------------ phase 5
@@ -958,6 +1049,7 @@ STABLELM_UP = (2048, 5632)
 KERNEL_TASK_TOL = 1e-3
 
 
+
 # fp32 int8_matmul: the kernel's max error against the float64 product is at
 # most this many times the plain version's, plus TOL's fp32 2e-5
 INT8_F64_FACTOR = 2
@@ -996,9 +1088,37 @@ def _int8_work(x, wq) -> tuple:
     return 2 * m * k * n, nbytes
 
 
+def queued_ms(fn, calls: int = 20) -> float:
+    """Device time of one call of `fn` without its host cost: the card
+    first sleeps (`torch.cuda._sleep`) while the host queues `calls` calls,
+    then runs them back to back between two events. Raises if the host
+    took longer to queue them than the card slept."""
+    fn()
+    torch.cuda.synchronize()
+    sleep_s = 0.05
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(sleep_s * _sm_clock_mhz() * 1e6))
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    queued_s = time.perf_counter() - t0
+    end.synchronize()
+    if queued_s >= sleep_s:
+        raise AssertionError(f"queueing {calls} calls took {queued_s} s, "
+                             f"longer than the card's {sleep_s} s sleep")
+    return start.elapsed_time(end) / calls
+
+
 def _int8_times(x, wq, scales) -> dict:
-    """Kernel, plain and dequantize + cuBLAS ms of one call, and its bound."""
+    """Kernel, plain and dequantize + cuBLAS ms of one call, its bound, the
+    achieved rate (GB/s at M <= 16, TFLOP/s above) and the kernel/library
+    ratio. At M <= 16 the call is host-bound, so its device time alone
+    (`queued_ms`) and that time's GB/s are given beside."""
     from repro_torch.kernels.int8_matmul import int8_matmul, int8_matmul_ref
+    from repro_torch.kernels.int8_matmul.ops import GEMV_MAX_M, _plan
     m, k = x.shape
     n = wq.shape[1]
     reps = 20 if m * k * n < 1e10 else 10
@@ -1010,6 +1130,7 @@ def _int8_times(x, wq, scales) -> dict:
     t_ops, t_bytes = flops / PEAK_FLOPS[x.dtype], nbytes / PEAK_BYTES_PER_S
     times = {
         "shape": f"{str(x.dtype)[6:]} M={m} K={k} N={n}",
+        "path": _plan(m, n, k, x.dtype).path,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
         "bound_ms": max(t_ops, t_bytes) * 1e3,
@@ -1020,11 +1141,22 @@ def _int8_times(x, wq, scales) -> dict:
         "library": "wq.to(x.dtype), torch.matmul, * scales (3 calls)",
         "flops": flops,
         "bytes": nbytes,
+        "kernel_over_library": kernel_ms / library_ms,
     }
-    log(f"[compute] int8_matmul at {times['shape']}: kernel {kernel_ms:.4f} "
-        f"ms, plain {plain_ms:.4f} ms, dequantize + torch.matmul "
-        f"{library_ms:.4f} ms (3 calls), bound {times['bound_ms']:.4f} ms "
-        f"({times['bound_by']}: {flops} flop, {nbytes} bytes)")
+    if m <= GEMV_MAX_M:
+        device_ms = queued_ms(lambda: int8_matmul(x, wq, scales))
+        times.update(gbps=nbytes / kernel_ms / 1e6, device_ms=device_ms,
+                     device_gbps=nbytes / device_ms / 1e6)
+        rate = (f"{times['gbps']:.1f} GB/s a call; on the card alone "
+                f"{device_ms:.4f} ms = {times['device_gbps']:.1f} GB/s")
+    else:
+        times["tflops"] = flops / kernel_ms / 1e9
+        rate = f"{times['tflops']:.1f} TFLOP/s"
+    log(f"[compute] int8_matmul ({times['path']}) at {times['shape']}: "
+        f"kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, dequantize + "
+        f"torch.matmul {library_ms:.4f} ms (3 calls), kernel / library "
+        f"{times['kernel_over_library']:.3f}, bound {times['bound_ms']:.4f} "
+        f"ms ({times['bound_by']}: {flops} flop, {nbytes} bytes); {rate}")
     return times
 
 
@@ -1032,20 +1164,28 @@ def check_int8_matmul(gen) -> dict:
     """int8_matmul against its plain version at every listed shape; times at
     stablelm's up-projection. Returns the entry of the kernels line."""
     from repro_torch.kernels.int8_matmul import int8_matmul, int8_matmul_ref
+    from repro_torch.kernels.int8_matmul.ops import GEMV, MMA, TILES, _plan
     f32, bf16 = torch.float32, torch.bfloat16
     k_up, n_up = STABLELM_UP
-    cases = [  # (label, M, K, N, dtypes, row stride of x)
-        ("compute_bench", 8, 128, 128, (f32,), None),
-        ("test_kernels", 64, 256, 128, (f32, bf16), None),
-        ("test_kernels", 128, 128, 256, (f32, bf16), None),
-        ("stablelm up-proj decode", 4, k_up, n_up, (bf16, f32), None),
-        ("stablelm up-proj prefill", 4096, k_up, n_up, (bf16,), None),
-        ("ragged, x a column slice", 77, 200, 333, (f32, bf16), 256),
+    cases = [  # (label, M, K, N, dtypes, row stride of x, timed)
+        ("compute_bench", 8, 128, 128, (f32,), None, False),
+        ("test_kernels", 64, 256, 128, (f32, bf16), None, False),
+        ("test_kernels", 128, 128, 256, (f32, bf16), None, False),
+        ("stablelm up-proj decode", 4, k_up, n_up, (bf16, f32), None, True),
+        ("stablelm up-proj prefill", 4096, k_up, n_up, (bf16,), None, True),
+        *[(f"stablelm up-proj M={m}", m, k_up, n_up, (bf16, f32), None,
+           False) for m in (1, 16, 17, 64)],
+        # K = 2004: the GEMV's last split is short; x's rows are not
+        # 16-byte aligned, so the tensor-core path stages x element-wise
+        *[("K not a multiple of the split", m, 2004, n_up, (bf16, f32), None,
+           False) for m in (4, 64)],
+        ("ragged, x a column slice", 77, 200, 333, (f32, bf16), 256, False),
     ]
     timed_at = []
-    for label, m, k, n, dtypes, stride in cases:
+    for label, m, k, n, dtypes, stride, timed in cases:
         for dt in dtypes:
             x, wq, scales = _int8_case(gen, m, k, n, dt, stride)
+            path = _plan(m, n, k, dt).path
             out = int8_matmul(x, wq, scales)
             ref = int8_matmul_ref(x, wq, scales)
             exact = (x.double() @ wq.double()) * scales.double()
@@ -1071,10 +1211,10 @@ def check_int8_matmul(gen) -> dict:
                     f"{k_err} from the float64 product, more than "
                     f"{INT8_F64_FACTOR} x the plain version's {p_err} + "
                     f"{TOL[f32]}")
-            log(f"[compute] int8_matmul {label} {str(dt)[6:]} M={m} K={k} "
-                f"N={n}: max_abs_err={err} (tol {tol}); against the float64 "
-                f"product: kernel {k_err}, plain {p_err} ok")
-            if label.startswith("stablelm"):
+            log(f"[compute] int8_matmul {label} {str(dt)[6:]} ({path}) "
+                f"M={m} K={k} N={n}: max_abs_err={err} (tol {tol}); against "
+                f"the float64 product: kernel {k_err}, plain {p_err} ok")
+            if timed:
                 timed_at.append(dict(_int8_times(x, wq, scales),
                                      max_abs_err=err))
     return {
@@ -1082,6 +1222,7 @@ def check_int8_matmul(gen) -> dict:
         "route": "cuda",
         "source": "src/repro_torch/kernels/int8_matmul/csrc/int8_matmul.cu",
         "replaces": "src/repro/kernels/int8_matmul/kernel.py:18",
+        "paths": {"M<=16": GEMV, "bfloat16 M>16": MMA, "float32 M>16": TILES},
         "launches": None,
         "at_stablelm_up_proj": timed_at,
     }
@@ -1096,6 +1237,7 @@ def _kernel_task_smoke(entry: dict) -> None:
     from repro_torch.core import profiler
     from repro_torch.core.api import _cluster
     from repro_torch.kernels.int8_matmul import int8_matmul, int8_matmul_ref
+    from repro_torch.kernels.int8_matmul.ops import _plan
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     x, wq, scales = _int8_case(gen, 8, 128, 128, torch.float32)
@@ -1116,7 +1258,8 @@ def _kernel_task_smoke(entry: dict) -> None:
         raise AssertionError(f"kernel task: {launches} launches, "
                              f"{stats['kernel_tasks']} kernel tasks, want 1")
     log(f"[compute] int8_matmul as a kernel_task on the gpu node, fp32 M=8 "
-        f"K=128 N=128: {ms:.3f} ms round trip, max_abs_err {err} (gate "
+        f"K=128 N=128 ({_plan(8, 128, 128, torch.float32).path}): {ms:.3f} "
+        f"ms round trip, max_abs_err {err} (gate "
         f"{KERNEL_TASK_TOL}), launches {launches}, profiler kernel_tasks "
         f"{stats['kernel_tasks']}, kernel_time_ms_mean "
         f"{stats['kernel_time_ms_mean']:.3f}")
@@ -1306,10 +1449,9 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    from repro_torch.kernels import _build
     t0 = time.perf_counter()
-    libs = _build.build_all()
-    log(f"[build] {sorted(libs)} built in {time.perf_counter() - t0:.1f} s")
+    build_report()
+    log(f"[time] build: {time.perf_counter() - t0:.1f} s")
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     flash = timed("kernels flash_attention", check_flash_attention, gen)

@@ -5,28 +5,33 @@ Every `<kernel>/csrc/*.cu` under this package is compiled at first use, one
 library with a plain C interface:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o build/repro_torch_kernels/lib<name>-<hash>.so <src>
+         -Xcompiler -fPIC -Xptxas -v -I kernels/include \
+         -o build/repro_torch_kernels/lib<name>-<hash>.so <src>
 
-The library name carries a hash of the source, the headers beside it and
-the flags, so an unchanged tree does not rebuild. Only sources in the
-repository are compiled; a failed build raises with nvcc's stderr.
+The library name carries a hash of the source, the headers beside it, the
+headers the kernels share (`include/*.cuh`) and the flags, so an unchanged
+tree does not rebuild. ptxas's report of each kernel (registers, shared
+memory, spills) is kept beside its library (`ptxas_report`). Only sources
+in the repository are compiled; a failed build raises with nvcc's stderr.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List
 
 KERNELS_DIR = Path(__file__).resolve().parent
+INCLUDE_DIR = KERNELS_DIR / "include"   # headers shared by the kernels
 REPO_ROOT = KERNELS_DIR.parents[2]
 BUILD_DIR = REPO_ROOT / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 # A device lane and the threads beside it may reach a kernel's first launch
@@ -50,10 +55,15 @@ def _nvcc() -> str:
 
 def library_path(src: Path) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for dep in [src, *sorted(src.parent.glob("*.cuh"))]:
+    for dep in [src, *sorted(src.parent.glob("*.cuh")),
+                *sorted(INCLUDE_DIR.glob("*.cuh"))]:
         h.update(dep.name.encode())
         h.update(dep.read_bytes())
     return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
+
+
+def _report_path(lib: Path) -> Path:
+    return lib.with_suffix(".ptxas.txt")
 
 
 def build_all() -> Dict[str, Path]:
@@ -67,7 +77,8 @@ def build_all() -> Dict[str, Path]:
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(INCLUDE_DIR), "-o", str(tmp),
+               str(src)]
         pending[name] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True),
             tmp, out)
@@ -78,10 +89,53 @@ def build_all() -> Dict[str, Path]:
             errors.append(f"nvcc failed on {srcs[name]} "
                           f"(exit {proc.returncode}):\n{stderr}")
         else:
+            _report_path(out).write_text(stderr)   # ptxas -v writes stderr
             os.replace(tmp, out)   # atomic: a concurrent builder sees all or nothing
     if errors:
         raise RuntimeError("\n".join(errors))
     return {name: library_path(src) for name, src in srcs.items()}
+
+
+_ENTRY = re.compile(r"Compiling entry function '(\w+)'")
+_PROPS = re.compile(r"Function properties for (\w+)")
+_STACK = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                    r"(\d+) bytes spill loads")
+_USED = re.compile(r"Used (\d+) registers")
+_SMEM = re.compile(r"(\d+) bytes smem")
+
+
+def parse_ptxas(text: str) -> List[Dict]:
+    """Each entry function in nvcc's `-Xptxas -v` output: {"kernel"
+    (mangled name), "registers", "smem_bytes" (static; dynamic shared
+    memory is set at launch), "spill_stores", "spill_loads"}."""
+    kernels: List[Dict] = []
+    props = None   # the function whose properties the next line gives
+    for line in text.splitlines():
+        if m := _ENTRY.search(line):
+            kernels.append({"kernel": m.group(1), "registers": None,
+                            "smem_bytes": 0, "spill_stores": None,
+                            "spill_loads": None})
+        elif m := _PROPS.search(line):
+            props = m.group(1)
+        elif not kernels:
+            continue
+        elif m := _STACK.search(line):
+            if props == kernels[-1]["kernel"]:
+                kernels[-1]["spill_stores"] = int(m.group(2))
+                kernels[-1]["spill_loads"] = int(m.group(3))
+        else:
+            if m := _USED.search(line):
+                kernels[-1]["registers"] = int(m.group(1))
+            if m := _SMEM.search(line):
+                kernels[-1]["smem_bytes"] = int(m.group(1))
+    return kernels
+
+
+def ptxas_report(name: str) -> List[Dict]:
+    """ptxas's report of each kernel of source `name` (`parse_ptxas`), as
+    kept by the build that made its library; [] if there is none."""
+    path = _report_path(library_path(sources()[name]))
+    return parse_ptxas(path.read_text()) if path.exists() else []
 
 
 def load(name: str) -> ctypes.CDLL:

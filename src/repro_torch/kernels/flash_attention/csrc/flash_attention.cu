@@ -1,46 +1,79 @@
 // Flash attention forward for Hopper (sm_90a), written by hand in CUDA C++.
 //
 // Replaces the Pallas TPU kernel `_flash_kernel` in
-// src/repro/kernels/flash_attention/kernel.py (wrapper `flash_attention`,
-// `pl.pallas_call`), and computes what it computes:
+// src/repro/kernels/flash_attention/kernel.py:27 (wrapper `flash_attention`
+// :84, `pl.pallas_call` :98), and computes what it computes:
 //   out = softmax(q k^T / sqrt(hd) + mask) v
 // with causal and sliding-window masks from absolute indices (masked scores
-// are -1e30), GQA (q-head h reads kv-head h / (H / Hkv)), an online softmax
-// whose running max m, sum l and accumulator acc are fp32, l floored at
-// 1e-30, and the output in the input type (fp32 or bf16).
+// are -1e30, keys past T -inf), GQA (q-head h reads kv-head h / (H / Hkv)),
+// an online softmax whose running max m, sum l and accumulator acc are
+// fp32, l floored at 1e-30, P rounded to v's type before P.V (kernel.py:72),
+// and the output in the input type (fp32 or bf16).
 //
 // What bounds it on the H100. At stablelm-1.6b prefill (B=2, H=32, S=2048,
-// hd=64, causal, bf16) the function does about 34 GFLOP and must move about
-// 67 MB: about 35 us at the 989 TFLOP/s of the bf16 tensor cores against
-// about 20 us at 3.35 TB/s, so the bound is compute.
+// hd=64, causal, bf16) the function does 34.4 GFLOP over the causal pairs
+// and must move 67.1 MB: 35 us at the 989 TFLOP/s of the bf16 tensor cores
+// against 20 us at 3.35 TB/s. At jamba's prefill (B=2, H=64 over 8 kv heads,
+// hd=128) 137.5 GFLOP against 151.0 MB: 139 us against 45 us. Both are operations-bound, so
+// the products belong on the tensor cores.
 //
-// What this first design does about it. It is the simple, correct first
-// step, not yet a fast one:
-//   - One thread block per (q-tile of 64 rows, q-head, batch). The TPU grid
-//     visits every KV block and skips the masked ones under pl.when; here a
-//     loop inside the block bounds the KV range of each q-tile, from
-//     max(0, q_start - window + 1) up to the causal edge, so masked blocks
-//     cost nothing. Causal q-tiles are launched longest first.
-//   - q (pre-scaled), K and V tiles are staged in shared memory as fp32 with
-//     a padded row stride (no bank conflicts on the access patterns below);
-//     scores are fp32 on the CUDA cores, 4 rows x 8 columns per thread, and
-//     P goes through shared memory for the P.V product. This runs at the
-//     fp32 CUDA-core and shared-memory rate, far from the tensor-core bound;
-//     mma.sync / wgmma, TMA and a ring of K/V stages are later work.
-//   - Ragged S and T (the serve path's prompts are 8 to 64 tokens) are
-//     masked in the kernel: rows past S are not stored, columns past T get
-//     a score of -inf (weight exactly 0), unlike the Pallas wrapper, which
-//     asserts divisibility.
-//   - q, k, v and out are read and written by strides, so the model's
-//     (B,S,H,hd) activations need no transpose. The last axis must be
-//     contiguous.
-// The kernel launches on the caller's stream, allocates nothing and does not
-// synchronize; the C entry point returns cudaGetLastError().
+// Two designs, chosen by dtype in the C entry point:
+//
+// bf16: `flash_fwd_mma_kernel`, FlashAttention-2 in shape.
+//   - One block per (head, batch, q-tile of 128 rows); q-tiles are the
+//     slowest grid axis, longest causal tiles first. A warp owns whole rows
+//     (32 at hd 32 and 64, sharing each K and V fragment between two m16
+//     tiles; 16 at hd 128), so row max and row sum stay in the warp (two
+//     quad shuffles); 2 blocks an SM at hd 64 and 128. `Config` holds the
+//     tile shapes of each head dim.
+//   - q, K and V come in by cp.async, 16 bytes a thread, into shared rows
+//     padded by 16 bytes (ldmatrix's 8 row addresses then fall in 8
+//     distinct groups of 4 banks). K and V sit in a ring of 2 stages: the
+//     copy of tile j+1 is in flight while tile j is multiplied, and one
+//     barrier a tile both publishes tile j and frees the stage of j-1.
+//   - q moves into mma A fragments by ldmatrix.x4, once for the whole KV
+//     loop at hd 32 and 64, again at each k-step at hd 128 (registers
+//     for 2 blocks an SM). S = q K^T runs as
+//     mma.sync.m16n8k16 bf16 with fp32 accumulation, K's rows taken as the
+//     .col operand as they lie (ldmatrix.x4).
+//   - Masks are applied only on tiles that touch the causal diagonal, the
+//     window's edge or the end of T; the KV range of a q-tile is bounded so
+//     fully masked tiles are never visited. The softmax runs in fp32 with
+//     ex2.approx, `scale * log2(e)` folded into one fma. Masked scores are
+//     -inf here, and a row that has seen no key yet keeps weight 0: the
+//     Pallas kernel's -1e30 weighs such a row 1 until a key arrives and
+//     then scales it by exp(-1e30 - m) = 0, so the two agree on every row
+//     that sees a key, which the wrapper's checks guarantee.
+//   - P goes from the C fragments straight into bf16 A fragments (the
+//     m16n8k16 C layout is the A layout), V through ldmatrix.x4.trans: no
+//     shared-memory round trip.
+//   - The epilogue divides by max(l, 1e-30), rounds to bf16, stages the
+//     warp's rows in the q tile's shared memory and stores 16 bytes a
+//     thread. Every row start must be 16-byte aligned (the wrapper checks
+//     the pointers and strides and raises otherwise).
+//   wgmma, TMA and warp specialisation are the next step.
+//
+// fp32: `flash_fwd_kernel`, the first design, unchanged. The card-vs-CPU
+//   parity runs the model in fp32 and needs full fp32 products (no TF32),
+//   so q, K and V are staged in shared memory as fp32 with a padded row
+//   stride, scores and P.V are fp32 FMAs on the CUDA cores, 4 rows x 8
+//   columns a thread, and P goes through shared memory. It runs at the fp32
+//   CUDA-core rate.
+//
+// Both take ragged S and T (the serve path's prompts are 8 to 64 tokens):
+// rows past S are not stored and keys past T get weight exactly 0, where the
+// Pallas wrapper asserts divisibility. q, k, v and out are read and written
+// by strides, so the model's (B,S,H,hd) activations need no transpose; the
+// last axis must be contiguous. A kernel launches on the caller's stream,
+// allocates nothing and does not synchronize; the C entry point returns
+// cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper_mma.cuh"
 
 namespace {
 
@@ -256,12 +289,341 @@ cudaError_t dispatch_head_dim(const Args& a, int hd, cudaStream_t stream) {
   }
 }
 
+
+// ------------------------------------------------- bf16 on the tensor cores
+
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Tile shapes by head dim: each warp owns MI m16-tiles (16 MI whole rows),
+// a block WARPS warps (BQ = 16 MI WARPS q rows), a KV tile BKV keys. Q_REGS
+// keeps q's A fragments in registers for the whole KV loop; otherwise they
+// are read again from shared memory at each k-step (fewer registers).
+// MIN_BLOCKS blocks fit on an SM (registers capped to match). Chosen by
+// timing the alternatives on the H100 at stablelm's (hd 64) and jamba's
+// (hd 128) prefill shapes (PERF.md).
+template <int HD> struct Config;
+template <> struct Config<32> {
+  static constexpr int MI = 2, BKV = 64, WARPS = 4, MIN_BLOCKS = 1;
+  static constexpr bool Q_REGS = true;
+};
+template <> struct Config<64> {
+  static constexpr int MI = 2, BKV = 64, WARPS = 4, MIN_BLOCKS = 2;
+  static constexpr bool Q_REGS = true;
+};
+template <> struct Config<128> {
+  static constexpr int MI = 1, BKV = 64, WARPS = 8, MIN_BLOCKS = 2;
+  static constexpr bool Q_REGS = false;
+};
+
+template <int HD>
+struct Layout {
+  using C = Config<HD>;
+  static constexpr int MI = C::MI, BKV = C::BKV, WARPS = C::WARPS;
+  static constexpr int THREADS = 32 * WARPS;
+  static constexpr int BQ = 16 * MI * WARPS;   // q rows a block
+  static constexpr int LD = HD + 8;            // bf16 row stride: +16 bytes
+  static constexpr int Q = BQ * LD;            // q tile, later the out tile
+  static constexpr int KV = BKV * LD;          // one K or V stage
+  static constexpr size_t bytes = sizeof(bf16) * size_t(Q + 4 * KV);
+};
+
+// rows [row0, row0 + n) of a (rows, HD) strided operand -> shared rows of
+// stride LD, 16 bytes a copy; rows at or past `end` are zero-filled.
+template <int HD>
+__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
+                                          int64_t stride, int row0, int n,
+                                          int end, int tid) {
+  constexpr int CH = HD / 8;
+  for (int e = tid; e < n * CH; e += Layout<HD>::THREADS) {
+    const int r = e / CH, c = e % CH, gr = row0 + r;
+    const bool in = gr < end;
+    repro_ptx::cp_async_16(dst + r * Layout<HD>::LD + c * 8,
+                           in ? src + gr * stride + c * 8 : src, in);
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(Layout<HD>::THREADS,
+                                  Config<HD>::MIN_BLOCKS)
+    flash_fwd_mma_kernel(Args a) {
+  static_assert(HD % 16 == 0, "head_dim must be a multiple of 16");
+  using L = Layout<HD>;
+  constexpr int MI = L::MI, BKV = L::BKV, BQ = L::BQ, LD = L::LD;
+  constexpr bool Q_REGS = Config<HD>::Q_REGS;
+  constexpr int KSTEPS = HD / 16;   // k-steps of q K^T
+  constexpr int NS = BKV / 8;       // n-tiles of S
+  constexpr int NO = HD / 8;        // n-tiles of the output
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Ks = Qs + L::Q;             // 2 stages
+  bf16* Vs = Ks + 2 * L::KV;        // 2 stages
+
+  const int q0 = (int(gridDim.z) - 1 - int(blockIdx.z)) * BQ;
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int hk = h / (a.H / a.Hkv);
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const float sl2 = kLog2e / sqrtf(float(HD));   // scale * log2(e)
+
+  const bf16* qp = static_cast<const bf16*>(a.q) + b * a.q_sb + h * a.q_sh;
+  const bf16* kp = static_cast<const bf16*>(a.k) + b * a.k_sb + hk * a.k_sh;
+  const bf16* vp = static_cast<const bf16*>(a.v) + b * a.v_sb + hk * a.v_sh;
+  bf16* op = static_cast<bf16*>(a.o) + b * a.o_sb + h * a.o_sh;
+
+  // KV range this q-tile can see: rows q0 .. q_end-1.
+  const int q_end = min(q0 + BQ, a.S);
+  const int kv_lo = a.window > 0 ? max(0, q0 - a.window + 1) : 0;
+  const int kv_hi = a.causal ? min(a.T, q_end) : a.T;
+  const int n_tiles = max(0, (kv_hi - kv_lo + BKV - 1) / BKV);
+
+  // one cp.async group a tile: (q, K_0, V_0), then K_j+1 and V_j+1 issued
+  // at the top of tile j, a whole tile ahead of their use
+  load_rows<HD>(Qs, qp, a.q_ss, q0, BQ, a.S, tid);
+  if (n_tiles > 0) {
+    load_rows<HD>(Ks, kp, a.k_st, kv_lo, BKV, a.T, tid);
+    load_rows<HD>(Vs, vp, a.v_st, kv_lo, BKV, a.T, tid);
+  }
+  repro_ptx::cp_async_commit();
+
+  const int wrow = warp * 16 * MI;   // the warp's first row in the tile
+  const int row_a = q0 + wrow + g;   // global row of c0/c1 in m-tile 0
+  const bf16* Qw = Qs + wrow * LD;
+  uint32_t qf[Q_REGS ? MI : 1][Q_REGS ? KSTEPS : 1][4];
+  float o[MI][NO][4];
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int j = 0; j < NO; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[i][j][e] = 0.f;
+  // raw row maxima (-inf until a row sees a key) and this thread's share of
+  // the row sums: rows g and g + 8 of each m-tile
+  float m[MI][2], l[MI][2];
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      m[i][r] = -INFINITY;
+      l[i][r] = 0.f;
+    }
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = kv_lo + it * BKV;
+    const int st = it & 1;
+    repro_ptx::cp_async_wait<0>();   // K_it, V_it (and q) have landed
+    __syncthreads();                 // ... for every thread; and every warp
+                                     // is done with stage st ^ 1 (tile it-1)
+    if (it + 1 < n_tiles) {
+      load_rows<HD>(Ks + (st ^ 1) * L::KV, kp, a.k_st, k0 + BKV, BKV, a.T,
+                    tid);
+      load_rows<HD>(Vs + (st ^ 1) * L::KV, vp, a.v_st, k0 + BKV, BKV, a.T,
+                    tid);
+      repro_ptx::cp_async_commit();
+    }
+    if constexpr (Q_REGS) {
+      if (it == 0) {
+#pragma unroll
+        for (int i = 0; i < MI; ++i)
+#pragma unroll
+          for (int kk = 0; kk < KSTEPS; ++kk)
+            repro_ptx::ldmatrix_x4(
+                qf[i][kk], Qw + (i * 16 + (lane & 15)) * LD + kk * 16 +
+                               (lane >> 4) * 8);
+      }
+    }
+    // Under a causal mask a warp whose rows all lie before k0 sees no key
+    // of this tile: its weights there are exactly 0, so it skips the math.
+    const bool warp_live = !a.causal || q0 + wrow + 16 * MI - 1 >= k0;
+
+    // S = q K^T, raw (unscaled) fp32
+    float s[MI][NS][4];
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[i][j][e] = 0.f;
+    const bf16* Kt = Ks + st * L::KV;
+    if (warp_live) {
+#pragma unroll
+      for (int kk = 0; kk < KSTEPS; ++kk) {
+        uint32_t qa[MI][4];
+#pragma unroll
+        for (int i = 0; i < MI; ++i) {
+          if constexpr (Q_REGS) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) qa[i][e] = qf[i][kk][e];
+          } else {
+            repro_ptx::ldmatrix_x4(qa[i], Qw + (i * 16 + (lane & 15)) * LD +
+                                              kk * 16 + (lane >> 4) * 8);
+          }
+        }
+#pragma unroll
+        for (int np = 0; np < NS / 2; ++np) {
+          uint32_t r[4];
+          repro_ptx::ldmatrix_x4(
+              r, Kt + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD +
+                     kk * 16 + ((lane >> 3) & 1) * 8);
+#pragma unroll
+          for (int i = 0; i < MI; ++i) {
+            repro_ptx::mma_bf16_16816(s[i][2 * np], qa[i], r[0], r[1]);
+            repro_ptx::mma_bf16_16816(s[i][2 * np + 1], qa[i], r[2], r[3]);
+          }
+        }
+      }
+
+      // masks, only where the tile needs them
+      const bool need_mask =
+          k0 + BKV > a.T || (a.causal && k0 + BKV - 1 > q0) ||
+          (a.window > 0 && q_end - 1 - k0 >= a.window);
+      if (need_mask) {
+#pragma unroll
+        for (int i = 0; i < MI; ++i)
+#pragma unroll
+          for (int j = 0; j < NS; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int qi = row_a + i * 16 + (e >> 1) * 8;
+              const int kj = k0 + j * 8 + 2 * t + (e & 1);
+              if (kj >= a.T || (a.causal && kj > qi) ||
+                  (a.window > 0 && qi - kj >= a.window))
+                s[i][j][e] = -INFINITY;
+            }
+      }
+
+      // online softmax in the exp2 domain: p = 2^(s sl2 - m sl2)
+#pragma unroll
+      for (int i = 0; i < MI; ++i) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float mx = m[i][r];
+#pragma unroll
+          for (int j = 0; j < NS; ++j)
+            mx = fmaxf(mx, fmaxf(s[i][j][2 * r], s[i][j][2 * r + 1]));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+          // a row that has seen no key yet keeps weights and sums at 0
+          const float ms = mx == -INFINITY ? 0.f : mx * sl2;
+          const float corr = repro_ptx::exp2_approx(m[i][r] * sl2 - ms);
+          m[i][r] = mx;
+          float sum = 0.f;
+#pragma unroll
+          for (int j = 0; j < NS; ++j) {
+#pragma unroll
+            for (int e = 2 * r; e < 2 * r + 2; ++e) {
+              const float p =
+                  repro_ptx::exp2_approx(fmaf(s[i][j][e], sl2, -ms));
+              s[i][j][e] = p;
+              sum += p;
+            }
+          }
+          l[i][r] = l[i][r] * corr + sum;
+#pragma unroll
+          for (int j = 0; j < NO; ++j) {
+            o[i][j][2 * r] *= corr;
+            o[i][j][2 * r + 1] *= corr;
+          }
+        }
+      }
+    }
+
+    if (warp_live) {
+      // O += P V, P rounded to bf16 in registers
+      const bf16* Vt = Vs + st * L::KV;
+#pragma unroll
+      for (int kk = 0; kk < BKV / 16; ++kk) {
+        uint32_t pa[MI][4];
+#pragma unroll
+        for (int i = 0; i < MI; ++i) {
+          pa[i][0] = repro_ptx::pack_bf16x2(s[i][2 * kk][0], s[i][2 * kk][1]);
+          pa[i][1] = repro_ptx::pack_bf16x2(s[i][2 * kk][2], s[i][2 * kk][3]);
+          pa[i][2] =
+              repro_ptx::pack_bf16x2(s[i][2 * kk + 1][0], s[i][2 * kk + 1][1]);
+          pa[i][3] =
+              repro_ptx::pack_bf16x2(s[i][2 * kk + 1][2], s[i][2 * kk + 1][3]);
+        }
+#pragma unroll
+        for (int np = 0; np < NO / 2; ++np) {
+          uint32_t r[4];
+          repro_ptx::ldmatrix_x4_trans(
+              r, Vt + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
+                     np * 16 + (lane >> 4) * 8);
+#pragma unroll
+          for (int i = 0; i < MI; ++i) {
+            repro_ptx::mma_bf16_16816(o[i][2 * np], pa[i], r[0], r[1]);
+            repro_ptx::mma_bf16_16816(o[i][2 * np + 1], pa[i], r[2], r[3]);
+          }
+        }
+      }
+    }
+  }
+  repro_ptx::cp_async_wait<0>();
+  __syncthreads();   // every warp is done with q and the last stage
+
+  // out = acc / max(l, 1e-30) in bf16, staged in the warp's own q rows
+  bf16* Os = Qs + wrow * LD;
+#pragma unroll
+  for (int i = 0; i < MI; ++i) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float x = l[i][r];
+      x += __shfl_xor_sync(0xffffffffu, x, 1);
+      x += __shfl_xor_sync(0xffffffffu, x, 2);
+      const float denom = fmaxf(x, 1e-30f);
+#pragma unroll
+      for (int j = 0; j < NO; ++j)
+        *reinterpret_cast<uint32_t*>(Os + (i * 16 + g + 8 * r) * LD + j * 8 +
+                                     2 * t) =
+            repro_ptx::pack_bf16x2(o[i][j][2 * r] / denom,
+                                   o[i][j][2 * r + 1] / denom);
+    }
+  }
+  __syncwarp();
+  constexpr int CH = HD / 8;
+  for (int e = lane; e < 16 * MI * CH; e += 32) {
+    const int r = e / CH, c = e % CH;
+    const int qi = q0 + wrow + r;
+    if (qi < a.S)
+      *reinterpret_cast<uint4*>(op + qi * a.o_ss + c * 8) =
+          *reinterpret_cast<const uint4*>(Os + r * LD + c * 8);
+  }
+}
+
+template <int HD>
+cudaError_t launch(const Args& a, cudaStream_t stream) {
+  using L = Layout<HD>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_fwd_mma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      int(L::bytes));
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid(a.H, a.B, (a.S + L::BQ - 1) / L::BQ);
+  flash_fwd_mma_kernel<HD><<<grid, L::THREADS, L::bytes, stream>>>(a);
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch_head_dim(const Args& a, int hd, cudaStream_t stream) {
+  switch (hd) {
+    case 32: return launch<32>(a, stream);
+    case 64: return launch<64>(a, stream);
+    case 128: return launch<128>(a, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace tc
+
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. Strides are in elements, for the
-// (B, H, S|T, hd) view of each tensor; the hd axis has stride 1.
+// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores; every row
+// start 16-byte aligned). Strides are in elements, for the (B, H, S|T, hd)
+// view of each tensor; the hd axis has stride 1.
 // Returns cudaGetLastError() after the launch (0 on success).
 int repro_flash_attention_fwd(
     int dtype, const void* q, const void* k, const void* v, void* o,
@@ -277,7 +639,7 @@ int repro_flash_attention_fwd(
          B, H, Hkv, S, T, causal, window};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return int(dispatch_head_dim<float>(a, hd, s));
-  if (dtype == 1) return int(dispatch_head_dim<__nv_bfloat16>(a, hd, s));
+  if (dtype == 1) return int(tc::dispatch_head_dim(a, hd, s));
   return int(cudaErrorInvalidValue);
 }
 

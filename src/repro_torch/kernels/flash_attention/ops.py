@@ -2,12 +2,15 @@
 
 A CPU tensor goes to the plain version (`ref.attention_ref`). A CUDA tensor
 launches the Hopper kernel (`csrc/flash_attention.cu`) or raises: there is
-no fallback on the card. `flash_attention.launches` counts kernel launches.
+no fallback on the card. bf16 runs on the tensor cores (`mma.sync`, every
+row start 16-byte aligned for its `cp.async` copies), fp32 on the CUDA
+cores. `flash_attention.launches` counts kernel launches.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import torch
 
@@ -16,6 +19,13 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128)
+# The paths each dtype takes on the card (chip_smoke.py names them).
+PATHS = {torch.float32: "cuda-core fp32", torch.bfloat16: "mma.sync bf16"}
+# q rows a block, the smaller of the two kernels' (fp32 64, bf16 128): the
+# bf16 kernel's q-tiles are its grid's z axis, at most 65535
+BQ = 64
+
+_LAUNCHES_LOCK = threading.Lock()
 
 
 @functools.lru_cache(maxsize=None)
@@ -59,8 +69,20 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int):
         if x.stride(-1) != 1:
             raise ValueError(f"{name} needs a contiguous head_dim axis; "
                              f"strides {x.stride()}")
-    if max(b, h, s, t) >= 2 ** 31 or max(b, h) > 65535:
+    if max(b, h, s, t) >= 2 ** 31 or max(b, h, -(-s // BQ)) > 65535:
         raise ValueError(f"shape {tuple(q.shape)} beyond the launch grid")
+    if q.dtype == torch.bfloat16:
+        # cp.async copies 16 bytes from each row start
+        for name, x in (("q", q), ("k", k), ("v", v)):
+            step = 16 // x.element_size()
+            strides = [st for st, n in zip(x.stride()[:3], x.shape[:3])
+                       if n > 1]
+            if x.data_ptr() % 16 or any(st % step for st in strides):
+                raise ValueError(
+                    f"{name} breaks the bf16 kernel's 16-byte alignment: "
+                    f"data_ptr % 16 = {x.data_ptr() % 16}, strides "
+                    f"{x.stride()} (batch, head and sequence strides must "
+                    f"be multiples of {step} elements)")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -89,7 +111,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if err:
         raise RuntimeError(f"flash_attention kernel launch failed: "
                            f"{err_str(err).decode()} (cudaError {err})")
-    flash_attention.launches += 1
+    with _LAUNCHES_LOCK:   # device lanes and callers may launch at once
+        flash_attention.launches += 1
     return out
 
 

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import Optional
 
 import torch
@@ -21,6 +22,8 @@ from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 STATE_DIMS = (8, 16)
+
+_LAUNCHES_LOCK = threading.Lock()
 
 
 @functools.lru_cache(maxsize=None)
@@ -97,7 +100,8 @@ def _launch(x, dt, b_t, c_t, a, d, h0: Optional[torch.Tensor]):
     if err:
         raise RuntimeError(f"ssm_scan kernel launch failed: "
                            f"{err_str(err).decode()} (cudaError {err})")
-    ssm_scan.launches += 1
+    with _LAUNCHES_LOCK:   # device lanes and callers may launch at once
+        ssm_scan.launches += 1
     return y, h1
 
 

@@ -139,6 +139,47 @@ def test_wrapper_checks_dtype_and_strides():
                torch.zeros(1, 1, 8, 32), 0)
 
 
+def _bf16_view(b, s, h, hd, pad=0, offset=0):
+    """A (B,H,S,hd) bf16 view of the first H*hd columns of a (B,S,H*hd+pad)
+    tensor that starts `offset` elements into its storage."""
+    n = b * s * (h * hd + pad)
+    base = torch.zeros(n + offset, dtype=torch.bfloat16)[offset:]
+    x = base.view(b, s, h * hd + pad)[..., :h * hd]
+    return x.unflatten(-1, (h, hd)).transpose(1, 2)
+
+
+@pytest.mark.parametrize("pad,offset", [(1, 0), (4, 0), (0, 1), (8, 3)])
+def test_bf16_alignment_is_checked(pad, offset):
+    """The tensor-core path copies 16 bytes from each row start: an S
+    stride that is not a multiple of 8 bf16, or a data pointer off 16
+    bytes, raises and names the alignment."""
+    q = _bf16_view(2, 16, 4, 32, pad, offset)
+    assert q.data_ptr() % 16 == (2 * offset) % 16
+    k = _bf16_view(2, 16, 4, 32)
+    for args in ((q, k, k), (k, q, k), (k, k, q)):
+        with pytest.raises(ValueError, match="16-byte alignment"):
+            ops._check(*args, 0)
+
+
+def test_aligned_views_pass_the_checks():
+    """A view into a wider tensor whose strides keep 16-byte rows passes,
+    as does a size-1 axis of any stride; fp32 (the CUDA-core path) needs no
+    alignment."""
+    q = _bf16_view(2, 16, 4, 32, pad=64)
+    assert q.stride(2) == 4 * 32 + 64
+    ops._check(q, q, q, 0)
+    one = torch.zeros(1, 16, 4 * 32 + 8, dtype=torch.bfloat16)[..., :128]
+    ops._check(*(one.unflatten(-1, (4, 32)).transpose(1, 2),) * 3, 0)
+    f32 = torch.zeros(2, 16, 4 * 32 + 1)[..., :128].unflatten(
+        -1, (4, 32)).transpose(1, 2)
+    ops._check(f32, f32, f32, 0)
+
+
+def test_paths_name_each_dtype():
+    assert ops.PATHS == {torch.float32: "cuda-core fp32",
+                         torch.bfloat16: "mma.sync bf16"}
+
+
 # ---------------------------------------------------------------- the build
 
 def _fake_nvcc(path, body):
@@ -170,6 +211,62 @@ echo built > "$out"
     assert _build.build_all() == paths            # unchanged tree: no rebuild
     assert len(log.read_text().splitlines()) == len(names)
     assert not list((tmp_path / "build").glob("*.tmp.so"))
+    # the headers the kernels share are part of every library's hash: an
+    # edit to one rebuilds every source, and only once
+    include = tmp_path / "include"
+    include.mkdir()
+    for header in _build.INCLUDE_DIR.glob("*.cuh"):
+        (include / header.name).write_bytes(header.read_bytes())
+    monkeypatch.setattr(_build, "INCLUDE_DIR", include)
+    assert _build.build_all() == paths            # the same bytes: no rebuild
+    assert len(log.read_text().splitlines()) == len(names)
+    shared = next(include.glob("*.cuh"))
+    shared.write_text(shared.read_text() + "// edited\n")
+    rebuilt = _build.build_all()
+    assert set(rebuilt) == names
+    assert all(rebuilt[n] != paths[n] for n in names)
+    calls = log.read_text().splitlines()
+    assert len(calls) == 2 * len(names)
+    assert all(f"-I {include}" in call for call in calls[len(names):])
+    assert _build.build_all() == rebuilt
+    assert len(log.read_text().splitlines()) == 2 * len(names)
+
+
+PTXAS_OUT = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_Z6kernelv' for 'sm_90a'
+ptxas info    : Function properties for _Z6kernelv
+    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers, 16384 bytes smem, 400 bytes cmem[0]
+ptxas info    : Function properties for _Z6helperv
+    16 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Compiling entry function '_Z2k2v' for 'sm_90a'
+ptxas info    : Function properties for _Z2k2v
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 40 registers, 400 bytes cmem[0]
+"""
+
+
+def test_build_keeps_the_ptxas_report(tmp_path, monkeypatch):
+    """nvcc's `-Xptxas -v` report is kept beside each library and read
+    back per kernel: registers, static shared memory, spills."""
+    nvcc = _fake_nvcc(tmp_path / "nvcc", f"""
+out=""; prev=""
+for a in "$@"; do [ "$prev" = "-o" ] && out="$a"; prev="$a"; done
+echo built > "$out"
+cat >&2 <<'PTXAS'
+{PTXAS_OUT}PTXAS
+""")
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_nvcc", lambda: nvcc)
+    assert "-v" in _build.NVCC_FLAGS and "-Xptxas" in _build.NVCC_FLAGS
+    assert _build.ptxas_report("flash_attention") == []   # not built yet
+    _build.build_all()
+    want = [{"kernel": "_Z6kernelv", "registers": 128, "smem_bytes": 16384,
+             "spill_stores": 8, "spill_loads": 4},
+            {"kernel": "_Z2k2v", "registers": 40, "smem_bytes": 0,
+             "spill_stores": 0, "spill_loads": 0}]
+    for name in _build.sources():
+        assert _build.ptxas_report(name) == want
 
 
 def test_build_failure_raises_with_nvcc_stderr(tmp_path, monkeypatch):

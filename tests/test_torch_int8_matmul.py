@@ -153,3 +153,87 @@ def test_wrapper_checks(index, bad, exc, err):
     with pytest.raises(exc, match=err):
         int8_matmul(*args)
     assert int8_matmul.launches == 0
+
+
+# ------------------------------------------- the kernel's paths (`_plan`)
+
+PLAN_N, PLAN_K = 5632, 2048   # stablelm-1.6b's MLP up-projection
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [1, 4, 16, 17, 4096])
+def test_plan_paths_and_splits(m, dtype):
+    """M <= 16: the split-K GEMV in both types, its splits covering K once
+    with no empty split, 2 blocks or more an SM, and a (splits, M, N)
+    workspace; above, bf16 on the tensor cores and fp32 on the fp32 tiles."""
+    plan = ops._plan(m, PLAN_N, PLAN_K, dtype)
+    if m <= 16:
+        assert plan.path == ops.GEMV == "split-K GEMV"
+        assert plan.mt >= m and plan.mt * plan.cpt <= 64
+        bounds = [(s * plan.kps, min(PLAN_K, (s + 1) * plan.kps))
+                  for s in range(plan.splits)]
+        assert bounds[0][0] == 0 and bounds[-1][1] == PLAN_K
+        assert all(hi > lo for lo, hi in bounds)              # none empty
+        assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+        assert plan.kps % ops.GEMV_WARPS == 0
+        assert plan.workspace == (plan.splits, m, PLAN_N)
+        assert plan.grid == (-(-PLAN_N // (32 * plan.cpt)), plan.splits)
+        assert plan.grid[0] * plan.grid[1] >= 2 * ops.SMS
+    else:
+        assert plan.path == (ops.MMA if dtype == torch.bfloat16
+                             else ops.TILES)
+        assert plan.workspace is None
+
+
+@pytest.mark.parametrize("k", [8, 200, 2004, 4096])
+def test_plan_splits_cover_any_k(k):
+    for m in (1, 8, 16):
+        plan = ops._plan(m, 333, k, torch.float32)
+        assert (plan.splits - 1) * plan.kps < k <= plan.splits * plan.kps
+        assert plan.kps * plan.mt <= ops.GEMV_SLICE_FLOATS
+
+
+def _gemv_emulation(x, wq, scales, plan):
+    """The GEMV's order of fp32 sums: in each split, warp w adds rows w,
+    w + 8, ... one after another; the 8 warps fold as ((0+4) + (2+6)) +
+    ((1+5) + (3+7)); the splits are summed in order from 0.0, then scaled."""
+    m, k = x.shape
+    total = torch.zeros(m, wq.shape[1])
+    for s in range(plan.splits):
+        lo, hi = s * plan.kps, min(k, (s + 1) * plan.kps)
+        warps = []
+        for w in range(ops.GEMV_WARPS):
+            acc = torch.zeros(m, wq.shape[1])
+            for r in range(lo + w, hi, ops.GEMV_WARPS):
+                acc = acc + x[:, r:r + 1].float() * wq[r].float()
+            warps.append(acc)
+        half = ops.GEMV_WARPS // 2
+        while half:
+            warps = [warps[i] + warps[i + half] for i in range(half)]
+            half //= 2
+        total = total + warps[0]
+    return (total * scales.float()).to(x.dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,k,n", [(4, 2048, 96), (1, 203, 40),
+                                   (16, 777, 33)])
+def test_gemv_order_matches_plain_version(dtype, m, k, n):
+    """Summing int8_matmul_ref's products over `_plan`'s K splits in the
+    kernel's order gives int8_matmul_ref's result to fp32 rounding, ragged
+    K included."""
+    rng = np.random.default_rng(m * k + n)
+    x = torch.from_numpy(rng.standard_normal((m, k), dtype=np.float32)).to(
+        getattr(torch, dtype))
+    wq, sc = quantize_weights(torch.from_numpy(
+        rng.standard_normal((k, n), dtype=np.float32)))
+    plan = ops._plan(m, n, k, x.dtype)
+    assert plan.path == ops.GEMV and plan.splits > 1
+    got = _gemv_emulation(x, wq, sc, plan)
+    want = int8_matmul_ref(x, wq, sc)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    # fp32: sums of the same K products in two orders, TOL's 2e-5 grown
+    # with K past tests/test_kernels.py's 256 as chip_smoke.py's int8_tol
+    # does; bf16: the fp32 sums rounded once more, TOL's 2e-2
+    tol = 2e-5 * max(1.0, k / 256) if dtype == "float32" else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
