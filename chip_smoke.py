@@ -55,7 +55,12 @@ Phases, each of which raises (and so exits non-zero) on any failure:
               as a `kernel_task`
               on the gpu node (max abs err < 1e-3, its launch counted, the
               profiler counting the task); the kernel-task round trip against
-              the bare call of tanh(x @ x.T) at dim 384; `ParamSet`
+              the bare call of tanh(x @ x.T) at dim 384, its ratio against
+              compute_bench.py's OVERHEAD_MULT (printed, not gated: not met
+              on the H100), the trip hop by hop, the bare call made right
+              after its thread slept and right after it spun as long, and a
+              handoff between two threads through a threading.Event and
+              through a spin; `ParamSet`
               publish/fetch of xlstm-125m's parameters from the card
               (zero-copy views, bit-exact round trip).
   7. train graph  xlstm-125m at full width and depth trains through the
@@ -111,6 +116,14 @@ JAMBA_CUT_PARAMS = 8_999_034_880
 # chunks; bf16 5e-2, the bound of tests/test_kernels.py:95 (y rounded to
 # bf16). The state out is fp32 whatever q's type, and held at fp32's 1e-4.
 MLSTM_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+# The bf16 kernels against `mlstm_scan_two_pass_ref`, the plain version that
+# rounds to bf16 where they do (chunk-start C, P, y): y to 1e-2 + 1e-2 |y|,
+# an ulp of bf16 y (2^-8 of |y|) and the fp32 sums' order beside it; the
+# state at MLSTM_TOL's fp32 1e-4.
+MLSTM_TWO_PASS_TOL = 1e-2
+# Phase 5's loss at the initial weights, the kernel against the plain
+# version in the same run: to 1e-3 of its value.
+MLSTM_LOSS_RTOL = 1e-3
 # Port on the card vs port on the CPU, fp32 prefill logits.
 PARITY_TOL = 1e-3
 # xlstm card vs CPU, fp32: the loss to 1e-5 of its value; each gradient leaf
@@ -351,8 +364,9 @@ def _mlstm_inputs(gen, b, h, s, hd, dtype, with_state=False):
     return (q, k, v, log_i, log_f), state
 
 
-def _mlstm_err(label, dt, got, want) -> float:
-    """Max abs error of y and the state out; raises beyond the tolerance."""
+def _mlstm_err(label, dt, got, want, y_tol=None) -> float:
+    """Max abs error of y and the state out; raises beyond the tolerance
+    (y's: MLSTM_TOL of its dtype unless `y_tol` is given)."""
     (y, st), (ry, rst) = got, want
     err = 0.0
     for name, a, b in zip(("y", "C", "n", "m"), (y, *st), (ry, *rst)):
@@ -361,6 +375,8 @@ def _mlstm_err(label, dt, got, want) -> float:
                                  f"{a.shape}/{a.dtype} vs {b.shape}/{b.dtype}")
         diff = (a.float() - b.float()).abs()
         tol = MLSTM_TOL[dt if name == "y" else torch.float32]
+        if name == "y" and y_tol is not None:
+            tol = y_tol
         bad = diff > tol + tol * b.float().abs()
         if not torch.isfinite(a).all() or bool(bad.any()):
             raise AssertionError(f"mlstm_scan {label} {dt} {name}: max abs err "
@@ -370,14 +386,18 @@ def _mlstm_err(label, dt, got, want) -> float:
 
 
 def _mlstm_work(q, state) -> tuple:
-    """Useful flops and bytes of one call, by the kernel's own tiling of 32
-    rows a chunk: per (b, h) the in-chunk causal scores and their weighted
-    sum (2 flop a product each over hd), plus q.C and the C update at
-    2 S hd^2 each. Bytes: q, k, v and y, the gates, the state out and, if
+    """Useful flops and bytes of one call, by the chunk of the bf16 kernels
+    (CHUNK = 64 rows): per (b, h) the in-chunk causal scores and their
+    weighted sum (2 flop a product each over hd), plus q.C and the C update
+    at 2 S hd^2 each. The kernels do more than this (every v-tile block
+    recomputes its chunk's scores, the scores' upper triangle is computed
+    and masked, the C update runs three bf16 parts), which is why it is the
+    useful work. Bytes: q, k, v and y, the gates, the state out and, if
     given, the state in, each once."""
+    from repro_torch.kernels.mlstm_scan.ops import CHUNK
     b, h, s, hd = q.shape
     pairs = sum(n * (n + 1) // 2 for n in
-                [32] * (s // 32) + ([s % 32] if s % 32 else []))
+                [CHUNK] * (s // CHUNK) + ([s % CHUNK] if s % CHUNK else []))
     flops = b * h * (4 * hd * pairs + 4 * s * hd * hd)
     state_bytes = 4 * b * h * (hd * hd + hd + 1)
     nbytes = (4 * q.numel() * q.element_size() + 2 * 4 * b * h * s
@@ -386,7 +406,9 @@ def _mlstm_work(q, state) -> tuple:
 
 
 def check_mlstm_scan(gen):
-    from repro_torch.kernels.mlstm_scan import mlstm_scan, mlstm_scan_ref
+    from repro_torch.kernels.mlstm_scan import (mlstm_scan, mlstm_scan_ref,
+                                                mlstm_scan_two_pass_ref)
+    from repro_torch.kernels.mlstm_scan.ops import PATHS
     f32, bf16 = torch.float32, torch.bfloat16
     cases = [  # (label, B, H, S, hd, dtypes, with_state)
         ("xlstm-125m training shape", 4, 4, 512, 384, (bf16,), False),
@@ -394,9 +416,10 @@ def check_mlstm_scan(gen):
         *[(f"hd={hd}", 2, 4, 256, hd, (f32, bf16), False)
           for hd in (32, 64, 256, 384)],
         ("ragged S=40", 2, 4, 40, 64, (f32, bf16), False),
-        ("ragged S=77 with state", 1, 4, 77, 384, (f32,), True),
+        ("ragged S=77 with state", 1, 4, 77, 384, (f32, bf16), True),
+        ("ragged S=130 with state hd=32", 2, 4, 130, 32, (f32, bf16), True),
         *[(f"decode S=1 with state hd={hd}", 4, 4, 1, hd, (f32, bf16), True)
-          for hd in (64, 384)],
+          for hd in (32, 64, 256, 384)],
     ]
     main = None
     for label, b, h, s, hd, dtypes, with_state in cases:
@@ -406,10 +429,20 @@ def check_mlstm_scan(gen):
             want = mlstm_scan_ref(*args, state)
             torch.cuda.synchronize()
             err = _mlstm_err(label, dt, got, want)
-            log(f"[kernels] mlstm_scan {label} {str(dt)[6:]} B={b} H={h} "
-                f"S={s} hd={hd}: max_abs_err={err} (tol {MLSTM_TOL[dt]}) ok")
+            two_pass = ""
+            if dt == bf16:
+                # the plain version that rounds where the kernels round
+                err_tp = _mlstm_err(f"{label} vs the two-pass plain version",
+                                    dt, got, mlstm_scan_two_pass_ref(
+                                        *args, state),
+                                    y_tol=MLSTM_TWO_PASS_TOL)
+                two_pass = (f"; vs the two-pass plain version {err_tp} (tol "
+                            f"{MLSTM_TWO_PASS_TOL})")
+            log(f"[kernels] mlstm_scan {label} {str(dt)[6:]} ({PATHS[dt]}) "
+                f"B={b} H={h} S={s} hd={hd}: max_abs_err={err} (tol "
+                f"{MLSTM_TOL[dt]}, state {MLSTM_TOL[f32]}){two_pass} ok")
             if main is None:
-                main = (args, err)
+                main = (args, err, err_tp)
 
     # chained: the state out of one call feeds the next, against one call
     # over the whole sequence
@@ -417,17 +450,43 @@ def check_mlstm_scan(gen):
         args, _ = _mlstm_inputs(gen, 2, 4, 200, 384, dt)
         y1, st1 = mlstm_scan(*(x[:, :, :72] for x in args))
         y2, st2 = mlstm_scan(*(x[:, :, 72:] for x in args), st1)
+        got = (torch.cat([y1, y2], dim=2), st2)
         want = mlstm_scan_ref(*args)
         torch.cuda.synchronize()
-        err = _mlstm_err("chained 72+128", dt, (torch.cat([y1, y2], dim=2),
-                                                st2), want)
+        err = _mlstm_err("chained 72+128", dt, got, want)
+        two_pass = ""
+        if dt == bf16:
+            # the two-pass plain version chained at the same split
+            ty1, tst1 = mlstm_scan_two_pass_ref(*(x[:, :, :72] for x in args))
+            ty2, tst2 = mlstm_scan_two_pass_ref(*(x[:, :, 72:] for x in args),
+                                                tst1)
+            err_tp = _mlstm_err("chained 72+128 vs the two-pass plain "
+                                "version", dt, got,
+                                (torch.cat([ty1, ty2], dim=2), tst2),
+                                y_tol=MLSTM_TWO_PASS_TOL)
+            two_pass = f"; vs the two-pass plain version {err_tp}"
         log(f"[kernels] mlstm_scan chained 72+128 vs one call S=200 hd=384 "
-            f"{str(dt)[6:]}: max_abs_err={err} ok")
+            f"{str(dt)[6:]} ({PATHS[dt]}): max_abs_err={err}{two_pass} ok")
 
-    args, err = main
+    # results repeat: two calls on each path give the same bits
+    for dt, shape in ((bf16, (4, 4, 512, 384)), (f32, (2, 4, 77, 384))):
+        args, state = _mlstm_inputs(gen, *shape, dt, with_state=True)
+        first = mlstm_scan(*args, state)
+        second = mlstm_scan(*args, state)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("y", "C", "n", "m"), (first[0], *first[1]),
+                              (second[0], *second[1])):
+            if not torch.equal(a, b):
+                raise AssertionError(f"mlstm_scan {PATHS[dt]}: two calls "
+                                     f"differ in {name}")
+        log(f"[kernels] mlstm_scan {str(dt)[6:]} ({PATHS[dt]}) B, H, S, hd = "
+            f"{shape} with state: two calls bit-equal in y, C, n, m")
+
+    args, err, err_two_pass = main
     q = args[0]
     b, h, s, hd = q.shape
     kernel_ms = cuda_ms(lambda: mlstm_scan(*args), 20)
+    device_ms = queued_ms(lambda: mlstm_scan(*args))
     plain_ms = cuda_ms(lambda: mlstm_scan_ref(*args), 10)
     flops, nbytes = _mlstm_work(q, None)
     t_ops, t_bytes = flops / PEAK_FLOPS[q.dtype], nbytes / PEAK_BYTES_PER_S
@@ -436,11 +495,16 @@ def check_mlstm_scan(gen):
         "route": "cuda",
         "source": "src/repro_torch/kernels/mlstm_scan/csrc/mlstm_scan.cu",
         "replaces": "src/repro/kernels/mlstm_scan/kernel.py:22",
-        "path": "cuda-core fp32, chunkwise",
+        "path": PATHS[q.dtype],
+        "paths": {str(dt)[6:]: path for dt, path in PATHS.items()},
+        "cuda_launches_per_call": {"bfloat16": 2, "float32": 1},
         "shape": f"bf16 B={b} H={h} S={s} hd={hd}",
         "launches": None,
         "max_abs_err": err,
+        "max_abs_err_vs_two_pass_plain": err_two_pass,
         "ms": kernel_ms,
+        # the card alone, without the call's host cost (`queued_ms`)
+        "device_ms": device_ms,
         "plain_ms": plain_ms,
         "bound_ms": max(t_ops, t_bytes) * 1e3,
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
@@ -448,11 +512,14 @@ def check_mlstm_scan(gen):
         "library_ms": None,
         "flops": flops,
         "bytes": nbytes,
+        "tflops": flops / device_ms / 1e9,
     }
-    log(f"[kernels] mlstm_scan at {entry['shape']}: kernel {kernel_ms:.4f} ms, "
+    log(f"[kernels] mlstm_scan ({entry['path']}) at {entry['shape']}: kernel "
+        f"{kernel_ms:.4f} ms a call, {device_ms:.4f} ms on the card alone, "
         f"plain {plain_ms:.4f} ms, no library call, bound "
         f"{entry['bound_ms']:.4f} ms ({entry['bound_by']}: {flops} flop, "
-        f"{nbytes} bytes)")
+        f"{nbytes} bytes); {entry['tflops']:.1f} TFLOP/s useful on the card; "
+        f"max_abs_err vs the two-pass plain version {err_two_pass}")
     return entry
 
 
@@ -505,6 +572,9 @@ def _sm_clock_mhz() -> float:
     return float(out.stdout.strip().splitlines()[0])
 
 
+SSM_PATH = "fp32, two lanes a channel, ex2.approx"
+
+
 def check_ssm_scan(gen):
     from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_ref
     f32, bf16 = torch.float32, torch.bfloat16
@@ -513,10 +583,13 @@ def check_ssm_scan(gen):
         ("jamba decode S=1 with state", 4, 1, 16_384, 16, bf16, f32, True,
          False),
         *[(f"S={s} di={di} ds={ds}", 2, s, di, ds, dt, dt, False, False)
-          for s, di, ds in ((64, 128, 16), (128, 256, 16), (256, 128, 8))
+          for s, di, ds in ((64, 128, 16), (128, 256, 16), (256, 128, 8),
+                            (50, 200, 16), (33, 100, 8))
           for dt in (f32, bf16)],
         *[("ragged S=77 di=384 with state, B/C views", 1, 77, 384, ds, x_dt,
            f32, True, True) for ds in (8, 16) for x_dt in (f32, bf16)],
+        *[(f"decode S=1 with state di=200 ds={ds}", 4, 1, 200, ds, bf16, f32,
+           True, False) for ds in (8, 16)],
     ]
     main = decode = None
     for label, b, s, di, ds, x_dt, p_dt, with_state, views in cases:
@@ -553,7 +626,7 @@ def check_ssm_scan(gen):
         "route": "cuda",
         "source": "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu",
         "replaces": "src/repro/kernels/ssm_scan/kernel.py:21",
-        "path": "cuda-core fp32, a thread per channel",
+        "path": SSM_PATH,
         "launches": None,
         **_ssm_times(*main, clock_mhz),
         # the 315 decode launches of phase 4b run at this shape
@@ -570,6 +643,7 @@ def _ssm_times(args, h0, err, clock_mhz) -> dict:
     b, s, di = x.shape
     ds = a.shape[1]
     kernel_ms = cuda_ms(lambda: ssm_scan(*args, h0), 20)
+    device_ms = queued_ms(lambda: ssm_scan(*args, h0))
     plain_ms = cuda_ms(lambda: ssm_scan_ref(*args, h0), 3, warmup=1)
     updates = b * s * di * ds
     # per state update: dt*A, dt*B*x (2), the fma into h (2), the fma of
@@ -587,6 +661,8 @@ def _ssm_times(args, h0, err, clock_mhz) -> dict:
                  + (", state in" if h0 is not None else ""),
         "max_abs_err": err,
         "ms": kernel_ms,
+        # the card alone, without the call's host cost (`queued_ms`)
+        "device_ms": device_ms,
         "plain_ms": plain_ms,
         "bound_ms": max(t_ops, t_bytes) * 1e3,
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
@@ -600,7 +676,8 @@ def _ssm_times(args, h0, err, clock_mhz) -> dict:
         "flop_ms": flops / PEAK_FLOPS[torch.float32] * 1e3,
         "bytes_ms": t_bytes * 1e3,
     }
-    log(f"[kernels] ssm_scan at {times['shape']}: kernel {kernel_ms:.4f} ms, "
+    log(f"[kernels] ssm_scan ({SSM_PATH}) at {times['shape']}: kernel "
+        f"{kernel_ms:.4f} ms a call, {device_ms:.4f} ms on the card alone, "
         f"plain {plain_ms:.4f} ms, no library call, bound "
         f"{times['bound_ms']:.4f} ms ({times['bound_by']}: {updates} exps at "
         f"{SFU_PER_SM_CLOCK}/SM/clock x {SMS} SMs x {clock_mhz} MHz = "
@@ -988,14 +1065,34 @@ PORT_KERNELS = {"flash_attention": "flash_fwd", "mlstm_scan": "mlstm_fwd",
 
 # ------------------------------------------------------------------ phase 5
 
+def _plain_mlstm_losses(cfg, params, batch, seq_len, shards) -> list:
+    """The loss at `params` and the loss after one AdamW step from them, on
+    the first batch both, as phase 5 takes them, with the model's mLSTM
+    layers on the plain version (`mlstm_scan_ref` in bf16) in place of the
+    kernel. Trains `params` in place."""
+    from repro_torch.kernels.mlstm_scan import mlstm_scan_ref
+    from repro_torch.models import xlstm
+    from repro_torch.train.lm import train_lm
+    kernel = xlstm.mlstm_scan
+    xlstm.mlstm_scan = mlstm_scan_ref
+    try:
+        return [train_lm(cfg, 1, batch, seq_len, shards, params=params,
+                         sync=True).losses[0] for _ in range(2)]
+    finally:
+        xlstm.mlstm_scan = kernel
+
+
 def train_full_model() -> int:
     """Full xlstm-125m through `train_lm`; returns mlstm_scan's launches in
-    the 8 timed steps."""
+    the 8 timed steps. Then the same first two losses with the plain
+    version in place of the kernel (`_plain_mlstm_losses`): the loss at the
+    initial weights must agree to MLSTM_LOSS_RTOL."""
     from repro_torch.bridge import init_params
     from repro_torch.configs.base import MLSTM
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels.mlstm_scan import mlstm_scan
     from repro_torch.train.lm import train_lm
+    from repro_torch.tree import tree_map
 
     cfg = get_config("xlstm-125m")
     batch, shards, seq_len, steps = 8, 2, 512, 8
@@ -1006,6 +1103,7 @@ def train_full_model() -> int:
         f"{cfg.param_dtype} params, {cfg.opt_state_dtype} moments: "
         f"{_numel(params)} params initialized in "
         f"{time.perf_counter() - t0:.1f} s")
+    initial = tree_map(torch.clone, params)
     warm = train_lm(cfg, 1, batch, seq_len, shards, params=params, sync=True)
     log(f"[train] warm-up step: {warm.step_ms[0]:.1f} ms, loss "
         f"{warm.losses[0]}")
@@ -1038,6 +1136,16 @@ def train_full_model() -> int:
              lambda: train_lm(cfg, 1, batch, seq_len, shards, params=params,
                               sync=True),
              host_ops=False)
+    plain = _plain_mlstm_losses(cfg, initial, batch, seq_len, shards)
+    got = [warm.losses[0], res.losses[0]]
+    log(f"[train] the plain mlstm_scan_ref (bf16) in place of the kernel, "
+        f"from the same initial weights: loss {plain[0]} at them (kernel "
+        f"{got[0]}, rel diff {abs(got[0] - plain[0]) / abs(plain[0]):.3g}, "
+        f"gate {MLSTM_LOSS_RTOL}), {plain[1]} after one AdamW step (kernel "
+        f"{got[1]}, diff {got[1] - plain[1]:.4f})")
+    if not abs(got[0] - plain[0]) <= MLSTM_LOSS_RTOL * abs(plain[0]):
+        raise AssertionError(f"loss at the initial weights: kernel {got[0]}, "
+                             f"plain version {plain[0]}")
     return launches
 
 
@@ -1282,27 +1390,165 @@ def _host_percentiles(fn, n: int, warmup: int = 3) -> dict:
             "p90_us": ts[min(n - 1, int(0.9 * n))]}
 
 
-def _dispatch_round_trip() -> None:
+# The reference's limit on a kernel task's round trip: at most this many
+# times the bare call, p50 against p50 (benchmarks/compute_bench.py:51,
+# gate at :217-234). The port does not meet it on the H100 (ROADMAP C1):
+# phase 6 prints the ratio against it and does not gate on it.
+OVERHEAD_MULT = 6.0
+# The hops of one kernel-task round trip, from the driver's clock and the
+# control plane's event log ("submit", "start", "kernel" with its ms,
+# "finish"), all on one perf_counter clock.
+ROUND_TRIP_HOPS = (
+    "submit: ids, pins, registration",      # driver: submit() -> "submit"
+    "submit: placement, lane handoff",      # "submit" -> submit() returns
+    "lane wake, driver parks in get",       # submit() returns -> "start"
+    "lane: state, args",                    # "start" -> the function starts
+    "function + wait for the card",         # the "kernel" event's ms
+    "lane: store, done, notify",            # the "kernel" event -> "finish"
+    "driver wakes, get returns",            # "finish" -> get() returns
+)
+
+
+def _round_trip_hops(kt, x_ref, n: int) -> dict:
+    """`n` kernel-task round trips of `kt` on `x_ref`, each stamped by the
+    driver around `submit` and `get`; with the event log's stamps of each
+    task, the p50 of every hop of ROUND_TRIP_HOPS and of the whole trip,
+    in us."""
+    from repro_torch import core
+    from repro_torch.core.api import _cluster
+    gcs = _cluster().gcs
+    for _ in range(3):
+        core.get(kt.submit(x_ref), timeout=60)
+    stamps = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        ref = kt.submit(x_ref)
+        t1 = time.perf_counter()
+        core.get(ref, timeout=60)
+        t2 = time.perf_counter()
+        stamps.append((ref.id.rsplit(".", 1)[0], t0, t1, t2))
+    wanted = {tid for tid, *_ in stamps}
+    ev: dict = {}
+    for ts, kind, tid, _, extra in gcs.events():
+        if tid in wanted:
+            ev.setdefault(tid, {})[kind] = (ts, extra)
+    hops = {name: [] for name in (*ROUND_TRIP_HOPS, "round trip")}
+    for tid, t0, t1, t2 in stamps:
+        e = ev[tid]
+        k_ts, k_extra = e["kernel"]
+        f0 = k_ts - k_extra["ms"] / 1e3
+        marks = (t0, e["submit"][0], t1, e["start"][0], f0, k_ts,
+                 e["finish"][0], t2)
+        for name, a, b in zip(ROUND_TRIP_HOPS, marks, marks[1:]):
+            hops[name].append((b - a) * 1e6)
+        hops["round trip"].append((t2 - t0) * 1e6)
+    return {name: statistics.median(v) for name, v in hops.items()}
+
+
+def _spin(seconds: float) -> None:
+    end = time.perf_counter() + seconds
+    while time.perf_counter() < end:
+        pass
+
+
+def _after_wait_p50(fn, n: int, wait) -> float:
+    """p50 host time of `fn` (us) right after the calling thread ran
+    `wait()`: a sleep, as a lane thread has slept when a task wakes it and
+    a driver when a result wakes it, or a spin as long, which keeps the
+    thread on its core."""
+    ts = []
+    for _ in range(n + 3):
+        wait()
+        t0 = time.perf_counter()
+        fn()
+        ts.append((time.perf_counter() - t0) * 1e6)
+    return statistics.median(ts[3:])
+
+
+def _handoff_p50(n: int, spin: bool) -> float:
+    """p50 (us) of a token passed to a second thread and back, each side
+    waiting on a threading.Event (`spin` False: parked in the kernel, as
+    the lane and `get` wait) or polling it with `os.sched_yield` between
+    reads (`spin` True: never parked). The driver sleeps 100 us between
+    passes, as it does between round trips."""
+    import os
+    import threading
+    there, back = threading.Event(), threading.Event()
+
+    def wait(ev):
+        if spin:
+            while not ev.is_set():
+                os.sched_yield()
+        else:
+            ev.wait()
+        ev.clear()
+
+    def other():
+        for _ in range(n):
+            wait(there)
+            back.set()
+
+    t = threading.Thread(target=other)
+    t.start()
+    ts = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        there.set()
+        wait(back)
+        ts.append((time.perf_counter() - t0) * 1e6)
+        time.sleep(1e-4)
+    t.join()
+    return statistics.median(ts)
+
+
+def _dispatch_round_trip() -> dict:
     """compute_bench.py's dispatch section: the same tanh(x @ x.T) at dim
     384, a bare call against a kernel-task round trip (host clock, each
-    waited for on the card)."""
+    waited for on the card), 200 calls each, p50 against p50, and the
+    ratio against OVERHEAD_MULT. Then the round trip hop by hop
+    (`_round_trip_hops`), the bare call made right after the calling
+    thread slept and right after it spun as long (what the lane's call
+    pays for its wake), and a thread handoff parked and spinning (what
+    each of the trip's two wakes, the lane's and the driver's, costs)."""
     from repro_torch import core
     from repro_torch.compute import kernel_task
 
     def mm(x):
         return torch.tanh(x @ x.T)
 
+    def bare():
+        mm(x)
+        torch.cuda.synchronize()
+
     x = torch.randn(384, 384, generator=torch.Generator(device="cuda")
                     .manual_seed(SEED), device="cuda")
     n = 200
-    raw = _host_percentiles(lambda: (mm(x), torch.cuda.synchronize()), n)
+    raw = _host_percentiles(bare, n)
     kt = kernel_task(mm, resources={"gpu": 1.0}, warmup_args=(x,))
     x_ref = core.put(x)
     e2e = _host_percentiles(lambda: core.get(kt.submit(x_ref), timeout=60), n)
+    ratio = e2e["p50_us"] / raw["p50_us"]
     log(f"[compute] tanh(x @ x.T) dim 384 fp32, {n} calls each: bare call "
         f"p50 {raw['p50_us']:.1f} us p90 {raw['p90_us']:.1f} us; kernel_task "
         f"round trip p50 {e2e['p50_us']:.1f} us p90 {e2e['p90_us']:.1f} us; "
-        f"ratio of p50s {e2e['p50_us'] / raw['p50_us']:.2f}")
+        f"ratio of p50s {ratio:.2f} (compute_bench.py's OVERHEAD_MULT "
+        f"{OVERHEAD_MULT}: {'met' if ratio <= OVERHEAD_MULT else 'not met'})")
+    hops = _round_trip_hops(kt, x_ref, n)
+    log(f"[compute] kernel_task round trip hop by hop, p50 of {n} (us): "
+        + "; ".join(f"{name} {us:.1f}" for name, us in hops.items()))
+    slept = _after_wait_p50(bare, n, lambda: time.sleep(4e-4))
+    spun = _after_wait_p50(bare, n, lambda: _spin(4e-4))
+    parked, polled = _handoff_p50(n, spin=False), _handoff_p50(n, spin=True)
+    log(f"[compute] the bare call right after its thread slept 400 us: p50 "
+        f"{slept:.1f} us ({slept / raw['p50_us']:.2f}x the bare call); "
+        f"right after it spun 400 us: p50 {spun:.1f} us "
+        f"({spun / raw['p50_us']:.2f}x); a token to a second thread and "
+        f"back, p50 of {n}: {parked:.1f} us parked on threading.Event, "
+        f"{polled:.1f} us spinning on os.sched_yield")
+    return {"bare_p50_us": raw["p50_us"], "round_trip_p50_us": e2e["p50_us"],
+            "ratio": ratio, "hops_p50_us": hops, "bare_after_sleep_p50_us":
+            slept, "bare_after_spin_p50_us": spun,
+            "handoff_parked_p50_us": parked, "handoff_spin_p50_us": polled}
 
 
 def _paramset_round_trip() -> None:
@@ -1448,7 +1694,6 @@ def main() -> int:
         f"python {sys.version.split()[0]}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-
     t0 = time.perf_counter()
     build_report()
     log(f"[time] build: {time.perf_counter() - t0:.1f} s")

@@ -1,8 +1,11 @@
 """Public wrapper of the chunkwise mLSTM kernel.
 
 A CPU tensor goes to the plain version (`ref.mlstm_scan_ref`). A CUDA tensor
-launches the Hopper kernel (`csrc/mlstm_scan.cu`) or raises: there is no
-fallback on the card. `mlstm_scan.launches` counts kernel launches.
+launches the Hopper kernels (`csrc/mlstm_scan.cu`) or raises: there is no
+fallback on the card. bf16 runs on the tensor cores in two launches (the
+recurrence over chunks, then every chunk's output; every row start of q, k
+and v 16-byte aligned for their `cp.async` copies), fp32 on the CUDA cores
+in one. `mlstm_scan.launches` counts calls that launched, one a call.
 
 The gradient. The reference has no backward Pallas kernel: JAX
 differentiates the jnp chunkwise form (`jax.grad` through `_mlstm_chunk`).
@@ -13,6 +16,7 @@ backward kernel is later work.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import threading
@@ -23,8 +27,12 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.mlstm_scan.ref import State, mlstm_scan_ref
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 256, 384)
+# The path each dtype takes on the card (chip_smoke.py names them).
+PATHS = {torch.float32: "cuda-core fp32, chunkwise",
+         torch.bfloat16: "mma.sync bf16, two-pass chunkwise"}
+# rows a chunk of the bf16 kernels
+CHUNK = 64
 
 _LAUNCHES_LOCK = threading.Lock()
 
@@ -32,13 +40,17 @@ _LAUNCHES_LOCK = threading.Lock()
 @functools.lru_cache(maxsize=None)
 def _entry():
     lib = _build.load("mlstm_scan")
-    fn = lib.repro_mlstm_scan_fwd
     i32, i64, ptr = ctypes.c_int, ctypes.c_int64, ctypes.c_void_p
-    fn.argtypes = [i32] + [ptr] * 12 + [i32] * 4 + [i64] * 18 + [ptr]
-    fn.restype = i32
+    fp32 = lib.repro_mlstm_scan_fwd
+    fp32.argtypes = [i32] + [ptr] * 12 + [i32] * 4 + [i64] * 18 + [ptr]
+    fp32.restype = i32
+    bf16 = lib.repro_mlstm_scan_fwd_bf16
+    bf16.argtypes = [ptr] * 15 + [i32] * 4 + [i64] * 18 + [ptr]
+    bf16.restype = i32
     lib.repro_cuda_error_string.argtypes = [i32]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
-    return fn, lib.repro_cuda_error_string
+    return {torch.float32: fp32, torch.bfloat16: bf16}, \
+        lib.repro_cuda_error_string
 
 
 def _check(q, k, v, log_i, log_f, state: Optional[State]):
@@ -46,7 +58,7 @@ def _check(q, k, v, log_i, log_f, state: Optional[State]):
     if any(t.device != q.device for t in tensors):
         raise ValueError(f"inputs on different devices: "
                          f"{[str(t.device) for t in tensors]}")
-    if q.dtype not in _DTYPES or not (q.dtype == k.dtype == v.dtype):
+    if q.dtype not in PATHS or not (q.dtype == k.dtype == v.dtype):
         raise TypeError(f"mlstm_scan takes float32 or bfloat16 q, k, v of one "
                         f"dtype; got {q.dtype}, {k.dtype}, {v.dtype}")
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
@@ -73,14 +85,23 @@ def _check(q, k, v, log_i, log_f, state: Optional[State]):
         if x.stride(-1) != 1:
             raise ValueError(f"{name} needs a contiguous head_dim axis; "
                              f"strides {x.stride()}")
-    if s >= 2 ** 31 or max(b, h) > 65535:
+    if s >= 2 ** 31 or max(b, h, b * h) > 65535:
         raise ValueError(f"shape {tuple(q.shape)} beyond the launch grid")
+    if q.dtype == torch.bfloat16:
+        # cp.async copies 16 bytes from each row start
+        for name, x in (("q", q), ("k", k), ("v", v)):
+            strides = [st for st, n in zip(x.stride()[:3], x.shape[:3])
+                       if n > 1]
+            if x.data_ptr() % 16 or any(st % 8 for st in strides):
+                raise ValueError(f"bf16 {name} needs 16-byte aligned row "
+                                 f"starts; data_ptr {x.data_ptr()}, "
+                                 f"strides {x.stride()}")
 
 
 def _launch(q, k, v, log_i, log_f, state: Optional[State], bc: int):
-    """One kernel launch. The kernel tiles by its own chunk of 32 rows;
-    `bc` is the plain version's chunk, and the chunk does not change the
-    math (the tests hold chunk invariance)."""
+    """One call: the bf16 kernels (chunks of CHUNK rows) or the fp32 kernel
+    (chunks of 32 rows). `bc` is the plain version's chunk; the chunk does
+    not change the math (the tests hold chunk invariance)."""
     b, h, s, hd = q.shape
     dev = q.device
     y = torch.empty((b, s, h, hd), dtype=q.dtype, device=dev).transpose(1, 2)
@@ -88,20 +109,33 @@ def _launch(q, k, v, log_i, log_f, state: Optional[State], bc: int):
     n1 = torch.empty((b, h, hd), dtype=torch.float32, device=dev)
     m1 = torch.empty((b, h), dtype=torch.float32, device=dev)
     if state is None:
-        c0 = n0 = m0 = None
         ptrs = (None, None, None)
     else:
         c0, n0, m0 = (t.contiguous() for t in state)
         ptrs = (c0.data_ptr(), n0.data_ptr(), m0.data_ptr())
-    fn, err_str = _entry()
-    with torch.cuda.device(dev):
+    outs = (y.data_ptr(), c1.data_ptr(), n1.data_ptr(), m1.data_ptr())
+    dims = (b, h, s, hd, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *log_i.stride(), *log_f.stride(), *y.stride()[:3])
+    fns, err_str = _entry()
+    # the device guard costs host time a call: switch only when needed
+    with (contextlib.nullcontext() if dev.index == torch.cuda.current_device()
+          else torch.cuda.device(dev)):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 log_i.data_ptr(), log_f.data_ptr(), *ptrs,
-                 y.data_ptr(), c1.data_ptr(), n1.data_ptr(), m1.data_ptr(),
-                 b, h, s, hd,
-                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                 *log_i.stride(), *log_f.stride(), *y.stride()[:3], stream)
+        ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), log_i.data_ptr(),
+               log_f.data_ptr(), *ptrs)
+        if q.dtype == torch.bfloat16:
+            # the state at each chunk's start, written by the first launch
+            # and read by the second
+            nc = -(-s // CHUNK)
+            cst = torch.empty((b * h, nc, hd, hd), dtype=torch.bfloat16,
+                              device=dev)
+            nst = torch.empty((b * h, nc, hd), dtype=torch.float32,
+                              device=dev)
+            mst = torch.empty((b * h, nc), dtype=torch.float32, device=dev)
+            err = fns[q.dtype](*ins, *outs, cst.data_ptr(), nst.data_ptr(),
+                               mst.data_ptr(), *dims, stream)
+        else:
+            err = fns[q.dtype](0, *ins, *outs, *dims, stream)
     if err:
         raise RuntimeError(f"mlstm_scan kernel launch failed: "
                            f"{err_str(err).decode()} (cudaError {err})")
@@ -155,6 +189,9 @@ def mlstm_scan(q, k, v, log_i, log_f, state: Optional[State] = None, *,
     if all(t.device.type == "cpu" for t in tensors):
         return mlstm_scan_ref(q, k, v, log_i, log_f, state, bc=bc)
     _check(q, k, v, log_i, log_f, state)
+    if not (torch.is_grad_enabled()
+            and any(t.requires_grad for t in tensors)):
+        return _launch(q, k, v, log_i, log_f, state, bc)
     y, c1, n1, m1 = _MLSTMScan.apply(_launch, bc, q, k, v, log_i, log_f,
                                      *(state or (None, None, None)))
     return y, (c1, n1, m1)

@@ -3,8 +3,10 @@
 `mlstm_chunk` is the port of `repro.models.xlstm._mlstm_chunk`: one chunk of
 the stabilized chunkwise mLSTM in the model's layout. `mlstm_scan_ref` runs
 it chunk after chunk over (B,H,S,hd) inputs with the state in and out: what
-the Hopper kernel computes. `mlstm_ref` is the port of the reference's
-sequential oracle (`repro.kernels.mlstm_scan.ref.mlstm_ref`).
+the Hopper kernels compute. `mlstm_scan_two_pass_ref` computes the same in
+the two passes of the bf16 tensor-core kernel, rounding to bf16 where that
+kernel rounds. `mlstm_ref` is the port of the reference's sequential oracle
+(`repro.kernels.mlstm_scan.ref.mlstm_ref`).
 
 The stabilizers use `amax` and `torch.maximum`, which split the gradient
 between tied entries as JAX's `max` and `maximum` do.
@@ -87,6 +89,87 @@ def mlstm_scan_ref(q, k, v, log_i, log_f, state: Optional[State] = None, *,
         ys.append(y)
     y = torch.cat(ys, dim=1).to(q.dtype).transpose(1, 2)
     return y, state
+
+
+def _bf16(x):
+    """x rounded to bf16 (nearest even), kept in fp32."""
+    return x.to(torch.bfloat16).float()
+
+
+def mlstm_scan_two_pass_ref(q, k, v, log_i, log_f,
+                            state: Optional[State] = None, *,
+                            chunk: int = 64):
+    """What the bf16 tensor-core kernel computes, in its two passes, with
+    its roundings. Same arguments and results as `mlstm_scan_ref`.
+
+    Pass (a), the recurrence: chunk after chunk of `chunk` rows it keeps
+    the state (C, n, m) in fp32 and records it at each chunk's start. The
+    C update's weighted keys a = w_upd k are split into three bf16 parts,
+    hi + mid + lo = a to about 2^-24 of a (two parts leave 2^-16, which
+    costs C up to 3e-5 of its 1e-4 tolerance at S = 200), whose products
+    with v the kernel sums in fp32 on the tensor cores; n sums a in fp32.
+    Pass (b), every chunk at once from its recorded start: the scores
+    q k^T in fp32 from the inputs, scaled after the product; the decay
+    weights; q C from the chunk-start C rounded to bf16; q n in fp32; the
+    weighted scores P summed in fp32 for the denominator and rounded to
+    bf16 for P v. Rows past S (the ragged last chunk) are zero with
+    log_i = -inf and log_f = 0, so they add nothing."""
+    b, h, s, hd = q.shape
+    if state is None:
+        state = zero_state(b, h, hd, q.device)
+    scale = 1.0 / math.sqrt(hd)
+    nc = -(-s // chunk)
+    pad = nc * chunk - s
+
+    def rows(x, fill=0.0):
+        x = x.float()
+        if pad:
+            x = torch.cat([x, x.new_full((*x.shape[:2], pad, *x.shape[3:]),
+                                         fill)], dim=2)
+        return x.unflatten(2, (nc, chunk))
+    qf, kf, vf = rows(q), rows(k), rows(v)            # (B,H,nc,L,hd)
+    li = rows(log_i, -math.inf)                         # (B,H,nc,L)
+    bcum = torch.cumsum(rows(log_f), dim=-1)
+    btot = bcum[..., -1]                                # (B,H,nc)
+
+    # (a) the recurrence over chunks
+    c_mat, n_vec, m_run = (t.float() for t in state)
+    starts = []
+    for c in range(nc):
+        starts.append((c_mat, n_vec, m_run))
+        g = btot[:, :, c, None] - bcum[:, :, c] + li[:, :, c]   # (B,H,L)
+        m_next = torch.maximum(btot[:, :, c] + m_run, g.amax(dim=-1))
+        w_upd = torch.exp(g - m_next[..., None])
+        decay = torch.exp(btot[:, :, c] + m_run - m_next)
+        a = w_upd[..., None] * kf[:, :, c]                       # (B,H,L,hd)
+        hi = _bf16(a)
+        mid = _bf16(a - hi)
+        lo = _bf16(a - hi - mid)
+        c_mat = decay[..., None, None] * c_mat
+        for part in (hi, mid, lo):
+            c_mat = c_mat + torch.einsum("bhjd,bhje->bhde", part, vf[:, :, c])
+        n_vec = decay[..., None] * n_vec + a.sum(dim=-2)
+        m_run = m_next
+    c0 = torch.stack([st[0] for st in starts], dim=2)   # (B,H,nc,hd,hd)
+    n0 = torch.stack([st[1] for st in starts], dim=2)   # (B,H,nc,hd)
+    m0 = torch.stack([st[2] for st in starts], dim=2)   # (B,H,nc)
+
+    # (b) every chunk's rows from its start
+    sc = torch.einsum("bhcid,bhcjd->bhcij", qf, kf) * scale
+    qc = torch.einsum("bhcid,bhcde->bhcie", qf, _bf16(c0)) * scale
+    qn = torch.einsum("bhcid,bhcd->bhci", qf, n0) * scale
+    logd = bcum[..., :, None] - bcum[..., None, :] + li[..., None, :]
+    tri = torch.ones(chunk, chunk, dtype=torch.bool, device=q.device).tril()
+    logd = torch.where(tri, logd, -math.inf)
+    m_row = torch.maximum(logd.amax(dim=-1), bcum + m0[..., None])
+    p = sc * torch.exp(logd - m_row[..., None])
+    w_state = torch.exp(bcum + m0[..., None] - m_row)
+    den = torch.maximum((p.sum(dim=-1) + w_state * qn).abs(),
+                        torch.exp(-m_row))
+    num = (torch.einsum("bhcij,bhcje->bhcie", _bf16(p), vf)
+           + w_state[..., None] * qc)
+    y = (num / den[..., None]).flatten(2, 3)[:, :, :s]
+    return y.to(q.dtype), (c_mat, n_vec, m_run)
 
 
 def mlstm_ref(q, k, v, log_i, log_f):

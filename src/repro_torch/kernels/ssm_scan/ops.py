@@ -10,6 +10,7 @@ this kernel is on, runs under `torch.inference_mode()`.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import threading
@@ -77,6 +78,11 @@ def _check(x, dt, b_t, c_t, a, d, h0: Optional[torch.Tensor]):
                              f"{t.stride()}")
     if max(s, di) >= 2 ** 31 or bsz > 65535:
         raise ValueError(f"shape {tuple(x.shape)} beyond the launch grid")
+    # the kernel reads each lane's states of A and h0 as 16-byte vectors
+    for name, t in (("A", a), ("h0", h0)):
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{name} needs a 16-byte aligned start; "
+                             f"data_ptr {t.data_ptr()}")
 
 
 def _launch(x, dt, b_t, c_t, a, d, h0: Optional[torch.Tensor]):
@@ -88,7 +94,9 @@ def _launch(x, dt, b_t, c_t, a, d, h0: Optional[torch.Tensor]):
     a, d = a.contiguous(), d.contiguous()
     h0 = None if h0 is None else h0.contiguous()
     fn, err_str = _entry()
-    with torch.cuda.device(dev):
+    # the device guard costs host time a call: switch only when needed
+    with (contextlib.nullcontext() if dev.index == torch.cuda.current_device()
+          else torch.cuda.device(dev)):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(_DTYPES[x.dtype], _DTYPES[dt.dtype], ds,
                  x.data_ptr(), dt.data_ptr(), b_t.data_ptr(), c_t.data_ptr(),

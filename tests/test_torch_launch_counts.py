@@ -73,7 +73,8 @@ WRAPPERS = {  # name: (wrapper, its ops module, one call, the no-op entry)
     "flash_attention": (flash_attention, flash_ops, _flash_call,
                         (_noop, _err_str)),
     "ssm_scan": (ssm_scan, ssm_ops, _ssm_call, (_noop, _err_str)),
-    "mlstm_scan": (mlstm_scan, mlstm_ops, _mlstm_call, (_noop, _err_str)),
+    "mlstm_scan": (mlstm_scan, mlstm_ops, _mlstm_call,
+                   ({dtype: _noop for dtype in mlstm_ops.PATHS}, _err_str)),
     "int8_matmul": (int8_matmul, int8_ops, _int8_call,
                     ({path: _noop for path in (int8_ops.GEMV, int8_ops.MMA,
                                                 int8_ops.TILES)},

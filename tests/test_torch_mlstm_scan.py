@@ -18,7 +18,8 @@ from repro.models.xlstm import _mlstm_chunk as jax_mlstm_chunk  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.mlstm_scan import ops  # noqa: E402
 from repro_torch.kernels.mlstm_scan import (mlstm_ref, mlstm_scan,  # noqa: E402
-                                            mlstm_scan_ref)
+                                            mlstm_scan_ref,
+                                            mlstm_scan_two_pass_ref)
 
 # The tolerances of tests/test_kernels.py's mlstm test: fp32 2e-4 (the
 # chunkwise and sequential forms sum in other orders through exp-weighted
@@ -191,6 +192,64 @@ def test_custom_backward_with_y_only():
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("s,hd,bc", [(64, 32, 16), (128, 64, 32),
+                                     (128, 64, 128), (192, 32, 64)])
+def test_two_pass_plain_version_matches_jax(s, hd, bc):
+    """The bf16 kernel's two-pass form, with its bf16 roundings, on bf16
+    inputs at tests/test_kernels.py's shapes (and three whole chunks of
+    64): against the JAX kernel in interpret mode and the JAX oracle, at
+    the bf16 tolerance, and against the chunkwise plain version."""
+    jx, tt = _inputs(14, 2, 2, s, hd, "bfloat16")
+    y, state = mlstm_scan_two_pass_ref(*tt)
+    assert y.shape == tt[0].shape and y.dtype == torch.bfloat16
+    assert [tuple(x.shape) for x in state] == [(2, 2, hd, hd), (2, 2, hd),
+                                               (2, 2)]
+    _close(y, jax_mlstm_scan(*jx, bc=bc, backend="interpret"),
+           **TOL["bfloat16"])
+    _close(y, jax_mlstm_ref(*jx), **TOL["bfloat16"])
+    torch.testing.assert_close(y.float(), mlstm_scan_ref(*tt)[0].float(),
+                               **TOL["bfloat16"])
+
+
+@pytest.mark.parametrize("b,s,hd,with_state", [
+    (2, 40, 64, False),     # one ragged chunk
+    (1, 77, 32, True),      # 64 + 13 rows, a state in
+    (2, 1, 32, True),       # decode
+    (1, 200, 384, False),   # xlstm-125m's head dim, 3 chunks + 8 rows
+    (2, 130, 32, True),     # 2 chunks + 2 rows, a state in
+])
+def test_two_pass_state_meets_the_fp32_gate(b, s, hd, with_state):
+    """The precision argument of the bf16 kernel, held where the card is not
+    needed: on bf16 inputs its C, n and m (w_upd k split into three bf16
+    parts before the tensor-core products) meet fp32's 1e-4 against the
+    chunkwise fp32 plain version, as chip_smoke.py holds the kernel; y meets
+    the bf16 5e-2. Ragged S and S = 1 included; the sequential JAX oracle
+    checks y where no state is given."""
+    jx, tt = _inputs(15, b, 2, s, hd, "bfloat16")
+    st = (tuple(torch.from_numpy(x) for x in _state(16, b, 2, hd))
+          if with_state else None)
+    y, state = mlstm_scan_two_pass_ref(*tt, st)
+    want_y, want_state = mlstm_scan_ref(*tt, st)
+    torch.testing.assert_close(y.float(), want_y.float(), **TOL["bfloat16"])
+    for got, want in zip(state, want_state):
+        torch.testing.assert_close(got, want, **TIGHT)
+    if not with_state:
+        _close(y, jax_mlstm_ref(*jx), **TOL["bfloat16"])
+
+
+def test_two_pass_chained_calls_equal_one_call():
+    """The state out of one two-pass call fed to the next (72 + 56 rows: a
+    ragged chunk in each) gives one call's result over all 128 rows."""
+    _, tt = _inputs(17, 1, 2, 128, 64, "bfloat16")
+    y, st = mlstm_scan_two_pass_ref(*tt)
+    y1, st1 = mlstm_scan_two_pass_ref(*(x[:, :, :72] for x in tt))
+    y2, st2 = mlstm_scan_two_pass_ref(*(x[:, :, 72:] for x in tt), st1)
+    torch.testing.assert_close(torch.cat([y1, y2], dim=2).float(), y.float(),
+                               **TOL["bfloat16"])
+    for a, b in zip(st2, st):
+        torch.testing.assert_close(a, b, **TIGHT)
+
+
 def test_cpu_tensors_do_not_launch():
     before = mlstm_scan.launches
     _, tt = _inputs(13, 1, 2, 8, 32)
@@ -233,6 +292,22 @@ def test_wrapper_checks(args, err):
     q, g, state = args
     with pytest.raises(ValueError, match=err):
         ops._check(q, q, q, g, g, state)
+
+
+def test_paths_name_each_dtype():
+    assert set(ops.PATHS) == {torch.float32, torch.bfloat16}
+    assert "mma.sync" in ops.PATHS[torch.bfloat16]
+
+
+def test_wrapper_checks_bf16_row_alignment():
+    """The bf16 kernels copy 16 bytes from each row start by cp.async: a row
+    stride that is not a multiple of 8 elements is refused."""
+    g = _t(1, 2, 8)
+    q = _t(1, 8, 2 * 32 + 4, dtype=torch.bfloat16)[..., :64].unflatten(
+        -1, (2, 32)).transpose(1, 2)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ops._check(q, q, q, g, g, None)
+    ops._check(q.float(), q.float(), q.float(), g, g, None)   # fp32: any
 
 
 def test_wrapper_checks_dtype_and_strides():

@@ -221,3 +221,16 @@ def test_wrapper_checks_state_dim_length_strides_and_devices():
     x_db = _t(2, 8, 512 + 32)
     ops._check(x, x, x_db[..., 512:528], x_db[..., 528:], _t(128, 16),
                _t(128), _t(2, 128, 16))
+
+
+@pytest.mark.parametrize("index", [4, 6])
+def test_wrapper_checks_vector_alignment(index):
+    """The kernel reads A and h0 as 16-byte vectors: a contiguous view whose
+    start is not 16-byte aligned is refused, an aligned one passes."""
+    args = _ok() + [_t(2, 128, 16)]
+    flat = _t(args[index].numel() + 4)
+    args[index] = flat[1:1 + args[index].numel()].view(args[index].shape)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ops._check(*args)
+    args[index] = flat[4:].view(args[index].shape)
+    ops._check(*args)
