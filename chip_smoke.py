@@ -30,6 +30,26 @@ Phases, each of which raises (and so exits non-zero) on any failure:
               `ServingEngine`, the port's serving path; flash_attention must
               have launched there. Then torch.profiler over its shortest and
               its longest wave says where their time goes.
+  4c. serve   on phase 4's stablelm-1.6b weights (no second init), through
+              the open-loop FrontDoor: (a) `repro_torch.serving.serve_llm`
+              with its defaults and `--full` (2 replica actors, waves of at
+              most 2, Poisson 20 req/s for 3 s, deadline 2 s, 8 new tokens);
+              every ticket resolves, none is dispatched past its deadline,
+              the ledger balances, some are served, every token is valid,
+              and flash_attention launches 24 times a wave the replicas
+              served after the probes; it prints the ledger, latency
+              p50/p99, goodput, prefill by prompt length and the decode step
+              inside the replicas beside phase 4's, and the runtime's cost a
+              wave (dispatch-to-reap minus the engine's own serve); then the
+              same with `--replicas 1`. Beside them, the decode step of one
+              engine alone against two engines on two plain threads at once,
+              and one engine's wave must end while another engine's stream
+              sleeps (each engine waits for its own stream). (b) the
+              reference's replica-kill test at full width: 2 replicas (max
+              4), 60 requests 2 ms apart, deadline 2 s, the node of replica
+              0 killed at the 31st: every ticket resolves, a hot spare
+              brings the count to 3, some are served, the ledger balances,
+              and the card's allocated memory comes back.
   4b. serve   jamba-1.5-large-398b cut to one 8-layer group (7 Mamba layers,
               1 attention layer) at full width, dense SwiGLU FFNs in place of
               the experts, bf16, 8,999,034,880 random parameters: the same
@@ -57,7 +77,8 @@ Phases, each of which raises (and so exits non-zero) on any failure:
               profiler counting the task); the kernel-task round trip against
               the bare call of tanh(x @ x.T) at dim 384, its ratio against
               compute_bench.py's OVERHEAD_MULT (printed, not gated: not met
-              on the H100), the trip hop by hop, the bare call made right
+              on the H100) and the microseconds it adds beside the
+              reference's 487 (printed, not gated), the trip hop by hop, the bare call made right
               after its thread slept and right after it spun as long, and a
               handoff between two threads through a threading.Event and
               through a spin; `ParamSet`
@@ -862,29 +883,42 @@ def _numel(tree) -> int:
 
 class _TimedModel:
     """Delegates to the model, timing each prefill and decode step on the
-    host clock between synchronizations and checking the logits."""
+    host clock between synchronizations of the calling thread's stream (the
+    engine's own, so engines on other threads do not enter the time) and
+    checking the logits. Safe to share between threads: each record is one
+    list append."""
 
     def __init__(self, model, vocab):
         self.model, self.vocab = model, vocab
         self.prefill_ms, self.decode_ms = [], []
+        self.prefill_log = []      # ((batch, prompt length), ms)
 
-    def _timed(self, out_ms, fn, *args, **kw):
-        torch.cuda.synchronize()
+    def clear(self) -> None:
+        self.prefill_ms, self.decode_ms, self.prefill_log = [], [], []
+
+    def _timed(self, fn, *args, **kw):
+        stream = torch.cuda.current_stream()
+        stream.synchronize()
         t0 = time.perf_counter()
         logits, cache = fn(*args, **kw)
-        torch.cuda.synchronize()
-        out_ms.append((time.perf_counter() - t0) * 1e3)
+        stream.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
         if logits.shape[-1] != self.vocab or not torch.isfinite(logits).all():
             raise AssertionError(f"bad logits {tuple(logits.shape)}")
-        return logits, cache
+        return logits, cache, ms
 
     def prefill(self, params, batch, max_seq=0):
-        return self._timed(self.prefill_ms, self.model.prefill, params, batch,
-                           max_seq=max_seq)
+        logits, cache, ms = self._timed(self.model.prefill, params, batch,
+                                        max_seq=max_seq)
+        self.prefill_ms.append(ms)
+        self.prefill_log.append((tuple(batch["tokens"].shape), ms))
+        return logits, cache
 
     def decode_step(self, params, cache, tokens, pos):
-        return self._timed(self.decode_ms, self.model.decode_step, params,
-                           cache, tokens, pos)
+        logits, cache, ms = self._timed(self.model.decode_step, params,
+                                        cache, tokens, pos)
+        self.decode_ms.append(ms)
+        return logits, cache
 
 
 def _serve(cfg, params, n_short: int, card: str):
@@ -913,8 +947,7 @@ def _serve(cfg, params, n_short: int, card: str):
     waves = length_aligned_waves(requests, max_wave)
 
     engine.serve([Request(99, requests[0].prompt, 2)], max_wave)  # warm-up
-    timed.prefill_ms.clear()
-    timed.decode_ms.clear()
+    timed.clear()
     torch.cuda.reset_peak_memory_stats()
 
     reset_launch_counts()
@@ -964,8 +997,9 @@ def _init_full(cfg, seed: int):
     return params, n_params
 
 
-def serve_full_model(card: str) -> int:
-    """stablelm-1.6b at full size; returns flash_attention's launches."""
+def serve_full_model(card: str) -> dict:
+    """stablelm-1.6b at full size; returns flash_attention's launches, and
+    the config, model, weights and timings that phase 4c goes on with."""
     from repro_torch.configs.registry import get_config
     from repro_torch.serving.engine import ServingEngine
 
@@ -980,7 +1014,350 @@ def serve_full_model(card: str) -> int:
         f"layers x {len(waves)} waves")
     profile_waves(ServingEngine(timed.model, params, engine.max_seq),
                   [waves[0], waves[-1]])
+    return {"flash": flash, "cfg": cfg, "model": timed.model,
+            "params": params, "prefill_log": timed.prefill_log,
+            "decode_ms": statistics.median(timed.decode_ms)}
+
+
+# ----------------------------------------------------------------- phase 4c
+
+# Phase 4c (b): after the kill run, memory allocated on the card must come
+# back to within this many bytes of its level before it.
+KILL_MEMORY_SLACK = 256 << 20
+# Runtime threads whose end phase 4c (b) waits for before it reads memory
+# (the killed incarnation's wave runs on to its end on its thread).
+RUNTIME_THREADS = ("worker-", "lane-", "heartbeat-", "actor-",
+                   "failure-detector", "mm-reclaimer", "frontdoor-ctl")
+
+
+def _runtime_threads_drained(timeout: float) -> None:
+    import threading
+    deadline = time.perf_counter() + timeout
+    while time.perf_counter() < deadline:
+        alive = [t.name for t in threading.enumerate()
+                 if t.name.startswith(RUNTIME_THREADS)]
+        if not alive:
+            return
+        time.sleep(0.05)
+    raise AssertionError(f"runtime threads still alive: {alive}")
+
+
+def _by_bucket(prefill_log) -> dict:
+    """Median prefill ms by prompt length, with the batches seen."""
+    out = {}
+    for (b, s), ms in prefill_log:
+        out.setdefault(s, ([], set()))
+        out[s][0].append(ms)
+        out[s][1].add(b)
+    return {s: (statistics.median(v), len(v), sorted(bs))
+            for s, (v, bs) in sorted(out.items())}
+
+
+def _runtime_us_a_wave(events, since: float) -> list:
+    """For each wave reaped after `since`: its dispatch-to-reap time (the
+    FrontDoor's `serve_reap`) minus the engine's own serve time inside the
+    actor (the replica's `serve_engine`, logged by the same task), in us."""
+    engine_ms = {tid: extra["ms"] for _, kind, tid, _, extra in events
+                 if kind == "serve_engine"}
+    out = []
+    for ts, kind, ref_id, _, extra in events:
+        if kind == "serve_reap" and ts >= since:
+            out.append((extra["wave_ms"]
+                        - engine_ms[ref_id.rsplit(".", 1)[0]]) * 1e3)
+    return out
+
+
+def _check_ledger(st: dict, what: str) -> None:
+    if st["admitted"] != (st["completed_ok"] + st["completed_late"]
+                          + st["shed"] + st["failed"]):
+        raise AssertionError(f"{what}: ledger does not balance: {st}")
+    if st["dispatched_past_deadline"] != 0:
+        raise AssertionError(f"{what}: {st['dispatched_past_deadline']} "
+                             f"dispatched past their deadline")
+
+
+def _serve_llm_full(stablelm: dict, card: str, argv: list) -> dict:
+    """4c (a): `serve_llm --full` with `argv` over its defaults, on phase
+    4's weights; returns the run's figures and flash_attention's
+    launches after the probes."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import padded_vocab
+    from repro_torch.serving import serve_llm
+    from repro_torch.serving.slo import percentile
+
+    cfg = stablelm["cfg"]
+    args = serve_llm.parse_args(["--full", *argv])
+    what = " ".join(["serve_llm --full", *argv])
+    timed = _TimedModel(stablelm["model"], padded_vocab(cfg))
+    clock = {}
+
+    def on_clock_start():
+        timed.clear()
+        reset_launch_counts()
+        clock["t0"] = time.perf_counter()
+
+    run = serve_llm.serve(args, model=timed, params=stablelm["params"],
+                          on_clock_start=on_clock_start)
+    flash = flash_attention.launches
+    wall_s = time.perf_counter() - clock["t0"]
+    st = run.stats
+    if run.ok + run.shed != run.tickets or run.ok == 0:
+        raise AssertionError(f"{what}: ok {run.ok} shed {run.shed} of "
+                             f"{run.tickets} tickets")
+    _check_ledger(st, what)
+    vocab = padded_vocab(cfg)
+    for r in run.responses:
+        if len(r.tokens) != args.max_new or not all(
+                0 <= tok < vocab for tok in r.tokens):
+            raise AssertionError(f"request {r.request_id}: tokens {r.tokens}")
+    served = sum(1 for ts, kind, *_ in run.events
+                 if kind == "serve_engine" and ts >= clock["t0"])
+    if served != run.waves or flash != cfg.num_layers * run.waves \
+            or flash == 0:
+        raise AssertionError(f"{what}: flash_attention launched {flash} "
+                             f"times; {run.waves} waves dispatched, {served} "
+                             f"served, want {cfg.num_layers} x waves")
+    runtime_us = _runtime_us_a_wave(run.events, clock["t0"])
+    if len(runtime_us) != run.waves:
+        raise AssertionError(f"{what}: {len(runtime_us)} reaped waves timed, "
+                             f"{run.waves} dispatched")
+    probes = 2 * args.replicas
+    lat = [r.latency_s * 1e3 for r in run.responses]
+    decode = statistics.median(timed.decode_ms)
+    log(f"[frontdoor] {what}: card {card}; offered {run.offered} @ "
+        f"{args.rate:g}/s for {args.duration:g} s, deadline "
+        f"{args.deadline_ms:g} ms, {args.max_new} new tokens; admitted "
+        f"{st['admitted']} ({probes} probes among them) rejected "
+        f"{st['rejected']} ok {st['completed_ok']} late "
+        f"{st['completed_late']} shed {st['shed']} failed {st['failed']}; "
+        f"of the trace's {run.tickets} tickets {run.ok} fulfilled "
+        f"({st['completed_ok'] - probes} within the deadline), {run.shed} "
+        f"raised")
+    log(f"[frontdoor] {what}: latency p50 {st['latency_p50_ms']:.1f} ms p99 "
+        f"{st['latency_p99_ms']:.1f} ms (the SLO window, probes included), "
+        f"of the trace's fulfilled p50 {percentile(lat, 0.5):.1f} ms p99 "
+        f"{percentile(lat, 0.99):.1f} ms; goodput {run.goodput:.3f}/s; replicas "
+        f"{st['replicas']} batch_limits {st['batch_limits']}, {run.waves} "
+        f"waves of mean width {run.wave_width:.3f}; {wall_s:.3f} s from the "
+        f"clock's start to the cluster's shutdown")
+    mine, theirs = _by_bucket(timed.prefill_log), _by_bucket(
+        stablelm["prefill_log"])
+    for s_len, (ms, n, bs) in mine.items():
+        ref = theirs.get(s_len)
+        beside = (f"; phase 4: {ref[0]:.3f} ms (batch {ref[2]})" if ref
+                  else "; phase 4: none at this length")
+        log(f"[frontdoor] {what}: prefill prompt {s_len}: median {ms:.3f} ms "
+            f"over {n} waves (batch {bs}) inside the replicas{beside}")
+    log(f"[frontdoor] {what}: decode step inside the replicas: median "
+        f"{decode:.3f} ms over {len(timed.decode_ms)} steps; phase 4's bare "
+        f"engine: {stablelm['decode_ms']:.3f} ms "
+        f"({decode / stablelm['decode_ms']:.2f}x)")
+    log(f"[frontdoor] {what}: the runtime's cost a wave (dispatch-to-reap "
+        f"minus the engine's serve inside the actor), {len(runtime_us)} "
+        f"waves: median {statistics.median(runtime_us):.1f} us, min "
+        f"{min(runtime_us):.1f}, max {max(runtime_us):.1f}")
+    log(f"[frontdoor] {what}: flash_attention launches {flash} = "
+        f"{cfg.num_layers} layers x {run.waves} waves")
+    return {"flash": flash, "decode_ms": decode,
+            "runtime_us_p50": statistics.median(runtime_us)}
+
+
+def _two_threads(stablelm: dict) -> None:
+    """4c: the same 2x8+16 wave on one engine alone, then on two engines on
+    two plain threads at once (no runtime, no FrontDoor): the decode step's
+    median, what one more launching thread costs under the GIL."""
+    import threading
+    from repro_torch.models import padded_vocab
+    from repro_torch.serving.engine import Request, ServingEngine
+
+    timed = _TimedModel(stablelm["model"], padded_vocab(stablelm["cfg"]))
+    engines = [ServingEngine(timed, stablelm["params"], max_seq=32)
+               for _ in range(2)]
+    prompt = (np.arange(8, dtype=np.int32) % 7) + 1
+    wave = [Request(i, prompt, 16) for i in range(2)]
+    for e in engines:
+        e.serve(wave, 2)                                     # warm
+    timed.clear()
+    engines[0].serve(wave, 2)
+    alone = statistics.median(timed.decode_ms)
+    timed.clear()
+    threads = [threading.Thread(target=e.serve, args=(wave, 2))
+               for e in engines]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+    if any(t.is_alive() for t in threads) or len(timed.decode_ms) != 30:
+        raise AssertionError(f"two threads: {len(timed.decode_ms)} decode "
+                             f"steps, want 30")
+    both = statistics.median(timed.decode_ms)
+    log(f"[frontdoor] a 2x8+16 wave's decode step: median {alone:.3f} ms on "
+        f"one engine alone, {both:.3f} ms on each of two engines on two "
+        f"plain threads at once ({both / alone:.2f}x)")
+
+
+def _own_stream_check(stablelm: dict) -> None:
+    """4c: an engine waits for its own stream, not the card: a wave of one
+    engine ends while a 1.5 s sleep queued on another engine's stream still
+    runs."""
+    from repro_torch.serving.engine import Request, ServingEngine
+
+    cfg, params = stablelm["cfg"], stablelm["params"]
+    busy = ServingEngine(stablelm["model"], params, max_seq=32)
+    free = ServingEngine(stablelm["model"], params, max_seq=32)
+    if busy._stream == free._stream:
+        raise AssertionError("two engines share one stream")
+    prompt = (np.arange(8, dtype=np.int32) % 7) + 1
+    free.serve([Request(0, prompt, 2)], 1)                   # warm
+    cycles = int(1.5 * _sm_clock_mhz() * 1e6)
+    with torch.cuda.stream(busy._stream):
+        torch.cuda._sleep(cycles)
+    t0 = time.perf_counter()
+    free.serve([Request(1, prompt, 2)], 1)
+    wave_ms = (time.perf_counter() - t0) * 1e3
+    still_busy = not busy._stream.query()
+    busy._stream.synchronize()
+    if not still_busy:
+        raise AssertionError(f"the wave took {wave_ms:.1f} ms and returned "
+                             f"only after the other stream's sleep ended")
+    log(f"[frontdoor] own stream: a 1x8+2 wave took {wave_ms:.3f} ms while "
+        f"another engine's stream slept 1.5 s ({cycles} cycles); "
+        f"{cfg.name} engines do not wait for each other")
+
+
+def _allocated() -> int:
+    """Bytes allocated on the card once garbage and cuBLAS's workspaces
+    (32 MiB for each thread's handle and stream, kept until cleared) are
+    gone."""
+    gc.collect()
+    torch._C._cuda_clearCublasWorkspaces()
+    return torch.cuda.memory_allocated()
+
+
+def _replica_kill(stablelm: dict) -> int:
+    """4c (b), in the shape of the reference's replica-kill test: 2
+    replicas (max 4) of a plain engine over phase 4's weights, 60 requests
+    of 8 prompt and 8 new tokens 2 ms apart with deadline 2 s, the node of
+    replica 0 killed at the 31st; every ticket resolves, the hot spare
+    brings the count to 3, some are served, the ledger balances, and the
+    card's allocated memory comes back. As in the reference test, idle
+    scale-down waits 60 s: with its default of 3 s it may retire a replica
+    while a wave of the killed incarnation is still replayed, before the
+    count is read. A thread reads the count every 2 ms from the kill on.
+    Returns flash_attention's launches."""
+    import threading
+
+    from repro_torch import core
+    from repro_torch.core.api import _cluster
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.frontdoor import DeadlineShedError, FrontDoor
+
+    cfg, model, params = stablelm["cfg"], stablelm["model"], stablelm["params"]
+    rng = np.random.default_rng(SEED)
+    prompts = rng.integers(0, cfg.vocab_size, (60, 8)).astype(np.int32)
+    mem0 = _allocated()
+    t_start = time.perf_counter()
+    core.init(num_nodes=2, workers_per_node=2)
+    try:
+        cluster = _cluster()
+        fd = FrontDoor(lambda: ServingEngine(model, params, max_seq=32),
+                       num_replicas=2, max_replicas=4, max_queue=256,
+                       default_deadline_s=2.0, target_wave_s=1.0,
+                       max_batch=2, scale_down_idle_s=60.0,
+                       resources={"cpu": 0.25})
+        counts, watching = [], threading.Event()
+
+        def watch():
+            while not watching.wait(0.002):
+                counts.append(fd.replica_count())
+        watcher = threading.Thread(target=watch, name="smoke-watch")
+        try:
+            for t in [fd.submit(prompts[i], 8, deadline_s=600.0)
+                      for i in range(4)]:
+                t.result(timeout=600)                        # ready
+            reset_launch_counts()
+            tickets, killed = [], None
+            for i in range(60):
+                tickets.append(fd.submit(prompts[i], 8))
+                if i == 30:
+                    killed = cluster.gcs.actor_node(
+                        fd._replicas[0].handle.actor_id)
+                    watcher.start()
+                    t_kill = time.perf_counter()
+                    cluster.kill_node(killed)
+                time.sleep(0.002)
+            ok = raised = 0
+            for t in tickets:
+                try:
+                    t.result(timeout=120)
+                    ok += 1
+                except (DeadlineShedError, core.TaskError, TimeoutError):
+                    raised += 1
+            deadline = time.perf_counter() + 20.0
+            while (max(counts, default=0) < 3
+                   and time.perf_counter() < deadline):
+                time.sleep(0.02)
+            watching.set()
+            watcher.join()
+            most = max(counts + [fd.replica_count()])
+            st = fd.stats()
+            scaling = [(round((ts - t_kill) * 1e3, 1), kind,
+                        extra.get("why"))
+                       for ts, kind, _, _, extra in cluster.gcs.events()
+                       if ts >= t_kill and kind in ("serve_replica_spawn",
+                                                    "serve_scale_down")]
+        finally:
+            watching.set()
+            if watcher.is_alive():
+                watcher.join()
+            fd.close()
+    finally:
+        core.shutdown()
+    flash = flash_attention.launches
+    _runtime_threads_drained(60.0)
+    mem1 = _allocated()
+    log(f"[frontdoor] replica kill: node {killed} killed at the 31st of 60 "
+        f"requests; admitted {st['admitted']} (4 probes among them) "
+        f"rejected {st['rejected']} ok {st['completed_ok']} late "
+        f"{st['completed_late']} shed {st['shed']} failed {st['failed']} "
+        f"retried {st['retried']}; tickets {len(tickets)}: fulfilled {ok}, "
+        f"raised {raised}; replicas at most {most}, at the end "
+        f"{st['replicas']}; after the kill (ms, event, why): {scaling}; "
+        f"flash_attention launches {flash}; "
+        f"memory_allocated {mem0} bytes before, {mem1} after; "
+        f"{time.perf_counter() - t_start:.1f} s")
+    if ok + raised != len(tickets) or ok == 0:
+        raise AssertionError(f"4c replica kill: ok {ok} raised {raised} of "
+                             f"{len(tickets)} tickets")
+    _check_ledger(st, "4c replica kill")
+    if most < 3 or ("serve_replica_spawn", "hot_spare") not in [
+            (kind, why) for _, kind, why in scaling]:
+        raise AssertionError(f"4c replica kill: replicas reached {most}, "
+                             f"want 3 (the hot spare); after the kill: "
+                             f"{scaling}")
+    if abs(mem1 - mem0) > KILL_MEMORY_SLACK:
+        raise AssertionError(f"4c replica kill: memory_allocated {mem1} "
+                             f"after, {mem0} before")
+    if flash == 0:
+        raise AssertionError("4c replica kill: flash_attention never "
+                             "launched")
     return flash
+
+
+def serve_frontdoor(stablelm: dict, card: str) -> dict:
+    """Phase 4c on phase 4's stablelm-1.6b weights: `serve_llm --full` at
+    its defaults and with one replica, two engines on two plain threads,
+    an engine's own stream, then a replica lost mid-trace. Returns
+    flash_attention's launches on each path."""
+    out = _serve_llm_full(stablelm, card, [])
+    out["flash_one"] = _serve_llm_full(stablelm, card,
+                                       ["--replicas", "1"])["flash"]
+    _two_threads(stablelm)
+    _own_stream_check(stablelm)
+    release_memory()
+    out["flash_kill"] = _replica_kill(stablelm)
+    return out
 
 
 def serve_jamba(card: str) -> dict:
@@ -1392,9 +1769,13 @@ def _host_percentiles(fn, n: int, warmup: int = 3) -> dict:
 
 # The reference's limit on a kernel task's round trip: at most this many
 # times the bare call, p50 against p50 (benchmarks/compute_bench.py:51,
-# gate at :217-234). The port does not meet it on the H100 (ROADMAP C1):
+# gate at :217-234). The port does not meet it on the H100 (ROADMAP D1):
 # phase 6 prints the ratio against it and does not gate on it.
 OVERHEAD_MULT = 6.0
+# What the reference's round trip added over its bare call, in us: p50
+# 1,909.6 against 1,422.9 (BENCH_compute.json "pr9"). Printed beside the
+# port's, not a gate.
+REFERENCE_ADDED_US = 1909.6015003015054 - 1422.9065000108676
 # The hops of one kernel-task round trip, from the driver's clock and the
 # control plane's event log ("submit", "start", "kernel" with its ms,
 # "finish"), all on one perf_counter clock.
@@ -1533,6 +1914,11 @@ def _dispatch_round_trip() -> dict:
         f"round trip p50 {e2e['p50_us']:.1f} us p90 {e2e['p90_us']:.1f} us; "
         f"ratio of p50s {ratio:.2f} (compute_bench.py's OVERHEAD_MULT "
         f"{OVERHEAD_MULT}: {'met' if ratio <= OVERHEAD_MULT else 'not met'})")
+    added_us = e2e["p50_us"] - raw["p50_us"]
+    log(f"[compute] the round trip adds {added_us:.1f} us over the bare call "
+        f"(p50 minus p50; the reference's record adds "
+        f"{REFERENCE_ADDED_US:.1f} us over a bare call of 1,422.9 us, "
+        f"BENCH_compute.json pr9; printed, not gated)")
     hops = _round_trip_hops(kt, x_ref, n)
     log(f"[compute] kernel_task round trip hop by hop, p50 of {n} (us): "
         + "; ".join(f"{name} {us:.1f}" for name, us in hops.items()))
@@ -1546,7 +1932,7 @@ def _dispatch_round_trip() -> dict:
         f"back, p50 of {n}: {parked:.1f} us parked on threading.Event, "
         f"{polled:.1f} us spinning on os.sched_yield")
     return {"bare_p50_us": raw["p50_us"], "round_trip_p50_us": e2e["p50_us"],
-            "ratio": ratio, "hops_p50_us": hops, "bare_after_sleep_p50_us":
+            "ratio": ratio, "added_us": added_us, "hops_p50_us": hops, "bare_after_sleep_p50_us":
             slept, "bare_after_spin_p50_us": spun,
             "handoff_parked_p50_us": parked, "handoff_spin_p50_us": polled}
 
@@ -1706,13 +2092,21 @@ def main() -> int:
     timed("parity xlstm", check_xlstm_card_vs_cpu)
     timed("parity jamba", check_jamba_card_vs_cpu)
     release_memory()
-    stablelm_flash = timed("serve stablelm", serve_full_model, card)
+    stablelm = timed("serve stablelm", serve_full_model, card)
+    frontdoor = timed("serve frontdoor", serve_frontdoor, stablelm, card)
+    stablelm_flash = stablelm["flash"]
+    del stablelm
     release_memory()   # stablelm's engine and params, before jamba's 18 GB
     jamba = timed("serve jamba", serve_jamba, card)
     release_memory()
-    flash["launches"] = stablelm_flash + jamba["flash_attention"]
-    flash["launches_by_path"] = {"serve stablelm-1.6b": stablelm_flash,
-                                 "serve jamba cut": jamba["flash_attention"]}
+    flash["launches_by_path"] = {
+        "serve stablelm-1.6b": stablelm_flash,
+        "serve_llm --full through the FrontDoor (phase 4c)":
+            frontdoor["flash"],
+        "serve_llm --full --replicas 1 (phase 4c)": frontdoor["flash_one"],
+        "FrontDoor replica kill (phase 4c)": frontdoor["flash_kill"],
+        "serve jamba cut": jamba["flash_attention"]}
+    flash["launches"] = sum(flash["launches_by_path"].values())
     ssm["launches"] = jamba["ssm_scan"]
     mlstm_sync = timed("train", train_full_model)
     release_memory()

@@ -139,10 +139,28 @@
       node failure: its in-flight tasks are replayed via lineage, and
       with ``failure_detection=True`` a node whose children all died
       stops heartbeating and is fail-stopped by the monitor.
-  11. Serving — the reference's open-loop FrontDoor, SLO tracker and
-      actor-backed replica pool are not in this package yet; the port
-      serves through ``repro_torch.serving.engine.ServingEngine``
-      directly.
+  11. Serving — ``repro_torch.serving.FrontDoor`` is the open-loop
+      request tier over actor-backed engine replicas: ``submit_request``
+      either admits a request (bounded queue; past the bound it raises
+      ``AdmissionError``) and returns a ``ServeTicket`` future, or the
+      EDF deadline queue sheds it before dispatch (the ticket raises
+      ``DeadlineShedError``; an admitted request is *never* dispatched
+      past its deadline). Waves are length-aligned and sized by a
+      Clipper-style AIMD controller probing each replica's measured
+      latency against ``target_wave_s``; queue pressure autoscales
+      replicas between ``min_replicas``/``max_replicas`` on the live
+      cluster (planned scale-down retires actors via
+      ``Cluster.retire_actor`` — released, not failed), and a replica
+      lost to node death is replaced plus covered by a hot spare.
+      ``FrontDoor.stats()``/``repro_torch.serving.slo.SLOTracker`` expose
+      the disposition ledger (admitted = ok + late + shed + failed),
+      sliding latency percentiles, and goodput — requests completed
+      within deadline per second. Each replica's ``ServingEngine`` runs
+      on the card on its own CUDA stream; ``repro_torch.serving.serve_llm``
+      is the entry point, and seeded open-loop load shapes live in
+      ``repro_torch.serving.load`` (Poisson / burst / diurnal traces;
+      ``replay`` submits on the trace clock and never waits on
+      completions).
   12. Devices & kernels — nodes declare *typed device capacity* and the
       scheduler treats it as a hard constraint (the paper's R5)::
 

@@ -38,7 +38,7 @@ def summarize(gcs: ControlPlane) -> Dict[str, float]:
     (tasks sealed by budget exhaustion / deadline expiry),
     ``actor_unrecoverable`` (actors past their restart budget), and
     ``chaos`` (injected fault events). Serving counters come from the
-    front door's control loop (not in this package yet): ``serve_admit``
+    front door's control loop (repro_torch.serving.frontdoor): ``serve_admit``
     / ``serve_reject`` (admission control), ``serve_shed`` (deadline
     shedding), ``serve_wave`` (dispatched waves, with sizes for the mean
     wave width), ``serve_retry`` (re-enqueues after replica failure),
