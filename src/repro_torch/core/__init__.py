@@ -6,11 +6,11 @@ with per-actor FIFO mailbox lanes (scheduler), bounded garbage-collected
 in-memory object stores (object_store + memory: distributed ref
 counting, LRU evict-and-reconstruct), lineage-replay fault tolerance
 for tasks and actors (runtime), typed device resources run on
-per-node device lanes (devices, runtime).
+per-node device lanes (devices, runtime), plus baseline executors
+(executors) and a cluster-scale discrete-event simulator (simulator).
 
 The port's copy of `repro.core`, plain Python, imported by the port's
-compute plane (`repro_torch.compute`). The reference's baseline executors
-and discrete-event simulator are not copied."""
+compute plane (`repro_torch.compute`), serving tier and streaming plane."""
 from repro_torch.core.api import (ActorClass, ActorHandle, ObjectRef,  # noqa: F401
                             RemoteFunction, attach, free, get, init, put,
                             remote, shutdown, wait)

@@ -417,7 +417,12 @@ class FailureDetector:
     every `interval_s` and declares a node dead after `miss` consecutive
     missed beats, driving the existing `kill_node` + lineage-replay
     path automatically (the paper's R6 without a hand-written
-    `kill_node()` call). The hung-task watchdog reads the per-node
+    `kill_node()` call). A missed beat is a scan that found no new beat,
+    and the beat must also be `miss * interval_s` old: a stall of the
+    whole interpreter (a long garbage-collection pass, a C call holding
+    the GIL) delays the beaters and the scan alike and counts as one
+    miss. (The reference judges wall time alone, so such a stall of
+    150 ms fail-stops live nodes.) The hung-task watchdog reads the per-node
     in-flight start-timestamp registries the workers maintain (two
     GIL-atomic dict ops per task) and kills a node holding any task past
     `hung_task_timeout_s` — a slow-but-alive node keeps beating and is
@@ -493,15 +498,24 @@ class FailureDetector:
 
     def _run(self) -> None:
         c = self.cluster
+        # per node: the last beat this thread saw, and the scans since
+        # that beat that found no newer one
+        seen: Dict[Node, Tuple[float, int]] = {}
         while not self._stop.wait(self.interval):
             now = time.perf_counter()
             if self.enabled:
                 horizon = self.miss * self.interval
                 for node in list(c.nodes):
                     if not node.alive:
+                        seen.pop(node, None)
                         continue
                     last = c.gcs.heartbeat(node.node_id)
-                    if last is None or now - last <= horizon:
+                    if last is None:
+                        continue
+                    prev, missed = seen.get(node, (None, 0))
+                    missed = 0 if last != prev else missed + 1
+                    seen[node] = (last, missed)
+                    if missed < self.miss or now - last <= horizon:
                         continue
                     # re-check identity: a concurrent restart_node may
                     # have installed a fresh node under this id — its

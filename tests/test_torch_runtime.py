@@ -228,3 +228,45 @@ def test_port_keeps_the_reference_names():
         public = {n for n in vars(ref) if not n.startswith("_")
                   and not isinstance(getattr(ref, n), type(importlib))}
         assert public <= set(vars(port)), public - set(vars(port))
+
+
+def _hold_the_interpreter(at_least_s: float) -> float:
+    """One C call that keeps the GIL for at least `at_least_s` (no thread
+    of the process runs meanwhile); returns its seconds."""
+    n = 1 << 18
+    while True:
+        t0 = time.perf_counter()
+        sum(range(n))
+        dt = time.perf_counter() - t0
+        if dt >= at_least_s:
+            return dt
+        n *= 2
+
+
+def test_detector_outlasts_a_stall_of_the_interpreter():
+    """The port only: a stall of the whole interpreter delays every beater
+    and the detector alike and counts as one missed scan, so no live node
+    is killed; a node whose beats stop is still killed within a few scans.
+    (The reference's detector judges wall time alone and may fail-stop
+    every node after such a stall.)"""
+    from repro_torch import core
+    from repro_torch.core.profiler import summarize
+    c = core.init(num_nodes=3, workers_per_node=1, failure_detection=True,
+                  heartbeat_interval_s=0.05)
+    try:
+        time.sleep(0.2)
+        stalls = [_hold_the_interpreter(0.4) for _ in range(3)]
+        time.sleep(0.3)
+        assert min(stalls) >= 0.4      # over 2x the detector's 150 ms horizon
+        assert all(n.alive for n in c.nodes)
+        assert summarize(c.gcs)["detector_kills"] == 0
+        c.nodes[1].hb_suspended = True
+        deadline = time.monotonic() + 5.0
+        while c.nodes[1].alive and time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert not c.nodes[1].alive
+        assert c.nodes[0].alive and c.nodes[2].alive
+        assert summarize(c.gcs)["detector_kills"] == 1
+    finally:
+        core.shutdown()
+    _drain_threads()
