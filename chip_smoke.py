@@ -11,19 +11,26 @@ Phases, each of which raises (and so exits non-zero) on any failure:
   2. kernels  hold each kernel against its plain PyTorch version on the card
               at the shapes of the serve and train paths (flash_attention at
               stablelm's and jamba's prefill, every case in bf16 on the
-              tensor-core path and most in fp32 on the CUDA-core path,
-              mlstm_scan at xlstm's training step, ssm_scan at jamba's
-              prefill and decode), and time kernel, plain version and,
-              where there is one, the PyTorch library call that computes the
-              same function (a yardstick only; the port never calls it).
+              tensor-core path and most in fp32 on the CUDA-core path;
+              mixtral-8x22b's 1x8192 prefill past its 4096 window and its
+              2x2048, against the plain version a chunk of query rows at a
+              time; the recompute backward, `_FlashAttention`, against
+              autograd through the plain version; mlstm_scan at xlstm's
+              training step, ssm_scan at jamba's prefill and decode), and
+              time kernel, plain version and, where there is one, the
+              PyTorch library call that computes the same function (a
+              yardstick only; the port never calls it).
   3. parity   the port on the card against the port on the CPU (the CPU
               path is the one the tests hold against the JAX reference), in
-              fp32: stablelm-1.6b at full width, 2 layers, prefill and greedy
-              tokens; xlstm-125m at full width, 2 layers (one sLSTM, one
-              mLSTM), loss and every gradient leaf, prefill logits and 4
-              decode steps; the jamba cut (one 8-layer group, dense FFNs) at
-              its smoke widths, prefill logits, 4 decode steps and greedy
-              tokens.
+              fp32: stablelm-1.6b at full width, 2 layers, prefill, greedy
+              tokens, loss and every gradient leaf (flash's backward);
+              xlstm-125m at full width, 2 layers (one sLSTM, one mLSTM),
+              loss and every gradient leaf, prefill logits and 4 decode
+              steps; mixtral-8x22b at its smoke widths (window 16) for each
+              MoE dispatch (dense, dropping, ragged), loss and every
+              gradient leaf, prefill and 8 decode steps past the window,
+              greedy tokens; jamba at its smoke config (MoE layers
+              included), prefill logits, 4 decode steps and greedy tokens.
   4. serve    stablelm-1.6b at full width and depth (24 layers, bf16,
               random weights from a seed) serves requests drawn from the
               load module's length mix plus two 2048-token prompts through
@@ -56,6 +63,13 @@ Phases, each of which raises (and so exits non-zero) on any failure:
               kind of traffic through `ServingEngine`, with flash_attention
               launched once a wave and ssm_scan 7 times a prefill and a
               decode step; then the same profile.
+  4d. serve   mixtral-8x22b cut to 8 of its 56 layers at full width
+              (20,435,146,752 random bf16 parameters, `dropping` dispatch)
+              through `ServingEngine`: short trace prompts, 2x2048 and
+              1x8192 (past the 4096 window, ring caches of 4096 slots), 16
+              new tokens each; flash_attention launched 8 times a prefill
+              wave; the decode step beside its weight-read bound; then the
+              profile of the 1x8192 wave and of one decode step.
   5. train    xlstm-125m at full width and depth (12 layers, bf16 params,
               fp32 AdamW moments, random weights from a seed) trains through
               `repro_torch.train.lm.train_lm`, the port's training path, with
@@ -63,6 +77,15 @@ Phases, each of which raises (and so exits non-zero) on any failure:
               seq_len 512: 1 warm-up step, then 8 timed steps whose losses
               must be finite and fall, with mlstm_scan launched once per
               mLSTM layer, shard and step. Then torch.profiler over one step.
+  5b. train   mixtral-8x22b cut to 1 layer at full width (2,906,720,256
+              bf16 parameters, bf16 AdamW moments, `dropping`), global batch
+              2 x 2048, through `repro_torch.train.trainer`: (a) `Trainer`,
+              4 steps, async checkpoints at steps 2 and 4, finite losses;
+              (b) a fresh `Trainer` restores step 2 and repeats steps 2-3
+              with (a)'s losses; (c) `AsyncTrainer` on a cluster of the
+              port's runtime with a gpu node, 4 steps, backup loads and a
+              checkpoint task, with (a)'s losses. Each save's and restore's
+              bytes and MB/s; the checkpoints go to build/ and are deleted.
   6. compute  the port's runtime and compute plane on a cluster of one
               gpu-typed and one cpu node (`repro_torch.core`,
               `repro_torch.compute`): int8_matmul against its plain version
@@ -167,6 +190,9 @@ MLSTM_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
 # an ulp of bf16 y (2^-8 of |y|) and the fp32 sums' order beside it; the
 # state at MLSTM_TOL's fp32 1e-4.
 MLSTM_TWO_PASS_TOL = 1e-2
+# Phase 2's bf16 mlstm_scan cases again on the draws of these seeds
+# (`sweep_mlstm_seeds`, ROADMAP C3).
+MLSTM_SWEEP_SEEDS = tuple(range(1, 17))
 # Phase 5's loss at the initial weights, the kernel against the plain
 # version in the same run: to 1e-3 of its value.
 MLSTM_LOSS_RTOL = 1e-3
@@ -293,6 +319,20 @@ def _valid_pairs(s: int, t: int, causal: bool, window: int) -> int:
     return int(valid.sum())
 
 
+def _err_within(label, got, want, tol) -> float:
+    """Max abs error; raises where |a - b| > tol + tol |b| or a is not
+    finite."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{label}: {got.shape}/{got.dtype} vs "
+                             f"{want.shape}/{want.dtype}")
+    diff = (got.float() - want.float()).abs()
+    if not torch.isfinite(got).all() or \
+            bool((diff > tol + tol * want.float().abs()).any()):
+        raise AssertionError(f"{label}: max abs err {float(diff.max())} "
+                             f"beyond tol {tol}")
+    return float(diff.max())
+
+
 def check_flash_attention(gen):
     from repro_torch.kernels.flash_attention import attention_ref, flash_attention
     from repro_torch.kernels.flash_attention.ops import PATHS
@@ -327,16 +367,8 @@ def check_flash_attention(gen):
                 raise AssertionError(f"{label}: q strides {q.stride()}")
             out = flash_attention(q, k, v, causal=causal, window=window)
             ref = attention_ref(q, k, v, causal=causal, window=window)
-            torch.cuda.synchronize()
-            if out.shape != ref.shape or out.dtype != ref.dtype:
-                raise AssertionError(f"{label}: {out.shape}/{out.dtype} vs "
-                                     f"{ref.shape}/{ref.dtype}")
-            diff = (out.float() - ref.float()).abs()
-            err = float(diff.max())
-            bad = diff > TOL[dt] + TOL[dt] * ref.float().abs()
-            if not torch.isfinite(out).all() or bool(bad.any()):
-                raise AssertionError(f"flash_attention {label} {dt}: max abs "
-                                     f"err {err} beyond tol {TOL[dt]}")
+            err = _err_within(f"flash_attention {label} {dt}", out, ref,
+                              TOL[dt])
             log(f"[kernels] flash_attention {label} {str(dt)[6:]} "
                 f"({PATHS[dt]}) B={b} H={h} Hkv={hkv} S={s} T={t} "
                 f"hd={hd} causal={causal} window={window}: max_abs_err={err} "
@@ -403,6 +435,165 @@ def _flash_times(q, k, v) -> dict:
     return times
 
 
+# mixtral-8x22b's attention: 48 heads over 8 KV heads, head_dim 128, a
+# sliding window of 4096 keys.
+MIXTRAL_HEADS, MIXTRAL_WINDOW = (48, 8), 4096
+# Query rows a chunk of the plain version at mixtral's shapes: the whole
+# 8192 x 8192 fp32 score matrix of 48 heads would take 12.9 GB.
+PLAIN_ROW_CHUNK = 1024
+# `_FlashAttention`'s backward against autograd through `attention_ref` on
+# the card: both recompute `attention_ref` on the same inputs, so fp32
+# grads to 1e-5 (the same sums, the card free to reorder them) and bf16's
+# to 2e-2, one bf16 rounding each.
+FLASH_GRAD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+def check_flash_mixtral(gen) -> dict:
+    """flash_attention at mixtral-8x22b's shapes, bf16, window 4096: the
+    1x8192 prefill (past the window) and 2x2048 (the serve waves and the
+    training step), each against the plain version computed a chunk of
+    query rows at a time; their times, bound and SDPA yardstick; whether
+    the kernel skips the key tiles outside the window; then the recompute
+    backward."""
+    from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+    h, hkv = MIXTRAL_HEADS
+    out = {}
+    for label, b, s in (("1x8192", 1, 8192), ("2x2048", 2, 2048)):
+        q, k, v = _attn_inputs(gen, b, h, hkv, s, s, 128, torch.bfloat16)
+        got = flash_attention(q, k, v, causal=True, window=MIXTRAL_WINDOW)
+        ref = attention_ref(q, k, v, causal=True, window=MIXTRAL_WINDOW,
+                            row_chunk=PLAIN_ROW_CHUNK)
+        err = _err_within(f"flash_attention mixtral {label}", got, ref,
+                          TOL[torch.bfloat16])
+        log(f"[kernels] flash_attention mixtral {label} bf16 B={b} H={h} "
+            f"Hkv={hkv} S=T={s} hd=128 causal window={MIXTRAL_WINDOW}: "
+            f"max_abs_err={err} (tol {TOL[torch.bfloat16]}) ok")
+        out[label] = dict(_flash_window_times(q, k, v, MIXTRAL_WINDOW),
+                          max_abs_err=err)
+        del q, k, v, got, ref
+    long = out["1x8192"]
+    log(f"[kernels] flash_attention skips the key tiles outside the window: "
+        f"each q-tile's key range starts at max(0, q0 - window + 1) "
+        f"(flash_attention.cu, kv_lo); at 1x8192 window 4096 takes "
+        f"{long['ms']:.4f} ms against {long['no_window_ms']:.4f} ms causal "
+        f"without one ({long['ms'] / long['no_window_ms']:.3f}; valid pairs "
+        f"{long['valid_pairs'] / long['no_window_pairs']:.3f})")
+    out["backward"] = check_flash_backward(gen)
+    return out
+
+
+def _flash_window_times(q, k, v, window: int) -> dict:
+    """Kernel ms a call and on the card alone, plain ms (row chunks), SDPA
+    ms with the window as an explicit boolean mask (k, v expanded to every
+    query head beforehand), the bound over the window's valid pairs, and
+    the kernel without the window beside SDPA causal without a mask."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+    b, h, s, hd = q.shape
+    hkv, t = k.shape[1], k.shape[2]
+
+    def call():
+        return flash_attention(q, k, v, causal=True, window=window)
+
+    kernel_ms = cuda_ms(call, 20)
+    alone_ms = queued_ms(call)
+    no_window_ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True), 20)
+    plain_ms = cuda_ms(lambda: attention_ref(q, k, v, causal=True,
+                                             window=window,
+                                             row_chunk=PLAIN_ROW_CHUNK),
+                       3, warmup=1)
+    qi = torch.arange(s, device="cuda")[:, None]
+    kj = torch.arange(t, device="cuda")[None, :]
+    mask = (kj <= qi) & ((qi - kj) < window)
+    kx, vx = (x.repeat_interleave(h // hkv, dim=1) for x in (k, v))
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, kx, vx, attn_mask=mask), 10)
+    # a mask keeps SDPA off its flash backend: causal without the window
+    # is the yardstick of the kernel without the window
+    library_causal_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, kx, vx, is_causal=True), 10)
+    del mask, kx, vx
+    pairs = _valid_pairs(s, t, True, window)
+    flops = 4 * b * h * hd * pairs
+    nbytes = sum(x.numel() * x.element_size() for x in (q, k, v, q))
+    t_ops, t_bytes = flops / PEAK_FLOPS[q.dtype], nbytes / PEAK_BYTES_PER_S
+    bound_ms = max(t_ops, t_bytes) * 1e3
+    times = {
+        "shape": f"{str(q.dtype)[6:]} B={b} H={h} Hkv={hkv} S={s} T={t} "
+                 f"hd={hd} causal window={window}",
+        "ms": kernel_ms, "alone_ms": alone_ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": library_ms, "flops": flops, "bytes": nbytes,
+        "valid_pairs": pairs, "no_window_ms": no_window_ms,
+        "library_causal_ms": library_causal_ms,
+        "no_window_pairs": _valid_pairs(s, t, True, 0),
+        "tflops": flops / kernel_ms / 1e9,
+        "share_of_bound": bound_ms / kernel_ms,
+        "kernel_over_library": kernel_ms / library_ms,
+    }
+    log(f"[kernels] flash_attention at {times['shape']}: kernel "
+        f"{kernel_ms:.4f} ms a call, {alone_ms:.4f} ms on the card alone, "
+        f"plain {plain_ms:.4f} ms (rows {PLAIN_ROW_CHUNK} a chunk), sdpa "
+        f"with the window as a mask {library_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({times['bound_by']}: {flops} flop over {pairs} "
+        f"valid pairs, {nbytes} bytes); {times['tflops']:.1f} TFLOP/s, "
+        f"{times['share_of_bound']:.3f} of the bound, kernel / sdpa "
+        f"{times['kernel_over_library']:.3f}; without the window kernel "
+        f"{no_window_ms:.4f} ms, sdpa causal without a mask "
+        f"{library_causal_ms:.4f} ms")
+    return times
+
+
+def check_flash_backward(gen) -> dict:
+    """`_FlashAttention` on the card: a call that needs grads launches the
+    kernel once, its output carries the function's grad_fn, and dq, dk, dv
+    from its recompute backward equal autograd's through `attention_ref`
+    (FLASH_GRAD_TOL); at mixtral's training shape also the time of the
+    forward and backward."""
+    from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+    h, hkv = MIXTRAL_HEADS
+    res = {}
+    for label, b, h_, hkv_, s, hd, window, dt in (
+            ("mixtral training 2x2048", 2, h, hkv, 2048, 128, MIXTRAL_WINDOW,
+             torch.bfloat16),
+            ("GQA 4:1 window 64", 1, 8, 2, 256, 64, 64, torch.float32)):
+        q, k, v = (x.detach().requires_grad_() for x in
+                   _attn_inputs(gen, b, h_, hkv_, s, s, hd, dt))
+        dout = torch.randn(q.shape, generator=gen, device="cuda").to(dt)
+        before = flash_attention.launches
+        out = flash_attention(q, k, v, causal=True, window=window)
+        if flash_attention.launches != before + 1 or \
+                type(out.grad_fn).__name__ != "_FlashAttentionBackward":
+            raise AssertionError(f"flash backward {label}: launches "
+                                 f"{flash_attention.launches - before}, "
+                                 f"grad_fn {out.grad_fn}")
+        grads = torch.autograd.grad(out, (q, k, v), dout)
+        xs = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+        ref = attention_ref(*xs, causal=True, window=window)
+        want = torch.autograd.grad(ref, xs, dout)
+        errs = {"out": _err_within(f"flash backward {label} out", out.detach(),
+                                   ref.detach(), TOL[dt])}
+        for name, g, w in zip(("dq", "dk", "dv"), grads, want):
+            errs[name] = _err_within(f"flash backward {label} {name}", g, w,
+                                     FLASH_GRAD_TOL[dt])
+        entry = {"max_abs_err": errs}
+        if dt == torch.bfloat16:
+            entry["fwd_bwd_ms"] = cuda_ms(lambda: torch.autograd.grad(
+                flash_attention(q, k, v, causal=True, window=window),
+                (q, k, v), dout), 3, warmup=1)
+            entry["fwd_ms"] = cuda_ms(lambda: flash_attention(
+                q, k, v, causal=True, window=window), 10)
+        res[label] = entry
+        log(f"[kernels] flash_attention backward (recompute of "
+            f"attention_ref) {label} {str(dt)[6:]} B={b} H={h_} Hkv={hkv_} "
+            f"S={s} hd={hd} window={window}: max abs err {errs} (out tol "
+            f"{TOL[dt]}, grads tol {FLASH_GRAD_TOL[dt]}) ok"
+            + (f"; forward {entry['fwd_ms']:.4f} ms, forward + backward "
+               f"{entry['fwd_bwd_ms']:.4f} ms" if "fwd_ms" in entry else ""))
+    return res
+
+
 def _mlstm_inputs(gen, b, h, s, hd, dtype, with_state=False):
     """q, k, v (B,H,S,hd) and gates (B,H,S) as views of (B,S,H,..) tensors,
     the layout the model hands the kernel; gates as the kernel tests make
@@ -459,24 +650,27 @@ def _mlstm_work(q, state) -> tuple:
     return flops, nbytes
 
 
+_F32, _BF16 = torch.float32, torch.bfloat16
+MLSTM_CASES = [  # (label, B, H, S, hd, dtypes, with_state)
+    ("xlstm-125m training shape", 4, 4, 512, 384, (_BF16,), False),
+    ("xlstm-125m task-graph shape", 4, 4, 128, 384, (_BF16,), False),
+    *[(f"hd={hd}", 2, 4, 256, hd, (_F32, _BF16), False)
+      for hd in (32, 64, 256, 384)],
+    ("ragged S=40", 2, 4, 40, 64, (_F32, _BF16), False),
+    ("ragged S=77 with state", 1, 4, 77, 384, (_F32, _BF16), True),
+    ("ragged S=130 with state hd=32", 2, 4, 130, 32, (_F32, _BF16), True),
+    *[(f"decode S=1 with state hd={hd}", 4, 4, 1, hd, (_F32, _BF16), True)
+      for hd in (32, 64, 256, 384)],
+]
+
+
 def check_mlstm_scan(gen):
     from repro_torch.kernels.mlstm_scan import (mlstm_scan, mlstm_scan_ref,
                                                 mlstm_scan_two_pass_ref)
     from repro_torch.kernels.mlstm_scan.ops import PATHS
     f32, bf16 = torch.float32, torch.bfloat16
-    cases = [  # (label, B, H, S, hd, dtypes, with_state)
-        ("xlstm-125m training shape", 4, 4, 512, 384, (bf16,), False),
-        ("xlstm-125m task-graph shape", 4, 4, 128, 384, (bf16,), False),
-        *[(f"hd={hd}", 2, 4, 256, hd, (f32, bf16), False)
-          for hd in (32, 64, 256, 384)],
-        ("ragged S=40", 2, 4, 40, 64, (f32, bf16), False),
-        ("ragged S=77 with state", 1, 4, 77, 384, (f32, bf16), True),
-        ("ragged S=130 with state hd=32", 2, 4, 130, 32, (f32, bf16), True),
-        *[(f"decode S=1 with state hd={hd}", 4, 4, 1, hd, (f32, bf16), True)
-          for hd in (32, 64, 256, 384)],
-    ]
     main = None
-    for label, b, h, s, hd, dtypes, with_state in cases:
+    for label, b, h, s, hd, dtypes, with_state in MLSTM_CASES:
         for dt in dtypes:
             args, state = _mlstm_inputs(gen, b, h, s, hd, dt, with_state)
             got = mlstm_scan(*args, state)
@@ -575,6 +769,72 @@ def check_mlstm_scan(gen):
         f"{nbytes} bytes); {entry['tflops']:.1f} TFLOP/s useful on the card; "
         f"max_abs_err vs the two-pass plain version {err_two_pass}")
     return entry
+
+
+def sweep_mlstm_seeds(seeds=MLSTM_SWEEP_SEEDS) -> dict:
+    """ROADMAP C3: every bf16 case of phase 2 on the draws of other seeds.
+    Each is held, as in phase 2, against the fp32 plain version at
+    MLSTM_TOL's bf16 5e-2. Beside it, not gated: y against the two-pass
+    plain version at MLSTM_TWO_PASS_TOL, and, to tell the kernel's error
+    from the two-pass version's bf16 roundings, the distance of each from
+    the truth (the fp32 plain version of the same inputs upcast, y not
+    rounded) as a multiple of 1 + |truth|, at the worst element and over
+    the whole case."""
+    from repro_torch.kernels.mlstm_scan import (mlstm_scan, mlstm_scan_ref,
+                                                mlstm_scan_two_pass_ref)
+    from repro_torch.kernels.mlstm_scan.ops import CHUNK
+    over = []
+    worst_k = worst_tp = 0.0
+    cases = 0
+    for seed in seeds:
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        for label, b, h, s, hd, dtypes, with_state in MLSTM_CASES:
+            if _BF16 not in dtypes:
+                continue
+            args, state = _mlstm_inputs(gen, b, h, s, hd, _BF16, with_state)
+            got = mlstm_scan(*args, state)
+            _mlstm_err(f"{label} seed {seed}", _BF16, got,
+                       mlstm_scan_ref(*args, state))
+            y = got[0].float()
+            tp = mlstm_scan_two_pass_ref(*args, state)[0].float()
+            truth = mlstm_scan_ref(*(x.float() for x in args), state)[0]
+            torch.cuda.synchronize()
+            cases += 1
+            scale = 1.0 + truth.abs()
+            rel_k = ((y - truth).abs() / scale).max().item()
+            rel_tp = ((tp - truth).abs() / scale).max().item()
+            worst_k, worst_tp = max(worst_k, rel_k), max(worst_tp, rel_tp)
+            ratio = (y - tp).abs() / (MLSTM_TWO_PASS_TOL * (1.0 + tp.abs()))
+            i = int(ratio.argmax())
+            if ratio.flatten()[i] <= 1.0:
+                continue
+            bi, hi, si, di = (int(x) for x in np.unravel_index(i, y.shape))
+            at = (bi, hi, si, di)
+            row = {"seed": seed, "case": label,
+                   "diff": abs(y[at] - tp[at]).item(),
+                   "over_tol": ratio.flatten()[i].item(),
+                   "truth": truth[at].item(),
+                   "kernel_err": abs(y[at] - truth[at]).item(),
+                   "two_pass_err": abs(tp[at] - truth[at]).item(),
+                   "chunk": int(si) // CHUNK, "row": int(si) % CHUNK,
+                   "kernel_rel_max": rel_k, "two_pass_rel_max": rel_tp}
+            over.append(row)
+            log(f"[kernels] mlstm_scan sweep seed {seed} {label}: y differs "
+                f"from the two-pass plain version by {row['diff']} "
+                f"({row['over_tol']:.3f} x its tolerance) at b={bi} h={hi} "
+                f"s={si} (chunk {row['chunk']} row {row['row']}) d={di}: "
+                f"truth {row['truth']}, kernel off by {row['kernel_err']}, "
+                f"two-pass off by {row['two_pass_err']}; over the case, "
+                f"most off the truth per 1 + |truth|: kernel {rel_k}, "
+                f"two-pass {rel_tp}")
+    log(f"[kernels] mlstm_scan sweep: {cases} bf16 cases over seeds "
+        f"{list(seeds)} within {MLSTM_TOL[_BF16]} of the fp32 plain "
+        f"version; {len(over)} beyond the two-pass tolerance "
+        f"{MLSTM_TWO_PASS_TOL} (seeds {sorted({r['seed'] for r in over})}); "
+        f"most off the truth per 1 + |truth|: kernel {worst_k}, two-pass "
+        f"{worst_tp}")
+    return {"seeds": list(seeds), "cases": cases, "over_two_pass_tol": over,
+            "kernel_rel_max": worst_k, "two_pass_rel_max": worst_tp}
 
 
 def _ssm_case(gen, b, s, di, ds, x_dtype, p_dtype, with_state=False,
@@ -744,11 +1004,11 @@ def _ssm_times(args, h0, err, clock_mhz) -> dict:
 # ------------------------------------------------------------------ phase 3
 
 def check_card_vs_cpu():
+    """stablelm-1.6b at full width, 2 layers, fp32: prefill logits, greedy
+    tokens, and loss_fn with every gradient leaf, card vs CPU."""
     from repro_torch.bridge import init_params, params_to
     from repro_torch.configs.registry import get_config
     from repro_torch.models import build_model
-    from repro_torch.serving import load
-    from repro_torch.serving.engine import ServingEngine
 
     cfg = get_config("stablelm-1.6b").scaled(num_layers=2,
                                               param_dtype="float32")
@@ -767,20 +1027,88 @@ def check_card_vs_cpu():
     if not err <= PARITY_TOL:
         raise AssertionError(f"prefill logits card vs cpu: {err} > {PARITY_TOL}")
 
+    lengths = _greedy_card_vs_cpu("stablelm", model, params, cpu_params,
+                                  cfg.vocab_size)
+    # training through flash: its forward on the card, its recompute
+    # backward, every gradient leaf against the CPU's
+    figures = _grads_card_vs_cpu("stablelm", model, params, cpu_params,
+                                 _train_tokens(cfg.vocab_size, 64))
+    log(f"[parity] stablelm-1.6b d={cfg.d_model} 2 layers fp32: prefill "
+        f"logits max "
+        f"abs err card vs cpu {err} (tol {PARITY_TOL}); greedy tokens equal "
+        f"for prompt lengths {lengths}; 2x64 tokens: {figures}")
+
+
+def _grads_card_vs_cpu(what: str, model, params, cpu_params, tokens) -> str:
+    """loss_fn and every gradient leaf on the card against the CPU, fp32:
+    the loss to LOSS_RTOL of its value, each leaf to GRAD_RTOL of its
+    largest entry. Returns the log line's figures."""
+    from repro_torch.train.train_step import value_and_grad
+    from repro_torch.tree import tree_leaves
+    (card_loss, _), card_grads = value_and_grad(model, params,
+                                                {"tokens": tokens.cuda()})
+    (cpu_loss, _), cpu_grads = value_and_grad(model, cpu_params,
+                                              {"tokens": tokens})
+    loss_err = abs(float(card_loss) - float(cpu_loss))
+    if not (math.isfinite(float(card_loss))
+            and loss_err <= LOSS_RTOL * abs(float(cpu_loss))):
+        raise AssertionError(f"{what} loss card {float(card_loss)} vs cpu "
+                             f"{float(cpu_loss)}")
+    grad_err = 0.0
+    leaves = list(zip(tree_leaves(card_grads), tree_leaves(cpu_grads)))
+    for i, (a, b) in enumerate(leaves):
+        rel = float((a.cpu() - b).abs().max()) / max(float(b.abs().max()),
+                                                      1e-30)
+        if not (torch.isfinite(a).all() and rel <= GRAD_RTOL):
+            raise AssertionError(f"{what} grad leaf {i} {tuple(a.shape)}: "
+                                 f"max err / max |g| = {rel} > {GRAD_RTOL}")
+        grad_err = max(grad_err, rel)
+    return (f"loss card {float(card_loss)} cpu {float(cpu_loss)} (abs err "
+            f"{loss_err}); {len(leaves)} gradient leaves, max err / max |g| "
+            f"{grad_err} (tol {GRAD_RTOL})")
+
+
+def _decode_card_vs_cpu(model, params, cpu_params, tokens, prompt: int,
+                        max_seq: int) -> float:
+    """Max abs error of the prefill logits of `prompt` tokens and of each
+    decode step after them, card vs CPU."""
+    outs = []
+    with torch.inference_mode():
+        for dev, p in (("cuda", params), ("cpu", cpu_params)):
+            logits, cache = model.prefill(
+                p, {"tokens": tokens[:, :prompt].to(dev)}, max_seq=max_seq)
+            steps = [logits]
+            for t in range(prompt, tokens.shape[1]):
+                logits, cache = model.decode_step(
+                    p, cache, tokens[:, t:t + 1].to(dev), t)
+                steps.append(logits)
+            outs.append(steps)
+    return max(float((a.cpu() - b).abs().max()) for a, b in zip(*outs))
+
+
+def _greedy_card_vs_cpu(what: str, model, params, cpu_params, vocab) -> list:
+    """Greedy tokens of 4 trace requests, card vs CPU; their prompt
+    lengths."""
+    from repro_torch.serving import load
+    from repro_torch.serving.engine import ServingEngine
     trace = load.poisson_trace(50.0, 10.0, seed=SEED, max_new_tokens=8)[:4]
-    requests = [r for _, r in load.materialize(trace, SEED, cfg.vocab_size)]
+    requests = [r for _, r in load.materialize(trace, SEED, vocab)]
     card = ServingEngine(model, params, max_seq=128).serve(requests, 4)
     cpu = ServingEngine(model, cpu_params, max_seq=128,
                         device="cpu").serve(requests, 4)
     card_tok = {r.request_id: r.tokens for r in card}
     cpu_tok = {r.request_id: r.tokens for r in cpu}
     if card_tok != cpu_tok:
-        raise AssertionError(f"greedy tokens differ: card {card_tok} "
+        raise AssertionError(f"{what} greedy tokens differ: card {card_tok} "
                              f"cpu {cpu_tok}")
-    log(f"[parity] stablelm-1.6b d={cfg.d_model} 2 layers fp32: prefill "
-        f"logits max "
-        f"abs err card vs cpu {err} (tol {PARITY_TOL}); greedy tokens equal "
-        f"for prompt lengths {[len(r.prompt) for r in requests]}")
+    return [len(r.prompt) for r in requests]
+
+
+def _train_tokens(vocab: int, seq_len: int) -> torch.Tensor:
+    from repro_torch.data.pipeline import DataConfig, batch_for_step
+    return torch.from_numpy(batch_for_step(DataConfig(
+        vocab_size=vocab, seq_len=seq_len, global_batch=2), 0)["tokens"]
+    ).long()
 
 
 def check_xlstm_card_vs_cpu():
@@ -789,120 +1117,93 @@ def check_xlstm_card_vs_cpu():
     recompute backward), prefill logits and 4 decode steps, card vs CPU."""
     from repro_torch.bridge import init_params, params_to
     from repro_torch.configs.registry import get_config
-    from repro_torch.data.pipeline import DataConfig, batch_for_step
     from repro_torch.models import build_model
-    from repro_torch.train.train_step import value_and_grad
-    from repro_torch.tree import tree_leaves
 
     cfg = get_config("xlstm-125m").scaled(num_layers=2, param_dtype="float32")
     model = build_model(cfg)
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED))
     cpu_params = params_to(params, "cpu")
-    tokens = torch.from_numpy(batch_for_step(DataConfig(
-        vocab_size=cfg.vocab_size, seq_len=64, global_batch=2), 0)["tokens"]
-    ).long()
-
-    (card_loss, _), card_grads = value_and_grad(model, params,
-                                                {"tokens": tokens.cuda()})
-    (cpu_loss, _), cpu_grads = value_and_grad(model, cpu_params,
-                                              {"tokens": tokens})
-    loss_err = abs(float(card_loss) - float(cpu_loss))
-    if not (math.isfinite(float(card_loss))
-            and loss_err <= LOSS_RTOL * abs(float(cpu_loss))):
-        raise AssertionError(f"xlstm loss card {float(card_loss)} vs cpu "
-                             f"{float(cpu_loss)}")
-    grad_err = 0.0
-    leaves = list(zip(tree_leaves(card_grads), tree_leaves(cpu_grads)))
-    for i, (a, b) in enumerate(leaves):
-        rel = float((a.cpu() - b).abs().max()) / max(float(b.abs().max()),
-                                                      1e-30)
-        if not (torch.isfinite(a).all() and rel <= GRAD_RTOL):
-            raise AssertionError(f"xlstm grad leaf {i} {tuple(a.shape)}: "
-                                 f"max err / max |g| = {rel} > {GRAD_RTOL}")
-        grad_err = max(grad_err, rel)
-
-    logit_err = 0.0
-    with torch.inference_mode():
-        outs = []
-        for dev, p in (("cuda", params), ("cpu", cpu_params)):
-            logits, cache = model.prefill(p, {"tokens": tokens[:, :60].to(dev)},
-                                          max_seq=64)
-            steps = [logits]
-            for t in range(60, 64):
-                logits, cache = model.decode_step(
-                    p, cache, tokens[:, t:t + 1].to(dev), t)
-                steps.append(logits)
-            outs.append(steps)
-        for a, b in zip(*outs):
-            logit_err = max(logit_err, float((a.cpu() - b).abs().max()))
+    tokens = _train_tokens(cfg.vocab_size, 64)
+    figures = _grads_card_vs_cpu("xlstm", model, params, cpu_params, tokens)
+    logit_err = _decode_card_vs_cpu(model, params, cpu_params, tokens, 60, 64)
     if not logit_err <= PARITY_TOL:
         raise AssertionError(f"xlstm prefill/decode logits card vs cpu: "
                              f"{logit_err} > {PARITY_TOL}")
     log(f"[parity] xlstm-125m d={cfg.d_model} 2 layers (sLSTM, mLSTM) fp32, "
-        f"2x64 tokens: loss card {float(card_loss)} cpu {float(cpu_loss)} "
-        f"(abs err {loss_err}); {len(leaves)} gradient leaves, max err / "
-        f"max |g| {grad_err} (tol {GRAD_RTOL}); prefill 60 + 4 decode steps "
-        f"logits max abs err {logit_err} (tol {PARITY_TOL})")
+        f"2x64 tokens: {figures}; prefill 60 + 4 decode steps logits max "
+        f"abs err {logit_err} (tol {PARITY_TOL})")
+
+
+def check_mixtral_card_vs_cpu():
+    """mixtral-8x22b at its smoke widths (2 layers, window 16, 4 experts
+    top-2), fp32, once for each MoE dispatch: loss_fn and every gradient
+    leaf over 2x40 tokens, a 20-token prefill and 8 decode steps past the
+    window, greedy tokens; card vs CPU."""
+    import dataclasses
+    from repro_torch.bridge import init_params, params_to
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.models import build_model
+    smoke = get_smoke_config("mixtral-8x22b")
+    for dispatch in ("dense", "dropping", "ragged"):
+        cfg = smoke.scaled(param_dtype="float32", moe=dataclasses.replace(
+            smoke.moe, dispatch=dispatch))
+        model = build_model(cfg)
+        params = init_params(cfg,
+                             torch.Generator(device="cuda").manual_seed(SEED))
+        cpu_params = params_to(params, "cpu")
+        tokens = _train_tokens(cfg.vocab_size, 40)
+        figures = _grads_card_vs_cpu(f"mixtral {dispatch}", model, params,
+                                     cpu_params, tokens)
+        logit_err = _decode_card_vs_cpu(model, params, cpu_params,
+                                        tokens[:, :28], 20, 28)
+        if not logit_err <= PARITY_TOL:
+            raise AssertionError(f"mixtral {dispatch} prefill/decode logits "
+                                 f"card vs cpu: {logit_err} > {PARITY_TOL}")
+        lengths = _greedy_card_vs_cpu(f"mixtral {dispatch}", model, params,
+                                      cpu_params, cfg.vocab_size)
+        log(f"[parity] mixtral-8x22b smoke d={cfg.d_model} window "
+            f"{cfg.window_size} {cfg.moe.num_experts} experts top-"
+            f"{cfg.moe.top_k}, dispatch {dispatch}, fp32, 2x40 tokens: "
+            f"{figures}; prefill 20 + 8 decode steps past the window, logits "
+            f"max abs err {logit_err} (tol {PARITY_TOL}); greedy tokens "
+            f"equal for prompt lengths {lengths}")
 
 
 def _jamba_cut(base):
-    """jamba-1.5-large-398b cut to one 8-layer group with dense FFNs: the
-    port has no MoE layer yet."""
+    """jamba-1.5-large-398b cut to one 8-layer group with dense FFNs: its
+    four MoE layers of 16 experts would take about 77 GB of the card."""
     from repro_torch.configs.base import DENSE
     return base.scaled(num_layers=8, ffn_pattern=(DENSE,) * 8, moe=None)
 
 
 def check_jamba_card_vs_cpu():
-    """The jamba cut at its smoke widths, fp32 (7 Mamba layers through the
-    ssm_scan kernel at d_state 8, GQA attention at hd 32 through flash):
-    prefill logits, 4 decode steps and greedy tokens, card vs CPU."""
+    """jamba at its smoke config, fp32: one 8-layer group of 7 Mamba layers
+    (the ssm_scan kernel at d_state 8) and one GQA attention layer (flash
+    at hd 32), MoE FFNs (4 experts, top-2) in every other layer: prefill
+    logits, 4 decode steps and greedy tokens, card vs CPU."""
     from repro_torch.bridge import init_params, params_to
     from repro_torch.configs.registry import get_smoke_config
     from repro_torch.models import build_model
-    from repro_torch.serving import load
-    from repro_torch.serving.engine import ServingEngine
 
-    cfg = _jamba_cut(get_smoke_config("jamba-1.5-large-398b")).scaled(
+    cfg = get_smoke_config("jamba-1.5-large-398b").scaled(
         param_dtype="float32")
     model = build_model(cfg)
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED))
     cpu_params = params_to(params, "cpu")
     rng = np.random.default_rng(SEED)
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(2, 36)))
-
-    logit_err = 0.0
-    with torch.inference_mode():
-        outs = []
-        for dev, p in (("cuda", params), ("cpu", cpu_params)):
-            logits, cache = model.prefill(p, {"tokens": tokens[:, :32].to(dev)},
-                                          max_seq=40)
-            steps = [logits]
-            for t in range(32, 36):
-                logits, cache = model.decode_step(
-                    p, cache, tokens[:, t:t + 1].to(dev), t)
-                steps.append(logits)
-            outs.append(steps)
-        for a, b in zip(*outs):
-            logit_err = max(logit_err, float((a.cpu() - b).abs().max()))
+    logit_err = _decode_card_vs_cpu(model, params, cpu_params, tokens, 32, 40)
     if not logit_err <= PARITY_TOL:
         raise AssertionError(f"jamba prefill/decode logits card vs cpu: "
                              f"{logit_err} > {PARITY_TOL}")
-
-    trace = load.poisson_trace(50.0, 10.0, seed=SEED, max_new_tokens=8)[:4]
-    requests = [r for _, r in load.materialize(trace, SEED, cfg.vocab_size)]
-    card = ServingEngine(model, params, max_seq=128).serve(requests, 4)
-    cpu = ServingEngine(model, cpu_params, max_seq=128,
-                        device="cpu").serve(requests, 4)
-    card_tok = {r.request_id: r.tokens for r in card}
-    cpu_tok = {r.request_id: r.tokens for r in cpu}
-    if card_tok != cpu_tok:
-        raise AssertionError(f"jamba greedy tokens differ: card {card_tok} "
-                             f"cpu {cpu_tok}")
-    log(f"[parity] jamba cut d={cfg.d_model} d_state={cfg.mamba.d_state} 8 "
-        f"layers (7 Mamba, 1 GQA attention) fp32: prefill 32 + 4 decode "
-        f"steps logits max abs err card vs cpu {logit_err} (tol "
-        f"{PARITY_TOL}); greedy tokens equal for prompt lengths "
-        f"{[len(r.prompt) for r in requests]}")
+    lengths = _greedy_card_vs_cpu("jamba", model, params, cpu_params,
+                                  cfg.vocab_size)
+    log(f"[parity] jamba smoke d={cfg.d_model} d_state={cfg.mamba.d_state} 8 "
+        f"layers (7 Mamba, 1 GQA attention; {cfg.ffn_pattern.count('moe')} "
+        f"MoE FFNs of {cfg.moe.num_experts} experts, {cfg.moe.dispatch}) "
+        f"fp32: prefill 32 + 4 decode steps logits max abs err card vs cpu "
+        f"{logit_err} (tol {PARITY_TOL}); greedy tokens equal for prompt "
+        f"lengths {lengths}")
 
 
 # ------------------------------------------------------------------ phase 4
@@ -954,12 +1255,13 @@ class _TimedModel:
         return logits, cache
 
 
-def _serve(cfg, params, n_short: int, card: str):
+def _serve(cfg, params, n_short: int, card: str,
+           long_prompts=(2048, 2048)):
     """Serve `n_short` requests from the load module's trace (seed 0) and
-    two 2048-token prompts, 16 new tokens each, max_wave 4, through
-    `ServingEngine`, after a warm-up wave. Every request must be answered
-    in full. Returns the timed model, the waves and each kernel's launches
-    in the served set."""
+    one prompt of each of `long_prompts` tokens, 16 new tokens each,
+    max_wave 4, through `ServingEngine`, after a warm-up wave. Every
+    request must be answered in full. Returns the timed model, the waves
+    and each kernel's launches in the served set."""
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.ssm_scan import ssm_scan
     from repro_torch.models import build_model, padded_vocab
@@ -967,16 +1269,17 @@ def _serve(cfg, params, n_short: int, card: str):
     from repro_torch.serving.engine import (Request, ServingEngine,
                                             length_aligned_waves)
 
-    new_tokens, long_prompt, max_wave = 16, 2048, 4
+    new_tokens, max_wave = 16, 4
     timed = _TimedModel(build_model(cfg), padded_vocab(cfg))
-    engine = ServingEngine(timed, params, max_seq=long_prompt + new_tokens)
+    engine = ServingEngine(timed, params,
+                           max_seq=max(long_prompts) + new_tokens)
     trace = load.poisson_trace(50.0, 10.0, seed=SEED, max_new_tokens=new_tokens)
     rng = np.random.default_rng(SEED)
     requests = [r for _, r in load.materialize(trace[:n_short], SEED,
                                                cfg.vocab_size)]
-    requests += [Request(n_short + i, rng.integers(0, cfg.vocab_size,
-                                                   long_prompt)
-                         .astype(np.int32), new_tokens) for i in range(2)]
+    requests += [Request(n_short + i, rng.integers(0, cfg.vocab_size, n)
+                         .astype(np.int32), new_tokens)
+                 for i, n in enumerate(long_prompts)]
     waves = length_aligned_waves(requests, max_wave)
 
     engine.serve([Request(99, requests[0].prompt, 2)], max_wave)  # warm-up
@@ -1419,6 +1722,59 @@ def serve_jamba(card: str) -> dict:
     return launches
 
 
+# mixtral-8x22b cut to 8 of its 56 layers at full width (serve, phase 4d)
+# and to 1 (train, phase 5b): their parameters by `jax.eval_shape` of the
+# reference's init (tests/test_torch_moe.py).
+MIXTRAL_SERVE_PARAMS = 20_435_146_752
+MIXTRAL_TRAIN_PARAMS = 2_906_720_256
+
+
+def serve_mixtral(card: str) -> dict:
+    """mixtral-8x22b cut to 8 layers at full width (bf16, random weights,
+    `dropping` dispatch) through `ServingEngine`: short trace prompts,
+    2x2048 and 1x8192 (past the 4096 window: ring caches of 4096 slots), 16
+    new tokens each; flash launched once a layer a prefill wave. Prints the
+    decode step's weight-read bound, and profiles the 1x8192 wave and one
+    decode step after it. Returns flash_attention's launches."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config("mixtral-8x22b").scaled(num_layers=8)
+    params, n_params = _init_full(cfg, SEED + 5)
+    if n_params != MIXTRAL_SERVE_PARAMS:
+        raise AssertionError(f"{n_params} params, want {MIXTRAL_SERVE_PARAMS}")
+    timed, engine, waves, launches = _serve(cfg, params, 4, card,
+                                            long_prompts=(2048, 2048, 8192))
+    flash = launches["flash_attention"]
+    if flash != cfg.num_layers * len(waves):
+        raise AssertionError(f"flash_attention launched {flash} times, want "
+                             f"{cfg.num_layers} x {len(waves)} waves")
+    weight_bytes = sum(x.numel() * x.element_size()
+                       for x in tree_leaves(params)) \
+        - params["embed"]["table"].numel() * 2
+    bound_ms = weight_bytes / PEAK_BYTES_PER_S * 1e3
+    log(f"[serve] mixtral flash_attention launches {flash} = "
+        f"{cfg.num_layers} layers x {len(waves)} waves; a decode step reads "
+        f"every expert: {weight_bytes} bytes of weights (all but the "
+        f"embedding table), bound {bound_ms:.3f} ms at 3.35 TB/s; measured "
+        f"median {statistics.median(timed.decode_ms):.3f} ms")
+    long_wave = [w for w in waves if len(w[0].prompt) == 8192]
+    profile_waves(ServingEngine(timed.model, params, engine.max_seq),
+                  long_wave)
+    model = build_model(cfg)
+    prompt = torch.from_numpy(long_wave[0][0].prompt).long()[None].cuda()
+    with torch.inference_mode():
+        logits, cache = model.prefill(params, {"tokens": prompt},
+                                      max_seq=engine.max_seq)
+        tok = logits[:, -1:].argmax(-1)
+        profiled("decode step 1x1 at position 8192",
+                 lambda: model.decode_step(params, cache, tok, 8192))
+    return {"flash": flash, "decode_bound_ms": bound_ms,
+            "decode_ms": statistics.median(timed.decode_ms)}
+
+
 def profile_waves(engine, waves) -> None:
     """Where a wave's time goes (`profiled`), for each of `waves`."""
     for wave in waves:
@@ -1559,6 +1915,156 @@ def train_full_model() -> int:
     return launches
 
 
+# ----------------------------------------------------------------- phase 5b
+
+# Phase 5b's losses of the resumed Trainer and of the AsyncTrainer against
+# the uninterrupted Trainer's, each to this share of its value: the same
+# kernels on the same inputs, but the card's embedding backward sums
+# gradients by atomics in no fixed order, and the bf16 params can round
+# an ulp apart after the first step.
+TRAIN_RESUME_RTOL = 1e-3
+CKPT_DIR = ROOT / "build" / "chip_smoke_checkpoints"
+
+
+def _ckpt_log(what: str, timings: list) -> None:
+    for t in timings:
+        if t["op"] == "save":
+            log(f"[train mixtral] {what} save of step {t['step']}: "
+                f"{t['bytes']} bytes, snapshot to host {t['snapshot_s']:.2f} "
+                f"s ({t['bytes'] / t['snapshot_s'] / 1e6:.1f} MB/s), write "
+                f"{t['write_s']:.2f} s ({t['bytes'] / t['write_s'] / 1e6:.1f} "
+                f"MB/s)")
+        else:
+            log(f"[train mixtral] {what} restore of step {t['step']}: "
+                f"{t['bytes']} bytes in {t['read_s']:.2f} s "
+                f"({t['bytes'] / t['read_s'] / 1e6:.1f} MB/s)")
+
+
+def _check_losses(what: str, got: list, want: dict) -> float:
+    rel = 0.0
+    for step, loss in got:
+        rel = max(rel, abs(loss - want[step]) / abs(want[step]))
+    if not rel <= TRAIN_RESUME_RTOL:
+        raise AssertionError(f"{what} losses {got} vs the Trainer's {want}: "
+                             f"rel err {rel} > {TRAIN_RESUME_RTOL}")
+    return rel
+
+
+def train_mixtral() -> dict:
+    """mixtral-8x22b cut to 1 layer at full width (bf16 params and AdamW
+    moments, `dropping`), global batch 2 x 2048: (a) `Trainer`, 4 steps,
+    async checkpoints at steps 2 and 4; (b) a fresh `Trainer` restores
+    step 2 and runs steps 2-3, with (a)'s losses; (c) `AsyncTrainer` on a
+    cluster of a cpu node and a gpu node, 4 steps, backup loads and one
+    checkpoint task, with (a)'s losses. flash_attention must launch in each.
+    Returns its launches by run."""
+    from repro_torch import core
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import build_model
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.trainer import AsyncTrainer, Trainer, TrainerConfig
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config("mixtral-8x22b").scaled(num_layers=1)
+    model = build_model(cfg)
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=2048,
+                      global_batch=2)
+    opt = AdamWConfig(state_dtype=cfg.opt_state_dtype)
+    seed, steps = SEED + 6, 4
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    launches = {}
+
+    # (a) the Trainer, uninterrupted
+    trainer = Trainer(model, data, TrainerConfig(
+        steps=steps, checkpoint_every=2, checkpoint_dir=str(CKPT_DIR / "a"),
+        log_every=1, opt=opt))
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    res = trainer.run(seed=seed)
+    launches["Trainer"] = flash_attention.launches
+    n_params = sum(x.numel() for x in tree_leaves(res["params"]))
+    state_bytes = sum(x.numel() * x.element_size() for x in
+                      tree_leaves((res["params"], res["opt"])))
+    want = dict(res["losses"])
+    if n_params != MIXTRAL_TRAIN_PARAMS or \
+            not all(math.isfinite(x) for x in want.values()) or \
+            sorted(want) != list(range(steps)):
+        raise AssertionError(f"{n_params} params, losses {res['losses']}")
+    log(f"[train mixtral] {cfg.name} 1 layer d={cfg.d_model} "
+        f"{cfg.moe.num_experts} experts ({cfg.moe.dispatch}), "
+        f"{cfg.param_dtype} params, {opt.state_dtype} moments: {n_params} "
+        f"params, state {state_bytes} bytes; global batch 2 x 2048")
+    log(f"[train mixtral] (a) Trainer, {steps} steps: losses "
+        f"{res['losses']}; step ms (host clock, each step waits for its "
+        f"loss) {[round(x, 3) for x in res['step_ms']]}; "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated()} bytes; "
+        f"flash_attention launches {launches['Trainer']}")
+    _ckpt_log("(a)", trainer.ckpt.timings)
+    del res, trainer
+    release_memory()
+
+    # (b) a fresh Trainer resumes from step 2
+    shutil.rmtree(CKPT_DIR / "a" / f"step_{steps}")
+    trainer = Trainer(model, data, TrainerConfig(
+        steps=steps, checkpoint_every=100, checkpoint_dir=str(CKPT_DIR / "a"),
+        log_every=1, opt=opt))
+    reset_launch_counts()
+    res = trainer.run(seed=seed + 1)
+    launches["Trainer resumed"] = flash_attention.launches
+    rel = _check_losses("(b) resumed", res["losses"], want)
+    if [s for s, _ in res["losses"]] != [2, 3]:
+        raise AssertionError(f"resumed at {res['losses']}")
+    log(f"[train mixtral] (b) Trainer resumed from step 2: losses "
+        f"{res['losses']}, max rel err against (a) {rel} (tol "
+        f"{TRAIN_RESUME_RTOL}); step ms {[round(x, 3) for x in res['step_ms']]}")
+    _ckpt_log("(b)", trainer.ckpt.timings)
+    del res, trainer
+    shutil.rmtree(CKPT_DIR / "a")
+    release_memory()
+
+    # (c) the AsyncTrainer: two states on the card (the step's copy)
+    cluster = core.init(node_resources=[{"cpu": 2.0},
+                                        {"cpu": 2.0, "gpu": 1.0}])
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        res = AsyncTrainer(model, data, TrainerConfig(
+            steps=steps, checkpoint_every=steps,
+            checkpoint_dir=str(CKPT_DIR / "c"), log_every=1, opt=opt),
+            backup_tasks=True).run(seed=seed)
+        wall_s = time.perf_counter() - t0
+        launches["AsyncTrainer"] = flash_attention.launches
+        # the run ends waiting for its checkpoint task, the last to finish
+        events = cluster.gcs.events()
+        end = [e for e in events if e[1] == "finish"][-1]
+        start = next(e for e in events if e[1] == "start" and e[2] == end[2])
+        save_s = end[0] - start[0]
+        del res["state_ref"]
+    finally:
+        core.shutdown()
+    rel = _check_losses("(c) AsyncTrainer", res["losses"], want)
+    saved = Checkpointer(str(CKPT_DIR / "c")).steps()
+    if saved != [steps]:
+        raise AssertionError(f"AsyncTrainer checkpoints {saved}")
+    log(f"[train mixtral] (c) AsyncTrainer, {steps} steps, backup loads, one "
+        f"checkpoint task: losses {res['losses']}, max rel err against (a) "
+        f"{rel} (tol {TRAIN_RESUME_RTOL}); wall {wall_s:.2f} s; the save "
+        f"task (snapshot and write) {save_s:.2f} s for {state_bytes} bytes "
+        f"({state_bytes / save_s / 1e6:.1f} MB/s); max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated()} bytes")
+    shutil.rmtree(CKPT_DIR)
+    for what, n in launches.items():
+        if n < 1:
+            raise AssertionError(f"flash_attention never launched in {what}")
+    log(f"[train mixtral] flash_attention launches {launches}")
+    return launches
+
+
+# ------------------------------------------------------------------ phase 6
 # ------------------------------------------------------------------ phase 6
 
 # stablelm-1.6b's MLP up-projection: d_model 2048 -> d_ff 5632.
@@ -2128,6 +2634,12 @@ LAG_BOUND = 64
 CHURN_S = 6.0
 # stream_bench.py's seed in CI (`--smoke --seed 42`) and by default.
 STREAM_SEED = 42
+# Requests the FrontDoor may shed at the dispatch in one stream run: those
+# that expired after their wave was formed, while the control thread
+# stalled before dispatching it (the reference dispatches them late). One
+# stall there expires at most the wave it holds, the pipeline's max_batch
+# of 16; more means the control thread stalled in that window again.
+SHED_AT_DISPATCH_MAX = 16
 
 
 def _stream_pipeline(cfg, **kw):
@@ -2150,14 +2662,25 @@ def _window_acc(samples, lo: int, hi: int):
 
 
 def _check_stream_run(what: str, rep: dict, batches: int) -> None:
-    """Every run: no hung ticket, none dispatched past its deadline, and
-    the source produced and acked exactly the batches the run took."""
+    """Every run: no hung ticket, none dispatched past its deadline, at
+    most SHED_AT_DISPATCH_MAX shed at the dispatch, and the source produced
+    and acked exactly the batches the run took. Logs the requests' ledger."""
     src, slo = rep["source"], rep["slo"]
+    log(f"[stream] {what}: requests admitted {slo['admitted']}, ok "
+        f"{slo['completed_ok']}, late {slo['completed_late']}, shed "
+        f"{slo['shed']} ({slo['shed_at_dispatch']} at the dispatch, the "
+        f"worst {slo['shed_at_dispatch_late_ms_max']:.3f} ms past its "
+        f"deadline), failed {slo['failed']}, dispatched past the deadline "
+        f"{slo['dispatched_past_deadline']}")
     if rep["unresolved"] != 0:
         raise AssertionError(f"{what}: {rep['unresolved']} hung ticket(s)")
     if slo["dispatched_past_deadline"] != 0:
         raise AssertionError(f"{what}: {slo['dispatched_past_deadline']} "
                              "request(s) dispatched past their deadline")
+    if slo["shed_at_dispatch"] > SHED_AT_DISPATCH_MAX:
+        raise AssertionError(f"{what}: {slo['shed_at_dispatch']} requests "
+                             "expired between their wave's formation and "
+                             f"its dispatch, over {SHED_AT_DISPATCH_MAX}")
     if not src["produced"] == src["acked"] == batches:
         raise AssertionError(f"{what}: source produced {src['produced']}, "
                              f"acked {src['acked']}, want {batches} each")
@@ -2305,7 +2828,7 @@ def _learner_kill(seed: int) -> None:
                                          target="label"),))
     cluster = core.init(num_nodes=4, workers_per_node=2,
                         failure_detection=True)
-    state = {"killed": None, "version_at_kill": 0}
+    state = {"killed": None, "version_at_kill": 0, "slo_at_kill": None}
     try:
         p = _stream_pipeline(cfg, checkpoint_interval=8, deadline_s=0.5)
 
@@ -2315,6 +2838,7 @@ def _learner_kill(seed: int) -> None:
                 if nid is not None:
                     state["version_at_kill"] = \
                         p.frontdoor.slo.published_version
+                    state["slo_at_kill"] = p.frontdoor.slo.snapshot()
                     cluster.kill_node(nid)
                     state["killed"] = nid
 
@@ -2334,6 +2858,12 @@ def _learner_kill(seed: int) -> None:
         f"{s['node_failures']}; source {rep['source']}")
     if state["killed"] is None or s["node_failures"] < 1:
         raise AssertionError("learner_kill: no node was killed")
+    before = state["slo_at_kill"]
+    log(f"[stream] learner_kill: after the kill, requests admitted "
+        f"{slo['admitted'] - before['admitted']}, shed "
+        f"{slo['shed'] - before['shed']} (at the dispatch "
+        f"{slo['shed_at_dispatch'] - before['shed_at_dispatch']}), late "
+        f"{slo['completed_late'] - before['completed_late']}")
     _check_stream_run("learner_kill", rep, num)
     if not slo["published_version"] > state["version_at_kill"]:
         raise AssertionError("learner_kill: publishes never resumed")
@@ -2469,9 +2999,19 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     flash = timed("kernels flash_attention", check_flash_attention, gen)
     mlstm = timed("kernels mlstm_scan", check_mlstm_scan, gen)
+    mlstm["seed_sweep"] = timed("kernels mlstm_scan seed sweep",
+                                sweep_mlstm_seeds)
     ssm = timed("kernels ssm_scan", check_ssm_scan, gen)
+    # a generator of its own: the other kernels' checks keep the draws they
+    # were held to before this one; other draws of the mlstm_scan cases are
+    # the seed sweep's (ROADMAP C3)
+    flash["at_mixtral_shapes"] = timed(
+        "kernels flash_attention mixtral", check_flash_mixtral,
+        torch.Generator(device="cuda").manual_seed(SEED + 7))
+    release_memory()
     timed("parity stablelm", check_card_vs_cpu)
     timed("parity xlstm", check_xlstm_card_vs_cpu)
+    timed("parity mixtral", check_mixtral_card_vs_cpu)
     timed("parity jamba", check_jamba_card_vs_cpu)
     release_memory()
     stablelm = timed("serve stablelm", serve_full_model, card)
@@ -2481,17 +3021,24 @@ def main() -> int:
     release_memory()   # stablelm's engine and params, before jamba's 18 GB
     jamba = timed("serve jamba", serve_jamba, card)
     release_memory()
+    mixtral = timed("serve mixtral", serve_mixtral, card)
+    release_memory()
+    ssm["launches"] = jamba["ssm_scan"]
+    mlstm_sync = timed("train", train_full_model)
+    release_memory()
+    mixtral_train = timed("train mixtral", train_mixtral)
+    release_memory()
     flash["launches_by_path"] = {
         "serve stablelm-1.6b": stablelm_flash,
         "serve_llm --full through the FrontDoor (phase 4c)":
             frontdoor["flash"],
         "serve_llm --full --replicas 1 (phase 4c)": frontdoor["flash_one"],
         "FrontDoor replica kill (phase 4c)": frontdoor["flash_kill"],
-        "serve jamba cut": jamba["flash_attention"]}
+        "serve jamba cut": jamba["flash_attention"],
+        "serve mixtral-8x22b cut (phase 4d)": mixtral["flash"],
+        **{f"train mixtral-8x22b cut, {what} (phase 5b)": n
+           for what, n in mixtral_train.items()}}
     flash["launches"] = sum(flash["launches_by_path"].values())
-    ssm["launches"] = jamba["ssm_scan"]
-    mlstm_sync = timed("train", train_full_model)
-    release_memory()
     int8, round_trip_us = timed("compute", compute_plane, gen)
     release_memory()
     mlstm_graph = timed("train graph", train_graph)

@@ -18,12 +18,13 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.configs.base import (ATTN, DENSE, MAMBA, MLSTM, SLSTM,
-                                      ModelConfig)
+from repro_torch.configs.base import (ATTN, DENSE, MAMBA, MLSTM, MOE, SLSTM,
+                                      SWA, ModelConfig)
 from repro_torch.models.attention import attention_init
 from repro_torch.models.layers import (dense_init, embedding_init,
                                        rmsnorm_init, swiglu_init, torch_dtype)
 from repro_torch.models.model import check_supported, padded_vocab
+from repro_torch.models.moe import moe_init
 from repro_torch.models.ssm import mamba_init
 from repro_torch.models.xlstm import mlstm_init, slstm_init
 from repro_torch.tree import tree_map
@@ -74,7 +75,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     layers the conv normal * 1/sqrt(d_conv), `dt_proj` fp32 normal *
     dt_rank^-0.5, `dt_bias` the inverse softplus of a log-uniform draw in
     [1e-3, 1e-1], `A_log` log(1..d_state) and `D` ones, the last four in
-    fp32 whatever `param_dtype` is. Drawn in fp32
+    fp32 whatever `param_dtype` is; for MoE layers the router fp32 normal *
+    1/sqrt(d_model), the experts' `w_gate`/`w_up` (E,d,f) normal *
+    1/sqrt(d) and `w_down` (E,f,d) normal * 1/sqrt(f). Drawn in fp32
     on `device`, which must be the generator's (default), and stored there
     in `cfg.param_dtype`. Tied embeddings have no `lm_head`."""
     check_supported(cfg)
@@ -89,16 +92,19 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
          "final_norm": rmsnorm_init(cfg.d_model, dt, device)}
     if not cfg.tie_embeddings:
         p["lm_head"] = dense_init(generator, cfg.d_model, vp, dt)
-    mixer_init = {ATTN: attention_init, MAMBA: mamba_init, MLSTM: mlstm_init,
-                  SLSTM: slstm_init}
+    mixer_init = {ATTN: attention_init, SWA: attention_init, MAMBA: mamba_init,
+                  MLSTM: mlstm_init, SLSTM: slstm_init}
     groups = []
     for kind, ffn in zip(cfg.pattern, cfg.ffn_pattern):
         layer = {"pre_norm": rmsnorm_init(cfg.d_model, dt, device, lead),
                  "mixer": mixer_init[kind](generator, cfg, lead)}
-        if ffn == DENSE:
+        if ffn in (DENSE, MOE):
             layer["post_norm"] = rmsnorm_init(cfg.d_model, dt, device, lead)
+        if ffn == DENSE:
             layer["ffn"] = swiglu_init(generator, cfg.d_model,
                                        cfg.d_ff or 4 * cfg.d_model, dt, lead)
+        elif ffn == MOE:
+            layer["ffn"] = moe_init(generator, cfg, lead)
         groups.append(layer)
     p["groups"] = tuple(groups)
     return p

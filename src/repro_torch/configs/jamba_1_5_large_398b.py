@@ -2,10 +2,12 @@
 1 attention : 7 Mamba per 8-layer group, MoE 16e top-2 every other layer.
 The same numbers as `repro.configs.jamba_1_5_large_398b`.
 
-The port has no MoE layer yet, so `Model(CONFIG)` raises naming `moe`. A
-caller that wants the Mamba and attention layers alone cuts the config where
-it uses it, e.g. `CONFIG.scaled(num_layers=8, ffn_pattern=(DENSE,) * 8,
-moe=None)`: one 8-layer group at full width with dense SwiGLU FFNs.
+`Model(CONFIG)` builds, MoE layers included, but one card cannot hold even
+one 8-layer group of it: its four MoE layers of 16 experts at d_ff 24,576
+come to about 77 GB of bf16 experts. So the card serves a cut with dense
+SwiGLU FFNs in place of the experts, `CONFIG.scaled(num_layers=8,
+ffn_pattern=(DENSE,) * 8, moe=None)`: one 8-layer group at full width; the
+MoE layers run at smoke widths (`SMOKE`).
 """
 from repro_torch.configs.base import (ATTN, DENSE, MAMBA, MOE, MambaConfig,
                                       MoEConfig, ModelConfig)

@@ -1,16 +1,15 @@
-"""Architecture registry of the port: only the arches that are ported.
-jamba-1.5-large-398b is here for its Mamba and attention layers; its MoE
-layers are not ported, so a model of it is built from a cut config."""
+"""Architecture registry of the port: only the arches that are ported."""
 from __future__ import annotations
 
-from repro_torch.configs import (jamba_1_5_large_398b, stablelm_1_6b,
-                                  xlstm_125m)
+from repro_torch.configs import (jamba_1_5_large_398b, mixtral_8x22b,
+                                  stablelm_1_6b, xlstm_125m)
 from repro_torch.configs.base import ModelConfig
 
 _MODULES = {
     "stablelm-1.6b": stablelm_1_6b,
     "xlstm-125m": xlstm_125m,
     "jamba-1.5-large-398b": jamba_1_5_large_398b,
+    "mixtral-8x22b": mixtral_8x22b,
 }
 
 ARCH_IDS = tuple(_MODULES)

@@ -5,6 +5,10 @@ launches the Hopper kernel (`csrc/flash_attention.cu`) or raises: there is
 no fallback on the card. bf16 runs on the tensor cores (`mma.sync`, every
 row start 16-byte aligned for its `cp.async` copies), fp32 on the CUDA
 cores. `flash_attention.launches` counts kernel launches.
+
+The kernel is a forward only, as the Pallas kernel is. Where autograd needs
+a gradient on the card, `_FlashAttention` runs the kernel forward and gets
+dq, dk, dv by recomputing `attention_ref` under autograd in its backward.
 """
 from __future__ import annotations
 
@@ -85,18 +89,9 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int):
                     f"be multiples of {step} elements)")
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0) -> torch.Tensor:
-    """q: (B,H,S,hd); k,v: (B,Hkv,T,hd) -> (B,H,S,hd) in q.dtype.
-
-    Inputs are read by strides, so (B,S,H,hd) activations can be passed as
-    `.transpose(1, 2)` views without a copy. On the card the output is a
-    (B,H,S,hd) view of a (B,S,H,hd)-contiguous tensor, so
-    `out.transpose(1, 2)` is contiguous again."""
-    if q.device.type == "cpu" and k.device.type == "cpu" \
-            and v.device.type == "cpu":
-        return attention_ref(q, k, v, causal=causal, window=window)
-    _check(q, k, v, window)
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+            causal: bool, window: int) -> torch.Tensor:
+    """One launch of the Hopper kernel on checked inputs."""
     b, h, s, hd = q.shape
     hkv, t = k.shape[1], k.shape[2]
     out = torch.empty((b, s, h, hd), dtype=q.dtype,
@@ -114,6 +109,49 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     with _LAUNCHES_LOCK:   # device lanes and callers may launch at once
         flash_attention.launches += 1
     return out
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward by `forward_fn` (the kernel launch on the card); backward by
+    recomputing `attention_ref` under autograd, as the reference
+    differentiates a jnp form and not its Pallas kernel."""
+
+    @staticmethod
+    def forward(ctx, forward_fn, causal, window, q, k, v):
+        ctx.causal, ctx.window = causal, window
+        ctx.save_for_backward(q, k, v)
+        return forward_fn(q, k, v, causal=causal, window=window)
+
+    @staticmethod
+    def backward(ctx, dout):
+        needs = ctx.needs_input_grad[3:]
+        inputs = [t.detach().requires_grad_(need)
+                  for t, need in zip(ctx.saved_tensors, needs)]
+        wanted = [t for t in inputs if t.requires_grad]
+        with torch.enable_grad():
+            out = attention_ref(*inputs, causal=ctx.causal,
+                                window=ctx.window)
+        grads = iter(torch.autograd.grad(out, wanted, dout))
+        return (None, None, None,
+                *(next(grads) if t.requires_grad else None for t in inputs))
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """q: (B,H,S,hd); k,v: (B,Hkv,T,hd) -> (B,H,S,hd) in q.dtype.
+
+    Inputs are read by strides, so (B,S,H,hd) activations can be passed as
+    `.transpose(1, 2)` views without a copy. On the card the output is a
+    (B,H,S,hd) view of a (B,S,H,hd)-contiguous tensor, so
+    `out.transpose(1, 2)` is contiguous again. Differentiable in q, k and
+    v."""
+    if q.device.type == "cpu" and k.device.type == "cpu" \
+            and v.device.type == "cpu":
+        return attention_ref(q, k, v, causal=causal, window=window)
+    _check(q, k, v, window)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttention.apply(_launch, causal, window, q, k, v)
+    return _launch(q, k, v, causal=causal, window=window)
 
 
 flash_attention.launches = 0

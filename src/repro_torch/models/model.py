@@ -1,10 +1,11 @@
 """The decoder model: the port of `repro.models.model` for the mixer kinds
-attention (GQA), Mamba, sLSTM and mLSTM, with dense (SwiGLU) or no FFN:
-stablelm-1.6b's `(ATTN,)`/`(DENSE,)`, xlstm-125m's `(SLSTM, MLSTM)`/`(NONE,
-NONE)` and jamba's 8-layer group of 7 Mamba layers and one attention layer
-with dense FFNs (jamba's MoE layers are not ported). On the card the
-attention layers' prefill runs the flash attention kernel, the mLSTM layers
-the mlstm_scan kernel and the Mamba layers the ssm_scan kernel.
+attention (GQA), sliding-window attention, Mamba, sLSTM and mLSTM, with
+dense (SwiGLU), MoE or no FFN: stablelm-1.6b's `(ATTN,)`/`(DENSE,)`,
+xlstm-125m's `(SLSTM, MLSTM)`/`(NONE, NONE)`, mixtral-8x22b's
+`(SWA,)`/`(MOE,)` and jamba's 8-layer group of 7 Mamba layers and one
+attention layer with dense and MoE FFNs in turn. On the card the attention
+layers' full-sequence forward runs the flash attention kernel, the mLSTM
+layers the mlstm_scan kernel and the Mamba layers the ssm_scan kernel.
 
 Params keep the reference's nesting: `embed.table`, `final_norm.scale`,
 `lm_head` (absent with tied embeddings), and `groups`, a tuple with one
@@ -20,9 +21,10 @@ Public surface:
     logits, cache = model.decode_step(params, cache, tokens, pos)
     cache = model.init_cache(batch_size, max_seq, device)
 
-Other mixer and FFN kinds (SWA, MLA, MoE), the encoder, modality inputs,
-`first_k_dense` layers and the chunked loss raise `NotImplementedError`
-until their slices.
+MoE layers add their aux losses across layers in `forward` and `loss_fn`;
+prefill and decode drop them, as the reference does. MLA, the encoder,
+modality inputs, `first_k_dense` layers and the chunked loss raise
+`NotImplementedError` until their slices.
 """
 from __future__ import annotations
 
@@ -30,16 +32,16 @@ from typing import Any, Dict, Tuple
 
 import torch
 
-from repro_torch.configs.base import (ATTN, DENSE, MAMBA, MLSTM, NONE, SLSTM,
-                                      ModelConfig)
+from repro_torch.configs.base import (ATTN, DENSE, MAMBA, MLSTM, MOE, NONE,
+                                      SLSTM, SWA, ModelConfig)
 from repro_torch.models import attention as attn
-from repro_torch.models import ssm, xlstm
+from repro_torch.models import moe, ssm, xlstm
 from repro_torch.models.layers import (embed_tokens, rmsnorm, softmax_xent,
                                        swiglu, torch_dtype, unembed)
 
 Params = Dict[str, Any]
-MIXERS = (ATTN, MAMBA, SLSTM, MLSTM)
-FFNS = (DENSE, NONE)
+MIXERS = (ATTN, SWA, MAMBA, SLSTM, MLSTM)
+FFNS = (DENSE, MOE, NONE)
 
 
 def padded_vocab(cfg: ModelConfig) -> int:
@@ -59,6 +61,8 @@ def check_supported(cfg: ModelConfig) -> None:
         raise ValueError(f"{cfg.name}: xLSTM layers need cfg.xlstm")
     if MAMBA in cfg.pattern and cfg.mamba is None:
         raise ValueError(f"{cfg.name}: Mamba layers need cfg.mamba")
+    if MOE in cfg.ffn_pattern and cfg.moe is None:
+        raise ValueError(f"{cfg.name}: MoE layers need cfg.moe")
     for field, value in (("first_k_dense", cfg.first_k_dense),
                          ("encoder_layers", cfg.encoder_layers)):
         if value:
@@ -101,11 +105,20 @@ class Model:
             for i in range(len(cfg.pattern)):
                 yield i, g, _layer(params["groups"][i], g)
 
-    def _ffn(self, lp: Params, i: int, h):
-        if self.cfg.ffn_pattern[i] == NONE:
+    def _ffn(self, lp: Params, i: int, h, aux=None):
+        """h + the layer's FFN; a MoE layer adds its aux losses into `aux`
+        (in place) where one is given."""
+        kind = self.cfg.ffn_pattern[i]
+        if kind == NONE:
             return h
         f_in = rmsnorm(lp["post_norm"], h, self.cfg.norm_eps)
-        return h + swiglu(lp["ffn"], f_in)
+        if kind == DENSE:
+            return h + swiglu(lp["ffn"], f_in)
+        y, moe_aux = moe.moe_apply(lp["ffn"], self.cfg, f_in)
+        if aux is not None:
+            for k in aux:
+                aux[k] = aux[k] + moe_aux[k]
+        return h + y
 
     def _logits(self, params: Params, h):
         cfg = self.cfg
@@ -115,16 +128,20 @@ class Model:
 
     @staticmethod
     def _zero_aux(device) -> Dict[str, torch.Tensor]:
-        """The MoE aux losses: zero, the pattern has no MoE layer."""
+        """The MoE aux losses before the first layer: zero."""
         zero = torch.zeros((), dtype=torch.float32, device=device)
         return {"moe_lb_loss": zero, "moe_z_loss": zero}
 
     # ------------------------------------------------------------- forward
 
+    def _window(self, kind: str) -> int:
+        return self.cfg.window_size if kind == SWA else 0
+
     def _mix(self, lp: Params, kind: str, x):
         cfg = self.cfg
-        if kind == ATTN:
-            return attn.attention_forward(lp["mixer"], cfg, x)
+        if kind in (ATTN, SWA):
+            return attn.attention_forward(lp["mixer"], cfg, x,
+                                          window=self._window(kind))
         if kind == MAMBA:
             return ssm.mamba_mix(lp["mixer"], cfg, x)[0]
         if kind == MLSTM:
@@ -132,18 +149,20 @@ class Model:
         return xlstm.slstm_mix(lp["mixer"], cfg, x)[0]
 
     def _backbone(self, params: Params, tokens):
-        """Hidden states before the final norm."""
+        """Hidden states before the final norm, and the aux losses."""
         cfg = self.cfg
         h = embed_tokens(params["embed"], tokens)
+        aux = self._zero_aux(h.device)
         for i, _, lp in self._layers(params):
             mix_in = rmsnorm(lp["pre_norm"], h, cfg.norm_eps)
-            h = self._ffn(lp, i, h + self._mix(lp, cfg.pattern[i], mix_in))
-        return h
+            h = self._ffn(lp, i, h + self._mix(lp, cfg.pattern[i], mix_in),
+                          aux)
+        return h, aux
 
     def forward(self, params: Params, batch) -> Tuple[torch.Tensor, Dict]:
         """Full-sequence logits (B,S,V_padded) and the aux losses."""
-        h = self._backbone(params, batch["tokens"])
-        return self._logits(params, h), self._zero_aux(h.device)
+        h, aux = self._backbone(params, batch["tokens"])
+        return self._logits(params, h), aux
 
     def loss_fn(self, params: Params, batch) -> Tuple[torch.Tensor, Dict]:
         """Mean next-token cross-entropy over the unchunked logits, padded
@@ -168,8 +187,9 @@ class Model:
                           device) -> Params:
         cfg = self.cfg
         lead = (cfg.num_groups,)
-        if kind == ATTN:
-            return attn.init_attn_cache(cfg, batch, max_seq, dtype=dt,
+        if kind in (ATTN, SWA):
+            return attn.init_attn_cache(cfg, batch, max_seq,
+                                        window=self._window(kind), dtype=dt,
                                         device=device, lead=lead)
         if kind == MAMBA:
             return ssm.init_mamba_cache(cfg, batch, dt, device, lead)
@@ -188,8 +208,10 @@ class Model:
 
     def _mix_prefill(self, lp: Params, kind: str, x, max_seq: int):
         cfg = self.cfg
-        if kind == ATTN:
-            return attn.attention_prefill(lp["mixer"], cfg, x, max_seq=max_seq)
+        if kind in (ATTN, SWA):
+            return attn.attention_prefill(lp["mixer"], cfg, x,
+                                          window=self._window(kind),
+                                          max_seq=max_seq)
         if kind == MAMBA:
             out, (h_last, tail) = ssm.mamba_mix(lp["mixer"], cfg, x)
             return out, {"h": h_last, "conv": tail}
@@ -226,9 +248,10 @@ class Model:
             kind = cfg.pattern[i]
             mix_in = rmsnorm(lp["pre_norm"], h, cfg.norm_eps)
             layer_cache = _layer(cache["groups"][i], g)
-            if kind == ATTN:
+            if kind in (ATTN, SWA):
                 out, _ = attn.attention_decode(lp["mixer"], cfg, mix_in,
-                                               layer_cache, pos)
+                                               layer_cache, pos,
+                                               window=self._window(kind))
             else:
                 decode = {MAMBA: ssm.mamba_decode, MLSTM: xlstm.mlstm_decode,
                           SLSTM: xlstm.slstm_decode}[kind]

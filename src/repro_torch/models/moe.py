@@ -1,0 +1,190 @@
+"""Mixture-of-Experts FFN with three dispatch strategies: the port of
+`repro.models.moe`.
+
+``dense``    — compute every expert for every token, weight by gates. Exact,
+               used for smoke tests and as the oracle in the tests.
+``dropping`` — GShard/Switch-style capacity-bounded dispatch: a (groups,
+               tokens, experts, capacity) one-hot gathers each expert's
+               tokens, one batched GEMM a projection over the experts.
+``ragged``   — sort by expert, then one GEMM over each expert's contiguous
+               rows ("dropless"), where the reference has `lax.ragged_dot`.
+
+Router: fp32 logits, softmax-then-top-k with renormalization. Aux losses
+(switch load-balance + router z-loss) are returned for the trainer.
+
+The reference's products are einsums and `lax.ragged_dot` outside any
+Pallas kernel, so the port's are `torch.einsum`/`torch.bmm` and a loop of
+`torch.matmul`. The scatters `.at[...].add` become `index_add`; on the card
+its float sums run in no fixed order (atomics).
+"""
+from __future__ import annotations
+
+import itertools
+import math
+from typing import Any, Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig, MoEConfig
+from repro_torch.models.layers import dense_init, swiglu, swiglu_init, torch_dtype
+
+Params = Dict[str, Any]
+
+
+def _expert_normal(gen: torch.Generator, shape: Tuple[int, ...], scale: float,
+                   dtype) -> torch.Tensor:
+    """normal * scale in `dtype`, drawn in fp32 one (d_in, d_out) matrix at a
+    time: a whole stack of experts in fp32 would double the peak memory of
+    an init on the card (26 GB for eight of mixtral's layers)."""
+    out = torch.empty(shape, dtype=dtype, device=gen.device)
+    for idx in itertools.product(*map(range, shape[:-2])):
+        w = torch.randn(shape[-2:], generator=gen, device=gen.device,
+                        dtype=torch.float32)
+        out[idx] = w * scale
+    return out
+
+
+def moe_init(gen: torch.Generator, cfg: ModelConfig,
+             lead: Tuple[int, ...] = ()) -> Params:
+    mc = cfg.moe
+    d, f, e = cfg.d_model, mc.d_ff_expert, mc.num_experts
+    dt = torch_dtype(cfg.param_dtype)
+    p = {
+        "router": dense_init(gen, d, e, torch.float32, lead),
+        "w_gate": _expert_normal(gen, (*lead, e, d, f), 1.0 / math.sqrt(d), dt),
+        "w_up": _expert_normal(gen, (*lead, e, d, f), 1.0 / math.sqrt(d), dt),
+        "w_down": _expert_normal(gen, (*lead, e, f, d), 1.0 / math.sqrt(f), dt),
+    }
+    if mc.num_shared_experts:
+        p["shared"] = swiglu_init(gen, d, f * mc.num_shared_experts, dt, lead)
+    return p
+
+
+def _router(params: Params, mc: MoEConfig, x2d: torch.Tensor):
+    """x2d: (T, d) -> gates (T, k), idx (T, k), aux losses."""
+    logits = x2d.float() @ params["router"].float()
+    probs = torch.softmax(logits, dim=-1)
+    top_p, top_i = torch.topk(probs, mc.top_k, dim=-1)
+    top_p = top_p / torch.clamp_min(top_p.sum(-1, keepdim=True), 1e-9)
+    # switch load-balance loss: E * sum_e f_e * P_e
+    e = mc.num_experts
+    f_e = torch.bincount(top_i.reshape(-1), minlength=e).float()
+    f_e = f_e / torch.clamp_min(f_e.sum(), 1.0)
+    p_e = probs.mean(dim=0)
+    lb_loss = e * torch.sum(f_e * p_e)
+    z_loss = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
+    return top_p, top_i, {"moe_lb_loss": lb_loss, "moe_z_loss": z_loss}
+
+
+def _swiglu_act(g: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """silu in fp32, cast back before the up-product."""
+    return F.silu(g.float()).to(u.dtype) * u
+
+
+def _expert_ffn(params: Params, h_in: torch.Tensor) -> torch.Tensor:
+    """h_in: (E, C, d) -> (E, C, d), per-expert SwiGLU."""
+    h = _swiglu_act(torch.bmm(h_in, params["w_gate"]),
+                    torch.bmm(h_in, params["w_up"]))
+    return torch.bmm(h, params["w_down"])
+
+
+def _dense_moe(params: Params, mc: MoEConfig, x2d, gates, idx):
+    t = x2d.shape[0]
+    # (T,E) combine weights from the top-k selection
+    comb = torch.zeros((t, mc.num_experts), dtype=x2d.dtype,
+                       device=x2d.device)
+    comb = comb.scatter(1, idx, gates.to(x2d.dtype))
+    g = torch.einsum("td,edf->tef", x2d, params["w_gate"])
+    u = torch.einsum("td,edf->tef", x2d, params["w_up"])
+    y = torch.einsum("tef,efd->ted", _swiglu_act(g, u), params["w_down"])
+    return torch.einsum("ted,te->td", y, comb)
+
+
+def capacity(mc: MoEConfig, n: int) -> int:
+    """Slots per (group, expert) for groups of `n` tokens, rounded as the
+    reference rounds them."""
+    cap = int(math.ceil(n * mc.top_k / mc.num_experts * mc.capacity_factor))
+    cap = max(8, -(-cap // 8) * 8)  # round up to 8 for lane alignment
+    return min(cap, n) if n >= 8 else cap
+
+
+def _dropping_moe(params: Params, mc: MoEConfig, x3d, gates, idx):
+    """GShard dispatch with per-*group* expert capacity.
+
+    x3d: (G, N, d) — G groups of N tokens. Capacity is per (group, expert),
+    so the dispatch tensor is (G, N, E, C). Tokens past an expert's capacity
+    in their group are dropped (their output from this layer is 0)."""
+    g_, n, d = x3d.shape
+    e = mc.num_experts
+    cap = capacity(mc, n)
+    slots = torch.arange(cap, device=x3d.device)
+
+    # position of each (token, rank) within its (group, expert) queue;
+    # earlier ranks get priority, matching GShard.
+    dispatch = torch.zeros((g_, n, e, cap), dtype=x3d.dtype, device=x3d.device)
+    combine = torch.zeros((g_, n, e, cap), dtype=torch.float32,
+                          device=x3d.device)
+    counts = torch.zeros((g_, 1, e), dtype=torch.int64, device=x3d.device)
+    for r in range(mc.top_k):
+        mask_r = F.one_hot(idx[..., r], e)                    # (G,N,E)
+        pos_r = torch.cumsum(mask_r, dim=1) - 1 + counts
+        counts = counts + mask_r.sum(dim=1, keepdim=True)
+        keep = (mask_r > 0) & (pos_r < cap)
+        # the reference's one_hot(where(keep, pos, -1)): all zeros where
+        # dropped, built here in the activation dtype, not int64
+        oh = (pos_r[..., None] == slots) & keep[..., None]
+        dispatch = dispatch + oh.to(x3d.dtype)
+        combine = combine + oh.float() * gates[..., r:r + 1, None]
+    h_in = torch.einsum("gnec,gnd->egcd", dispatch, x3d)
+    h_out = _expert_ffn(params, h_in.reshape(e, g_ * cap, d))
+    h_out = h_out.reshape(e, g_, cap, d)
+    # combine weights in activation dtype, as the reference does
+    return torch.einsum("gnec,egcd->gnd", combine.to(x3d.dtype), h_out)
+
+
+def _ragged_moe(params: Params, mc: MoEConfig, x2d, gates, idx):
+    """Dropless dispatch: sort by expert, one GEMM over each expert's
+    contiguous rows."""
+    t = x2d.shape[0]
+    flat_e = idx.reshape(-1)                       # (T*k,)
+    order = torch.argsort(flat_e, stable=True)
+    tok = torch.arange(t, device=x2d.device).repeat_interleave(mc.top_k)[order]
+    w = gates.reshape(-1)[order]
+    xs = x2d[tok]                                  # (T*k, d) sorted by expert
+    sizes = torch.bincount(flat_e, minlength=mc.num_experts).tolist()
+    ys = []
+    for ex, rows in enumerate(torch.split(xs, sizes)):
+        h = _swiglu_act(rows @ params["w_gate"][ex], rows @ params["w_up"][ex])
+        ys.append(h @ params["w_down"][ex])
+    y = torch.cat(ys) * w[:, None].to(xs.dtype)
+    return torch.zeros_like(x2d).index_add(0, tok, y)
+
+
+def moe_apply(params: Params, cfg: ModelConfig, x: torch.Tensor
+              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """x: (B, S, d) -> (B, S, d), aux losses."""
+    mc = cfg.moe
+    b, s, d = x.shape
+    x2d = x.reshape(b * s, d)
+    gates, idx, aux = _router(params, mc, x2d)
+    if mc.dispatch == "dense":
+        y = _dense_moe(params, mc, x2d, gates, idx)
+    elif mc.dispatch == "dropping":
+        # groups of <=4096 tokens: capacity (and the dispatch one-hot) stays
+        # bounded regardless of sequence length; one flat group at decode
+        if s > 1:
+            gsz = math.gcd(s, 4096)
+            g_, n = b * (s // gsz), gsz
+        else:
+            g_, n = 1, b * s
+        y = _dropping_moe(params, mc, x2d.reshape(g_, n, d),
+                          gates.reshape(g_, n, -1), idx.reshape(g_, n, -1))
+        y = y.reshape(b * s, d)
+    elif mc.dispatch == "ragged":
+        y = _ragged_moe(params, mc, x2d, gates, idx)
+    else:
+        raise ValueError(f"unknown moe dispatch {mc.dispatch!r}")
+    if mc.num_shared_experts:
+        y = y + swiglu(params["shared"], x2d)
+    return y.reshape(b, s, d), aux

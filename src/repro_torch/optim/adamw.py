@@ -5,7 +5,9 @@ with bias correction and the decoupled decay `lr * wd * p` inside the step.
 Unlike the reference, whose arrays are immutable, `adamw_update` writes the
 new params and moments into the given tensors in place, under
 `torch.no_grad()`, and returns the same trees: no second copy of the model
-and its optimizer state is held during the step.
+and its optimizer state is held during the step. It clips and updates each
+leaf `CHUNK` elements at a time, so its fp32 temporaries stay small beside
+the state (a whole expert stack of mixtral-8x22b would take 3.2 GB each).
 """
 from __future__ import annotations
 
@@ -42,41 +44,52 @@ def adamw_init(params, state_dtype: str = "float32") -> Dict[str, Any]:
     }
 
 
+# Elements of a leaf that the update and the norm take at a time.
+CHUNK = 1 << 26
+
+
+def _chunks(*tensors):
+    """Flat views of tensors of one shape, CHUNK elements at a time (the
+    tensors whole where one of them is not contiguous)."""
+    if all(t.is_contiguous() for t in tensors):
+        return zip(*(t.view(-1).split(CHUNK) for t in tensors))
+    return [tensors]
+
+
 def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for x in tree_leaves(tree)))
-
-
-def clip_by_global_norm(tree, max_norm: float):
-    norm = global_norm(tree)
-    scale = torch.clamp_max(max_norm / torch.clamp_min(norm, 1e-9), 1.0)
-    return tree_map(lambda g: (g.float() * scale).to(g.dtype), tree), norm
+    return torch.sqrt(sum(torch.sum(torch.square(c.float()))
+                          for x in tree_leaves(tree) for (c,) in _chunks(x)))
 
 
 @torch.no_grad()
 def adamw_update(cfg: AdamWConfig, grads, opt_state, params, lr_scale=1.0
                  ) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
     """One step. Updates `params` and the moments of `opt_state` in place;
-    returns (params, opt_state, {"grad_norm"})."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+    returns (params, opt_state, {"grad_norm"}). The grads are clipped as
+    the reference's `clip_by_global_norm` clips them, a chunk at a time."""
+    gnorm = global_norm(grads)
+    scale = torch.clamp_max(cfg.grad_clip / torch.clamp_min(gnorm, 1e-9), 1.0)
     step = opt_state["step"] + 1
     sf = step.float()
     bc1 = 1.0 - torch.pow(cfg.b1, sf)
     bc2 = 1.0 - torch.pow(cfg.b2, sf)
     lr = cfg.lr * lr_scale
     sd = getattr(torch, cfg.state_dtype)
-    for g, m, v, p in zip(tree_leaves(grads), tree_leaves(opt_state["m"]),
-                          tree_leaves(opt_state["v"]), tree_leaves(params)):
-        gf = g.float()
-        mf = cfg.b1 * m.float() + (1 - cfg.b1) * gf
-        vf = cfg.b2 * v.float() + (1 - cfg.b2) * gf * gf
-        mh = mf / bc1
-        vh = vf / bc2
-        pf = p.float()
-        pf = pf - lr * (mh / (torch.sqrt(vh) + cfg.eps) + cfg.weight_decay * pf)
-        p.copy_(pf)
-        m.copy_(mf.to(sd))
-        v.copy_(vf.to(sd))
+    for leaf in zip(tree_leaves(grads), tree_leaves(opt_state["m"]),
+                    tree_leaves(opt_state["v"]), tree_leaves(params)):
+        for g, m, v, p in _chunks(*leaf):
+            # the clipped grad in the grad's dtype, as the reference clips
+            gf = (g.float() * scale).to(g.dtype).float()
+            mf = cfg.b1 * m.float() + (1 - cfg.b1) * gf
+            vf = cfg.b2 * v.float() + (1 - cfg.b2) * gf * gf
+            mh = mf / bc1
+            vh = vf / bc2
+            pf = p.float()
+            pf = pf - lr * (mh / (torch.sqrt(vh) + cfg.eps)
+                            + cfg.weight_decay * pf)
+            p.copy_(pf)
+            m.copy_(mf.to(sd))
+            v.copy_(vf.to(sd))
     return params, dict(opt_state, step=step), {"grad_norm": gnorm}
 
 

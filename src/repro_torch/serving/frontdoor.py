@@ -426,15 +426,21 @@ class FrontDoor:
                     self._queued -= 1
                 if not heap:
                     del self._buckets[length]
-        for e in shed:
-            self.slo.record_shed()
+        self._shed(shed, now)
+        return bool(shed)
+
+    def _shed(self, entries: List[_Entry], now: float,
+              at_dispatch: bool = False) -> None:
+        for e in entries:
+            late_ms = (now - e.deadline) * 1e3
+            self.slo.record_shed(late_ms if at_dispatch else None)
             self._gcs.log_event("serve_shed", f"req{e.request.request_id}",
-                                "frontdoor",
-                                late_by_ms=(now - e.deadline) * 1e3)
+                                "frontdoor", late_by_ms=late_ms,
+                                at_dispatch=at_dispatch)
             e.ticket._fail(DeadlineShedError(
                 f"request {e.request.request_id} shed: deadline passed "
-                f"{(now - e.deadline) * 1e3:.1f}ms ago while queued"))
-        return bool(shed)
+                f"{late_ms:.1f}ms ago while "
+                + ("its wave was dispatched" if at_dispatch else "queued")))
 
     def _dispatch(self) -> bool:
         """Form and dispatch EDF waves while queue and replicas allow."""
@@ -449,14 +455,26 @@ class FrontDoor:
                 entries = self._form_wave_locked(replica.controller.size)
                 if not entries:
                     return progressed
+            # formation popped only unexpired heads, but this thread may
+            # have stalled since (another thread holding the GIL): a head
+            # that expired meanwhile is shed here, where the reference
+            # dispatches it late, and the SLO ledger counts it apart
+            # (shed_at_dispatch, with how late the worst one was)
             now = time.perf_counter()
-            # formation popped only unexpired heads, but assert the
-            # never-dispatch-late invariant explicitly — the SLO gate
-            # counts any violation
+            late = [e for e in entries if e.deadline <= now]
+            if late:
+                self._shed(late, now, at_dispatch=True)
+                entries = [e for e in entries if e.deadline > now]
+                progressed = True
+                if not entries:
+                    continue
+            requests = tuple(e.request for e in entries)
+            # the never-dispatch-late invariant, on the clock read at the
+            # dispatch itself — the SLO gate counts any violation
+            now = time.perf_counter()
             for e in entries:
                 if e.deadline <= now:
                     self.slo.record_late_dispatch()
-            requests = tuple(e.request for e in entries)
             ref = replica.graph.execute(requests)
             with self._lock:
                 replica.inflight.append(ref)

@@ -57,6 +57,11 @@ class SLOTracker:
         # already passed — the EDF queue must keep this at zero (a late
         # *completion* can race the deadline; a late *dispatch* cannot)
         self.dispatched_past_deadline = 0
+        # of `shed`, the requests that expired between their wave's
+        # formation and its dispatch (the control thread stalled there),
+        # and the most any of them was past its deadline
+        self.shed_at_dispatch = 0
+        self.shed_at_dispatch_late_ms_max = 0.0
         self._first_completion: Optional[float] = None
         self._last_completion: Optional[float] = None
         # ---- weight staleness (streaming train-while-serve plane) ----
@@ -89,9 +94,14 @@ class SLOTracker:
         with self._lock:
             self.rejected += 1
 
-    def record_shed(self) -> None:
+    def record_shed(self, at_dispatch_late_ms: Optional[float] = None
+                    ) -> None:
         with self._lock:
             self.shed += 1
+            if at_dispatch_late_ms is not None:
+                self.shed_at_dispatch += 1
+                self.shed_at_dispatch_late_ms_max = max(
+                    self.shed_at_dispatch_late_ms_max, at_dispatch_late_ms)
 
     def record_retry(self) -> None:
         with self._lock:
@@ -186,6 +196,9 @@ class SLOTracker:
                 "completed_ok": self.completed_ok,
                 "completed_late": self.completed_late,
                 "dispatched_past_deadline": self.dispatched_past_deadline,
+                "shed_at_dispatch": self.shed_at_dispatch,
+                "shed_at_dispatch_late_ms_max":
+                    self.shed_at_dispatch_late_ms_max,
                 "published_version": self.published_version,
                 "served_version": self.served_version,
                 "version_lag": (self.published_version

@@ -112,6 +112,80 @@ def test_non_cpu_tensors_never_fall_back(monkeypatch):
     assert flash_attention.launches == 0
 
 
+# Recompute backward against autograd through the plain version: the same
+# ops in the same order, so fp32 to 1e-6; bf16 grads are rounded to bf16
+# once on each side (2e-2).
+GRAD_TOL = {"float32": dict(rtol=1e-6, atol=1e-6),
+            "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal,window,needs", [
+    (True, 0, (True, True, True)), (True, 5, (True, True, True)),
+    (False, 0, (True, True, True)), (True, 5, (False, True, False))])
+def test_recompute_backward_matches_autograd(dtype, causal, window, needs):
+    """`_FlashAttention` with the plain forward injected in place of the
+    launch: its output, and dq, dk, dv (only those asked for) against
+    autograd through `attention_ref`."""
+    _, ins = _inputs(11, 2, 4, 2, 24, 24, 32, dtype)
+    dout = torch.randn(2, 4, 24, 32, generator=torch.Generator().manual_seed(
+        12)).to(ins[0].dtype)
+    grads = []
+    for fn in ("function", "autograd"):
+        xs = [t.clone().requires_grad_(n) for t, n in zip(ins, needs)]
+        if fn == "function":
+            out = ops._FlashAttention.apply(attention_ref, causal, window, *xs)
+        else:
+            out = attention_ref(*xs, causal=causal, window=window)
+        out.backward(dout)
+        grads.append([out] + [x.grad for x in xs])
+    for got, want in zip(*grads):
+        if want is None:
+            assert got is None
+        else:
+            torch.testing.assert_close(got, want, **GRAD_TOL[dtype])
+
+
+def test_card_tensors_that_need_grad_go_through_the_function(monkeypatch):
+    """On a non-CPU tensor that needs a gradient the wrapper launches inside
+    `_FlashAttention` (its output has that grad_fn and backward reaches q, k,
+    v); without grad, or under no_grad, it launches bare. Meta tensors and
+    a stub launch stand in for the card."""
+    calls = []
+
+    def launch(q, k, v, *, causal, window):
+        calls.append((causal, window))
+        return torch.empty_like(q)
+
+    monkeypatch.setattr(ops, "_launch", launch)
+    q, k, v = (torch.empty(1, 4, 16, 32, device="meta") for _ in range(3))
+    out = flash_attention(q, k, v)
+    assert out.grad_fn is None
+    qg, kg, vg = (t.requires_grad_() for t in (q.clone(), k.clone(), v.clone()))
+    with torch.no_grad():
+        assert flash_attention(qg, kg, vg).grad_fn is None
+    out = flash_attention(qg, kg, vg, window=8)
+    assert type(out.grad_fn).__name__ == "_FlashAttentionBackward"
+    out.sum().backward()
+    assert all(t.grad is not None and t.grad.shape == t.shape
+               for t in (qg, kg, vg))
+    assert calls == [(True, 0), (True, 0), (True, 8)]
+
+
+@pytest.mark.parametrize("s,t,causal,window,chunk", [
+    (40, 40, True, 0, 8), (40, 40, True, 7, 16), (64, 64, True, 100, 24),
+    (30, 50, False, 9, 8), (50, 30, True, 0, 16)])
+def test_row_chunked_plain_version_equals_the_whole(s, t, causal, window,
+                                                     chunk):
+    """`row_chunk` gives the unchunked result (fp32, sums of other lengths
+    over keys whose weights are exactly 0)."""
+    _, (q, k, v) = _inputs(13, 2, 4, 2, s, t, 32, "float32")
+    torch.testing.assert_close(
+        attention_ref(q, k, v, causal=causal, window=window, row_chunk=chunk),
+        attention_ref(q, k, v, causal=causal, window=window),
+        rtol=1e-6, atol=1e-6)
+
+
 @pytest.mark.parametrize("shapes,kw,err", [
     (((1, 2, 8, 48), (1, 2, 8, 48)), {}, "head_dim 48"),
     (((1, 3, 8, 32), (1, 2, 8, 32)), {}, "do not match"),

@@ -225,6 +225,90 @@ def test_frontdoor_serves_and_adapts(pkg, cluster):
         fd.close()
 
 
+def test_frontdoor_stall_after_wave_formation(pkg, cluster):
+    """The control thread stalls between forming a wave and dispatching
+    it (here inside the formation) until the head's deadline has passed:
+    the reference dispatches it and counts one late dispatch; the port
+    sheds it at the dispatch instant, so none is dispatched late, and
+    counts it apart from the queue's sheds with how late it was."""
+    fd = pkg.frontdoor.FrontDoor(_factory(pkg), num_replicas=1,
+                                 max_queue=8, default_deadline_s=0.2,
+                                 resources={"cpu": 0.25})
+    form = fd._form_wave_locked
+
+    def stalled(limit):
+        entries = form(limit)
+        if entries:
+            time.sleep(max(e.deadline for e in entries)
+                       - time.perf_counter() + 0.01)
+        return entries
+
+    fd._form_wave_locked = stalled
+    try:
+        ticket = fd.submit(np.arange(8), 2)
+        if pkg.name == "repro":
+            ticket.result(timeout=20)
+            assert fd.stats()["dispatched_past_deadline"] == 1
+        else:
+            with pytest.raises(pkg.frontdoor.DeadlineShedError):
+                ticket.result(timeout=20)
+            st = fd.stats()
+            assert st["dispatched_past_deadline"] == 0 and st["shed"] == 1
+            assert st["shed_at_dispatch"] == 1
+            assert st["shed_at_dispatch_late_ms_max"] >= 10.0
+    finally:
+        fd.close()
+
+
+def test_frontdoor_counts_a_dispatch_past_the_deadline():
+    """The port's late-dispatch count reads the clock at the dispatch
+    itself: if the clock passes a head's deadline after the at-dispatch
+    shed let it through, the head is dispatched and counted late."""
+    from repro_torch import core
+    from repro_torch.serving import engine, frontdoor
+    real = time.perf_counter
+    jump = {"armed": False, "calls": 0, "by": 0.0}
+
+    def perf_counter():
+        if jump["armed"] and threading.current_thread().name.startswith(
+                "frontdoor-ctl"):
+            jump["calls"] += 1
+            if jump["calls"] == 2:       # the clock read at the dispatch
+                jump["armed"] = False
+                return real() + jump["by"]
+        return real()
+
+    core.init(num_nodes=2, workers_per_node=2)
+    fd = frontdoor.FrontDoor(lambda: FakeEngine(engine.Response),
+                             num_replicas=1, max_queue=8,
+                             default_deadline_s=0.5,
+                             resources={"cpu": 0.25})
+    form = fd._form_wave_locked
+
+    def formed(limit):
+        entries = form(limit)
+        if entries:
+            jump["by"] = max(e.deadline for e in entries) - real() + 0.01
+            jump["armed"] = True
+        return entries
+
+    fd._form_wave_locked = formed
+    old_time = frontdoor.time
+    frontdoor.time = SimpleNamespace(perf_counter=perf_counter,
+                                     sleep=time.sleep,
+                                     monotonic=time.monotonic)
+    try:
+        fd.submit(np.arange(8), 2).result(timeout=20)
+        st = fd.stats()
+        assert st["dispatched_past_deadline"] == 1
+        assert st["shed"] == st["shed_at_dispatch"] == 0
+    finally:
+        frontdoor.time = old_time
+        fd.close()
+        core.shutdown()
+        _drain_threads()
+
+
 def test_frontdoor_admission_control(pkg, cluster):
     fd = pkg.frontdoor.FrontDoor(_factory(pkg), num_replicas=1, max_queue=4,
                                  default_deadline_s=5.0,

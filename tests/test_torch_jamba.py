@@ -9,6 +9,7 @@ import pytest
 torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
+from torch._subclasses.fake_tensor import FakeTensorMode  # noqa: E402
 
 from repro.configs import registry as jreg  # noqa: E402
 from repro.models import build_model as jax_build_model  # noqa: E402
@@ -20,6 +21,7 @@ from repro_torch.configs import registry  # noqa: E402
 from repro_torch.configs.base import DENSE, MAMBA  # noqa: E402
 from repro_torch.models import build_model, padded_vocab, ssm  # noqa: E402
 from repro_torch.serving.engine import Request, ServingEngine  # noqa: E402
+from repro_torch.tree import tree_leaves  # noqa: E402
 
 ARCH = "jamba-1.5-large-398b"
 # The cut chip_smoke.py serves: one Jamba group, dense FFNs, no experts.
@@ -95,10 +97,18 @@ def test_configs_are_the_reference_ones():
         8192, 16_384, 7, 65_536)
 
 
-def test_full_config_raises_naming_moe():
-    with pytest.raises(NotImplementedError, match="moe"):
-        build_model(registry.get_config(ARCH))
-    build_model(registry.get_config(ARCH).scaled(**CUT))
+def test_full_config_builds_with_the_reference_param_count():
+    """The full config, MoE layers included, builds; the port's init (on
+    fake tensors: no memory) has the reference's 398B parameters."""
+    cfg = registry.get_config(ARCH)
+    build_model(cfg)
+    shapes = jax.eval_shape(jax_build_model(jreg.get_config(ARCH)).init,
+                            jax.random.PRNGKey(0))
+    want = sum(math.prod(x.shape) for x in jax.tree.leaves(shapes))
+    with FakeTensorMode():
+        p = init_params(cfg, torch.Generator().manual_seed(0))
+        assert sum(x.numel() for x in tree_leaves(p)) == want
+    assert 397e9 < want < 400e9
 
 
 def test_mamba_layers_need_a_mamba_config():
@@ -328,3 +338,42 @@ def test_model_hands_the_kernel_what_it_takes(pair, monkeypatch, dtype):
     xdt = getattr(torch, dtype)
     assert calls == [(xdt, torch.float32, 8, False)] * 7 + \
         [(xdt, torch.float32, 1, True)] * 14
+
+
+# ------------------------------------------------- the smoke config, MoE on
+
+@pytest.fixture(scope="module")
+def moe_pair():
+    """(jax model, jax params, port model, port params): jamba's smoke
+    config as it is, MoE layers (4 experts, top-2, dense dispatch) in every
+    other layer, fp32."""
+    jcfg = jreg.get_smoke_config(ARCH).scaled(param_dtype="float32")
+    jm = jax_build_model(jcfg)
+    jp = jm.init(jax.random.PRNGKey(0))
+    tcfg = registry.get_smoke_config(ARCH).scaled(param_dtype="float32")
+    return jm, jp, build_model(tcfg), _t(jp)
+
+
+def test_smoke_with_moe_layers_matches_jax(moe_pair):
+    """Logits, loss and both aux losses of the whole model, then a prefill
+    of 24 tokens and 4 decode steps."""
+    jm, jp, tm, tp = moe_pair
+    assert "router" in tp["groups"][1]["ffn"]
+    tok = _tokens(4, 2, 28)
+    jloss, jaux = jm.loss_fn(jp, {"tokens": jnp.asarray(tok)})
+    tloss, taux = tm.loss_fn(tp, {"tokens": torch.from_numpy(tok).long()})
+    _close(tloss, jloss)
+    for k in ("moe_lb_loss", "moe_z_loss", "xent"):
+        _close(taux[k], jaux[k])
+    assert float(taux["moe_lb_loss"]) > 0
+    s = 24
+    jl, jc = jm.prefill(jp, {"tokens": jnp.asarray(tok[:, :s])}, max_seq=28)
+    tl, tc = tm.prefill(tp, {"tokens": torch.from_numpy(tok[:, :s]).long()},
+                        max_seq=28)
+    _close(tl, jl, **MODEL_TOL)
+    step = jax.jit(jm.decode_step)
+    for t in range(s, 28):
+        jl, jc = step(jp, jc, jnp.asarray(tok[:, t:t + 1]), jnp.int32(t))
+        tl, tc = tm.decode_step(tp, tc, torch.from_numpy(tok[:, t:t + 1]).long(),
+                                t)
+        _close(tl, jl, **MODEL_TOL)

@@ -11,7 +11,7 @@ from repro.configs.registry import get_smoke_config  # noqa: E402
 from repro.models import build_model as jax_build_model  # noqa: E402
 from repro_torch.bridge import params_from_numpy  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
-from repro_torch.configs.base import MLA, MOE  # noqa: E402
+from repro_torch.configs.base import MLA, MOE, SWA  # noqa: E402
 from repro_torch.models import build_model, padded_vocab  # noqa: E402
 
 TOL = dict(rtol=2e-3, atol=2e-3)
@@ -52,19 +52,41 @@ def test_smoke_config_is_the_reference_one():
 
 def test_registry_names_the_ported_arches():
     with pytest.raises(KeyError, match="ported: \\['jamba-1.5-large-398b', "
-                       "'stablelm-1.6b', 'xlstm-125m'\\]"):
+                       "'mixtral-8x22b', 'stablelm-1.6b', 'xlstm-125m'\\]"):
         registry.get_config("gemma3-12b")
 
 
 @pytest.mark.parametrize("override,name", [
     (dict(pattern=(MLA,)), "mla"),
-    (dict(ffn_pattern=(MOE,)), "moe"),
-    (dict(pattern=("swa",)), "swa"),
 ])
 def test_unported_kinds_raise(override, name):
     cfg = registry.get_smoke_config("stablelm-1.6b").scaled(**override)
     with pytest.raises(NotImplementedError, match=name):
         build_model(cfg)
+
+
+def test_moe_layers_need_a_moe_config():
+    cfg = registry.get_smoke_config("stablelm-1.6b").scaled(
+        ffn_pattern=(MOE,))
+    with pytest.raises(ValueError, match="MoE layers need cfg.moe"):
+        build_model(cfg)
+
+
+def test_swa_layers_pass_their_window(pair):
+    """SWA layers with a window that covers the sequence give the ATTN
+    model's logits; with a window of 4 they do not, and they equal JAX's
+    SWA model's."""
+    jm, jp, tm, tp = pair
+    tok = _tokens(7, 2, 12)
+    full, _ = tm.forward(tp, {"tokens": torch.from_numpy(tok).long()})
+    for window, same in ((12, True), (4, False)):
+        cfg = tm.cfg.scaled(pattern=(SWA,), window_size=window)
+        got, _ = build_model(cfg).forward(
+            tp, {"tokens": torch.from_numpy(tok).long()})
+        assert torch.allclose(got, full, atol=1e-5) == same, window
+    want, _ = jax_build_model(jm.cfg.scaled(pattern=("swa",), window_size=4)
+                              ).forward(jp, {"tokens": jnp.asarray(tok)})
+    _close(got, want)
 
 
 @pytest.mark.parametrize("window,causal,softcap", [

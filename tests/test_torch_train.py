@@ -28,7 +28,7 @@ from repro_torch.models import build_model  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.train import lm  # noqa: E402
 from repro_torch.train.train_step import make_eval_step, make_train_step  # noqa: E402
-from repro_torch.tree import tree_leaves  # noqa: E402
+from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -140,6 +140,34 @@ def test_adamw_and_cosine_match_jax_over_three_steps(state_dtype):
                        for t in tree_leaves(tst[key]))
             _close_trees(tst[key], jst[key], **OPT_TOL)
         assert int(tst["step"]) == int(jst["step"]) == step + 1
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_adamw_a_chunk_at_a_time_equals_whole_leaves(monkeypatch, dtype):
+    """The update and the norm in chunks of 4 elements (across leaf shapes
+    of 3 to 30 elements) give the whole-leaf step: the same elementwise
+    math, the norm's sum in another order (fp32 to 1e-6; bf16 params and
+    moments to one bf16 ulp, 2^-8)."""
+    tol = dict(rtol=1e-6, atol=1e-6) if dtype == "float32" else \
+        dict(rtol=2 ** -8, atol=2 ** -8)
+    cfg = adamw.AdamWConfig(lr=1e-2, grad_clip=0.5, state_dtype=dtype)
+    dt = getattr(torch, dtype)
+    out = []
+    for chunk in (adamw.CHUNK, 4):
+        monkeypatch.setattr(adamw, "CHUNK", chunk)
+        tp = tree_map(lambda t: t.to(dt), params_from_numpy(_tree(0, 1.0),
+                                                            "cpu"))
+        st = adamw.adamw_init(tp, dtype)
+        for step in range(2):
+            grads = tree_map(lambda t: t.to(dt),
+                             params_from_numpy(_tree(10 + step, 3.0), "cpu"))
+            tp, st, m = adamw.adamw_update(cfg, grads, st, tp, 1.0)
+        out.append((tp, st, m["grad_norm"]))
+    (p0, s0, n0), (p1, s1, n1) = out
+    torch.testing.assert_close(n1, n0, rtol=1e-6, atol=0)
+    for a, b in zip(tree_leaves((p1, s1["m"], s1["v"])),
+                    tree_leaves((p0, s0["m"], s0["v"]))):
+        torch.testing.assert_close(a, b, **tol)
 
 
 def test_adamw_updates_in_place():
