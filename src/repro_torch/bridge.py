@@ -18,12 +18,14 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.configs.base import (ATTN, DENSE, MAMBA, MLSTM, MOE, SLSTM,
-                                      SWA, ModelConfig)
-from repro_torch.models.attention import attention_init
+from repro_torch.configs.base import (ATTN, DENSE, MAMBA, MLA, MLSTM, MOE,
+                                      NONE, SLSTM, SWA, ModelConfig)
+from repro_torch.models.attention import (attention_init,
+                                          cross_attention_init, mla_init)
 from repro_torch.models.layers import (dense_init, embedding_init,
                                        rmsnorm_init, swiglu_init, torch_dtype)
-from repro_torch.models.model import check_supported, padded_vocab
+from repro_torch.models.model import (_dense_ffn_width, check_supported,
+                                      padded_vocab)
 from repro_torch.models.moe import moe_init
 from repro_torch.models.ssm import mamba_init
 from repro_torch.models.xlstm import mlstm_init, slstm_init
@@ -64,6 +66,28 @@ def params_to(tree: Any, device) -> Any:
     return tree_map(lambda t: t.to(device), tree)
 
 
+def _init_layer(cfg: ModelConfig, generator: torch.Generator, kind: str,
+                ffn: str, with_cross: bool, lead, device) -> dict:
+    """One layer subtree with the reference's nesting (`_init_layer`):
+    pre_norm, mixer, then cross_norm and cross, then post_norm and ffn."""
+    dt = torch_dtype(cfg.param_dtype)
+    mixer_init = {ATTN: attention_init, SWA: attention_init, MLA: mla_init,
+                  MAMBA: mamba_init, MLSTM: mlstm_init, SLSTM: slstm_init}
+    layer = {"pre_norm": rmsnorm_init(cfg.d_model, dt, device, lead),
+             "mixer": mixer_init[kind](generator, cfg, lead)}
+    if with_cross:
+        layer["cross_norm"] = rmsnorm_init(cfg.d_model, dt, device, lead)
+        layer["cross"] = cross_attention_init(generator, cfg, lead)
+    if ffn in (DENSE, MOE):
+        layer["post_norm"] = rmsnorm_init(cfg.d_model, dt, device, lead)
+    if ffn == DENSE:
+        layer["ffn"] = swiglu_init(generator, cfg.d_model,
+                                   cfg.d_ff or 4 * cfg.d_model, dt, lead)
+    elif ffn == MOE:
+        layer["ffn"] = moe_init(generator, cfg, lead)
+    return layer
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device=None) -> Any:
     """Random params with the reference's distributions (`Model.init`):
@@ -77,9 +101,17 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     [1e-3, 1e-1], `A_log` log(1..d_state) and `D` ones, the last four in
     fp32 whatever `param_dtype` is; for MoE layers the router fp32 normal *
     1/sqrt(d_model), the experts' `w_gate`/`w_up` (E,d,f) normal *
-    1/sqrt(d) and `w_down` (E,f,d) normal * 1/sqrt(f). Drawn in fp32
-    on `device`, which must be the generator's (default), and stored there
-    in `cfg.param_dtype`. Tied embeddings have no `lm_head`."""
+    1/sqrt(d) and `w_down` (E,f,d) normal * 1/sqrt(f); for MLA layers
+    `w_uk`/`w_uv` (kv_lora_rank, h, e) normal * 1/sqrt(kv_lora_rank) and
+    the `q_norm`/`kv_norm` scales ones. The `first` layers (a list) take
+    `pattern[0]`'s mixer and a dense FFN of `_dense_ffn_width`; an
+    encoder-decoder has the `encoder` subtree (`layers` stacked along
+    `encoder_layers`: attention and dense FFN, no cross) and every decoder
+    layer `cross_norm`/`cross`; `frames` input has `frame_proj`
+    (frame_dim or d_model, d_model), `tokens+image` `img_proj` (d_model,
+    d_model). Drawn in fp32 on `device`, which must be the generator's
+    (default), and stored there in `cfg.param_dtype`. Tied embeddings have
+    no `lm_head`."""
     check_supported(cfg)
     device = generator.device if device is None else torch.device(device)
     if device.type != generator.device.type:
@@ -87,24 +119,33 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                          f"on {device}: draw them where they will live")
     dt = torch_dtype(cfg.param_dtype)
     vp = padded_vocab(cfg)
-    lead = (cfg.num_groups,)
+    with_cross = cfg.encoder_layers > 0
     p = {"embed": embedding_init(generator, vp, cfg.d_model, dt),
          "final_norm": rmsnorm_init(cfg.d_model, dt, device)}
     if not cfg.tie_embeddings:
         p["lm_head"] = dense_init(generator, cfg.d_model, vp, dt)
-    mixer_init = {ATTN: attention_init, SWA: attention_init, MAMBA: mamba_init,
-                  MLSTM: mlstm_init, SLSTM: slstm_init}
-    groups = []
-    for kind, ffn in zip(cfg.pattern, cfg.ffn_pattern):
-        layer = {"pre_norm": rmsnorm_init(cfg.d_model, dt, device, lead),
-                 "mixer": mixer_init[kind](generator, cfg, lead)}
-        if ffn in (DENSE, MOE):
-            layer["post_norm"] = rmsnorm_init(cfg.d_model, dt, device, lead)
-        if ffn == DENSE:
+    if cfg.input_mode == "frames":
+        p["frame_proj"] = dense_init(generator, cfg.frame_dim or cfg.d_model,
+                                     cfg.d_model, dt)
+    if cfg.input_mode == "tokens+image":
+        p["img_proj"] = dense_init(generator, cfg.d_model, cfg.d_model, dt)
+    p["groups"] = tuple(
+        _init_layer(cfg, generator, kind, ffn, with_cross, (cfg.num_groups,),
+                    device)
+        for kind, ffn in zip(cfg.pattern, cfg.ffn_pattern))
+    if cfg.first_k_dense:
+        first = []
+        for _ in range(cfg.first_k_dense):
+            layer = _init_layer(cfg, generator, cfg.pattern[0], NONE,
+                                with_cross, (), device)
+            layer["post_norm"] = rmsnorm_init(cfg.d_model, dt, device)
             layer["ffn"] = swiglu_init(generator, cfg.d_model,
-                                       cfg.d_ff or 4 * cfg.d_model, dt, lead)
-        elif ffn == MOE:
-            layer["ffn"] = moe_init(generator, cfg, lead)
-        groups.append(layer)
-    p["groups"] = tuple(groups)
+                                       _dense_ffn_width(cfg), dt)
+            first.append(layer)
+        p["first"] = first
+    if cfg.encoder_layers:
+        p["encoder"] = {
+            "layers": _init_layer(cfg, generator, ATTN, DENSE, False,
+                                  (cfg.encoder_layers,), device),
+            "final_norm": rmsnorm_init(cfg.d_model, dt, device)}
     return p

@@ -23,9 +23,13 @@
 //   - One block per (head, batch, q-tile of 128 rows); q-tiles are the
 //     slowest grid axis, longest causal tiles first. A warp owns whole rows
 //     (32 at hd 32 and 64, sharing each K and V fragment between two m16
-//     tiles; 16 at hd 128), so row max and row sum stay in the warp (two
-//     quad shuffles); 2 blocks an SM at hd 64 and 128. `Config` holds the
-//     tile shapes of each head dim.
+//     tiles; 16 at hd 128, 192 and 256), so row max and row sum stay in the
+//     warp (two quad shuffles); 2 blocks an SM at hd 64 and 128, one at 192
+//     (150 KB of shared memory) and 256 (198 KB). `Config` holds the tile
+//     shapes of each head dim. Head dims 192 (deepseek-v2's MLA queries and
+//     keys, nope 128 + rope 64; its 128-wide values come zero-padded) and
+//     256 (gemma3) keep a warp's output, HD/8 n-tiles of 16 rows, in 96 and
+//     128 fp32 registers a thread.
 //   - q, K and V come in by cp.async, 16 bytes a thread, into shared rows
 //     padded by 16 bytes (ldmatrix's 8 row addresses then fall in 8
 //     distinct groups of 4 banks). K and V sit in a ring of 2 stages: the
@@ -57,8 +61,8 @@
 //   parity runs the model in fp32 and needs full fp32 products (no TF32),
 //   so q, K and V are staged in shared memory as fp32 with a padded row
 //   stride, scores and P.V are fp32 FMAs on the CUDA cores, 4 rows x 8
-//   columns a thread, and P goes through shared memory. It runs at the fp32
-//   CUDA-core rate.
+//   columns a thread (2 rows at hd 192 and 256, `F32Rows`), and P goes
+//   through shared memory. It runs at the fp32 CUDA-core rate.
 //
 // Both take ragged S and T (the serve path's prompts are 8 to 64 tokens):
 // rows past S are not stored and keys past T get weight exactly 0, where the
@@ -77,11 +81,19 @@
 
 namespace {
 
-constexpr int BQ = 64;        // q rows per block
 constexpr int BK = 64;        // kv columns per tile
 constexpr int NT = 128;       // threads per block: 16 row groups x 8 lanes
 constexpr int LDP = BK + 1;   // padded row stride of the P tile
 constexpr float kMaskValue = -1e30f;
+
+// fp32 path: q rows a thread, and so 16 ROWS q rows a block. A thread
+// accumulates ROWS x HD/8 outputs: 4 rows up to hd 128 (64 fp32
+// accumulators at 128). Above it 4 rows would take 96 and 128 of the 255
+// registers beside the scores, operands and addresses: 2 rows (48 and 64).
+template <int HD> struct F32Rows {
+  static constexpr int ROWS = HD > 128 ? 2 : 4;
+  static constexpr int BQ = 16 * ROWS;
+};
 
 struct Args {
   const void* q;
@@ -116,19 +128,22 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(
 
 template <int HD>
 constexpr size_t smem_bytes() {
+  constexpr int BQ = F32Rows<HD>::BQ;
   return sizeof(float) * (size_t(BQ) * (HD + 1) + 2 * size_t(BK) * (HD + 1) +
                           size_t(BQ) * LDP);
 }
 
-// Thread layout: tid = ty * 8 + tx. A thread owns q rows ty*4 .. ty*4+3 of
-// the tile, score columns tx + 8j (j < 8) and output channels tx + 8c
-// (c < HD/8). The 8 lanes that share a row group sit in one warp, so row
-// max and row sum reduce with three xor-shuffles.
+// Thread layout: tid = ty * 8 + tx. A thread owns q rows ty*R .. ty*R+R-1
+// of the tile (R = F32Rows<HD>::ROWS), score columns tx + 8j (j < 8) and
+// output channels tx + 8c (c < HD/8). The 8 lanes that share a row group
+// sit in one warp, so row max and row sum reduce with three xor-shuffles.
 template <typename T, int HD>
 __global__ void __launch_bounds__(NT) flash_fwd_kernel(Args a) {
   static_assert(HD % 32 == 0, "head_dim must be a multiple of 32");
   constexpr int LD = HD + 1;
   constexpr int NC = HD / 8;
+  constexpr int R = F32Rows<HD>::ROWS;
+  constexpr int BQ = F32Rows<HD>::BQ;
   extern __shared__ float smem[];
   float* Qs = smem;               // BQ x LD
   float* Ks = Qs + BQ * LD;       // BK x LD
@@ -160,9 +175,9 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(Args a) {
   const int kv_lo = a.window > 0 ? max(0, q0 - a.window + 1) : 0;
   const int kv_hi = a.causal ? min(a.T, q_end) : a.T;
 
-  float m[4], l[4], acc[4][NC];
+  float m[R], l[R], acc[R][NC];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < R; ++i) {
     m[i] = kMaskValue;
     l[i] = 0.f;
 #pragma unroll
@@ -179,27 +194,27 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(Args a) {
     }
     __syncthreads();
 
-    float s[4][8];
+    float s[R][8];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < R; ++i)
 #pragma unroll
       for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
 #pragma unroll 8
     for (int d = 0; d < HD; ++d) {
-      float qv[4], kv[8];
+      float qv[R], kv[8];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = Qs[(ty * 4 + i) * LD + d];
+      for (int i = 0; i < R; ++i) qv[i] = Qs[(ty * R + i) * LD + d];
 #pragma unroll
       for (int j = 0; j < 8; ++j) kv[j] = Ks[(tx + 8 * j) * LD + d];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < R; ++i)
 #pragma unroll
         for (int j = 0; j < 8; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
     }
 
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qi = q0 + ty * 4 + i;
+    for (int i = 0; i < R; ++i) {
+      const int qi = q0 + ty * R + i;
       float row_max = -INFINITY;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
@@ -226,7 +241,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(Args a) {
       for (int j = 0; j < 8; ++j) {
         const float p = expf(s[i][j] - m_new);
         row_sum += p;
-        Ps[(ty * 4 + i) * LDP + tx + 8 * j] = p;
+        Ps[(ty * R + i) * LDP + tx + 8 * j] = p;
       }
 #pragma unroll
       for (int off = 1; off < 8; off <<= 1)
@@ -240,13 +255,13 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(Args a) {
 
 #pragma unroll 4
     for (int j = 0; j < BK; ++j) {
-      float pv[4], vv[NC];
+      float pv[R], vv[NC];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = Ps[(ty * 4 + i) * LDP + j];
+      for (int i = 0; i < R; ++i) pv[i] = Ps[(ty * R + i) * LDP + j];
 #pragma unroll
       for (int c = 0; c < NC; ++c) vv[c] = Vs[j * LD + tx + 8 * c];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < R; ++i)
 #pragma unroll
         for (int c = 0; c < NC; ++c) acc[i][c] = fmaf(pv[i], vv[c], acc[i][c]);
     }
@@ -254,8 +269,8 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(Args a) {
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + ty * 4 + i;
+  for (int i = 0; i < R; ++i) {
+    const int qi = q0 + ty * R + i;
     if (qi < a.S) {
       const float denom = fmaxf(l[i], 1e-30f);
 #pragma unroll
@@ -268,12 +283,14 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(Args a) {
 template <typename T, int HD>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<HD>();
+  static_assert(smem <= 232448, "shared memory beyond a block's 227 KB");
   // Above 48 KB dynamic shared memory must be opted into, once per
   // instantiation.
   static const cudaError_t attr = cudaFuncSetAttribute(
       flash_fwd_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       int(smem));
   if (attr != cudaSuccess) return attr;
+  constexpr int BQ = F32Rows<HD>::BQ;
   const dim3 grid((a.S + BQ - 1) / BQ, a.H, a.B);
   flash_fwd_kernel<T, HD><<<grid, NT, smem, stream>>>(a);
   return cudaGetLastError();
@@ -285,6 +302,8 @@ cudaError_t dispatch_head_dim(const Args& a, int hd, cudaStream_t stream) {
     case 32: return launch<T, 32>(a, stream);
     case 64: return launch<T, 64>(a, stream);
     case 128: return launch<T, 128>(a, stream);
+    case 192: return launch<T, 192>(a, stream);
+    case 256: return launch<T, 256>(a, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -315,6 +334,17 @@ template <> struct Config<64> {
 };
 template <> struct Config<128> {
   static constexpr int MI = 1, BKV = 64, WARPS = 8, MIN_BLOCKS = 2;
+  static constexpr bool Q_REGS = false;
+};
+// hd 192 (MLA's nope + rope) and 256 (gemma3): one block an SM. A warp's
+// 16 rows hold NO = HD/8 output n-tiles, 96 and 128 fp32 registers a
+// thread, beside BKV/2 of scores: q is read again at each k-step.
+template <> struct Config<192> {
+  static constexpr int MI = 1, BKV = 64, WARPS = 8, MIN_BLOCKS = 1;
+  static constexpr bool Q_REGS = false;
+};
+template <> struct Config<256> {
+  static constexpr int MI = 1, BKV = 64, WARPS = 8, MIN_BLOCKS = 1;
   static constexpr bool Q_REGS = false;
 };
 
@@ -597,6 +627,7 @@ __global__ void __launch_bounds__(Layout<HD>::THREADS,
 template <int HD>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   using L = Layout<HD>;
+  static_assert(L::bytes <= 232448, "shared memory beyond a block's 227 KB");
   static const cudaError_t attr = cudaFuncSetAttribute(
       flash_fwd_mma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       int(L::bytes));
@@ -611,6 +642,8 @@ cudaError_t dispatch_head_dim(const Args& a, int hd, cudaStream_t stream) {
     case 32: return launch<32>(a, stream);
     case 64: return launch<64>(a, stream);
     case 128: return launch<128>(a, stream);
+    case 192: return launch<192>(a, stream);
+    case 256: return launch<256>(a, stream);
     default: return cudaErrorInvalidValue;
   }
 }

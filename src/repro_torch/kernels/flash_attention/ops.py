@@ -4,7 +4,10 @@ A CPU tensor goes to the plain version (`ref.attention_ref`). A CUDA tensor
 launches the Hopper kernel (`csrc/flash_attention.cu`) or raises: there is
 no fallback on the card. bf16 runs on the tensor cores (`mma.sync`, every
 row start 16-byte aligned for its `cp.async` copies), fp32 on the CUDA
-cores. `flash_attention.launches` counts kernel launches.
+cores, each at head_dim 32, 64, 128, 192 (MLA's queries and keys) and 256
+(gemma3); any other head_dim raises on the card. q, k and v share one
+head_dim: MLA pads its values to it. `flash_attention.launches` counts
+kernel launches.
 
 The kernel is a forward only, as the Pallas kernel is. Where autograd needs
 a gradient on the card, `_FlashAttention` runs the kernel forward and gets
@@ -22,11 +25,14 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128)
-# The paths each dtype takes on the card (chip_smoke.py names them).
+HEAD_DIMS = (32, 64, 128, 192, 256)
+# The paths each dtype takes on the card (chip_smoke.py names them); each
+# takes every head dim of HEAD_DIMS.
 PATHS = {torch.float32: "cuda-core fp32", torch.bfloat16: "mma.sync bf16"}
-# q rows a block, the smaller of the two kernels' (fp32 64, bf16 128): the
-# bf16 kernel's q-tiles are its grid's z axis, at most 65535
+# q rows a block for the grid check below: the bf16 kernel's q-tiles of 128
+# rows are its grid's z axis, at most 65535, and 64 keeps the check on the
+# safe side (the fp32 kernel's tiles, 64 rows or 32 above hd 128, are its
+# grid's x axis, unbounded here)
 BQ = 64
 
 _LAUNCHES_LOCK = threading.Lock()

@@ -91,6 +91,10 @@ def mlstm_scan_ref(q, k, v, log_i, log_f, state: Optional[State] = None, *,
     return y, state
 
 
+# log2(e) as the kernels' fp32 constant kLog2e
+LOG2E = torch.tensor(1.4426950408889634, dtype=torch.float32)
+
+
 def _bf16(x):
     """x rounded to bf16 (nearest even), kept in fp32."""
     return x.to(torch.bfloat16).float()
@@ -108,16 +112,23 @@ def mlstm_scan_two_pass_ref(q, k, v, log_i, log_f,
     hi + mid + lo = a to about 2^-24 of a (two parts leave 2^-16, which
     costs C up to 3e-5 of its 1e-4 tolerance at S = 200), whose products
     with v the kernel sums in fp32 on the tensor cores; n sums a in fp32.
-    Pass (b), every chunk at once from its recorded start: the scores
-    q k^T in fp32 from the inputs, scaled after the product; the decay
-    weights; q C from the chunk-start C rounded to bf16; q n in fp32; the
+    Pass (b), every chunk at once from its recorded start, in the
+    kernel's order and base: the scores q k^T in fp32 from the inputs,
+    times the fp32 scale 1/sqrt(hd) after the product; the decay weights
+    as 2^(fma(logd, log2 e, -m log2 e)), one rounding of the exponent, as
+    the kernel's ex2 takes them (P = (S scale) 2^(...)); q C from the
+    chunk-start C rounded to bf16, times (scale w_state); q n in fp32; the
     weighted scores P summed in fp32 for the denominator and rounded to
     bf16 for P v. Rows past S (the ragged last chunk) are zero with
-    log_i = -inf and log_f = 0, so they add nothing."""
+    log_i = -inf and log_f = 0, so they add nothing. What it cannot copy:
+    the order of the fp32 sums inside the kernel's mma tiles, and ex2's
+    approximation (2 ulp), each of which may tip a P or chunk-start C entry
+    to the neighbouring bf16 value."""
     b, h, s, hd = q.shape
     if state is None:
         state = zero_state(b, h, hd, q.device)
-    scale = 1.0 / math.sqrt(hd)
+    # the kernel's 1.0f / sqrtf(float(HD)): fp32, each step rounded once
+    scale = torch.tensor(float(hd), device=q.device).sqrt().reciprocal()
     nc = -(-s // chunk)
     pad = nc * chunk - s
 
@@ -156,18 +167,22 @@ def mlstm_scan_two_pass_ref(q, k, v, log_i, log_f,
 
     # (b) every chunk's rows from its start
     sc = torch.einsum("bhcid,bhcjd->bhcij", qf, kf) * scale
-    qc = torch.einsum("bhcid,bhcde->bhcie", qf, _bf16(c0)) * scale
+    qc = torch.einsum("bhcid,bhcde->bhcie", qf, _bf16(c0))
     qn = torch.einsum("bhcid,bhcd->bhci", qf, n0) * scale
     logd = bcum[..., :, None] - bcum[..., None, :] + li[..., None, :]
     tri = torch.ones(chunk, chunk, dtype=torch.bool, device=q.device).tril()
     logd = torch.where(tri, logd, -math.inf)
     m_row = torch.maximum(logd.amax(dim=-1), bcum + m0[..., None])
-    p = sc * torch.exp(logd - m_row[..., None])
+    # fmaf(logd, log2e, -m log2e) in fp32: the product of two fp32 numbers
+    # is exact in fp64, so one rounding to fp32 after the sum
+    ml2 = m_row * LOG2E
+    expo = (logd.double() * LOG2E.double() - ml2.double()[..., None]).float()
+    p = sc * torch.exp2(expo)
     w_state = torch.exp(bcum + m0[..., None] - m_row)
     den = torch.maximum((p.sum(dim=-1) + w_state * qn).abs(),
                         torch.exp(-m_row))
     num = (torch.einsum("bhcij,bhcje->bhcie", _bf16(p), vf)
-           + w_state[..., None] * qc)
+           + qc * (scale * w_state)[..., None])
     y = (num / den[..., None]).flatten(2, 3)[:, :, :s]
     return y.to(q.dtype), (c_mat, n_vec, m_run)
 

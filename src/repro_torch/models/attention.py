@@ -1,16 +1,25 @@
-"""GQA attention: the port of the GQA path of `repro.models.attention`.
+"""Attention mixers: GQA (global / sliding-window), MLA, cross-attention.
+The port of `repro.models.attention`.
 
 Entry points, as in the reference:
-  attention_forward   full-sequence (train and prefill)
-  attention_prefill   full-sequence + builds the decode cache
-  attention_decode    single-token step against the cache
+  attention_forward / mla_forward        full-sequence (train and prefill)
+  attention_prefill / mla_prefill        full-sequence + the decode cache
+  attention_decode / mla_decode          single-token step against the cache
+  cross_attention_forward                decoder rows over encoder keys
+  cross_attention_decode                 one row over the cross cache
+  encode_cross_kv                        the encoder's keys and values
 
 Full-sequence attention goes through `kernels.flash_attention`: on the card
-the Hopper kernel, on the CPU its plain version. Decode attention over the
-cache has no Pallas counterpart and stays plain torch (`naive_sdpa`).
-Caches for sliding-window layers are ring buffers of size `window` with
-per-slot absolute positions; `slot_pos == -1` marks a free slot.
-`blockwise_sdpa`, MLA and cross-attention wait for later slices.
+the Hopper kernel, on the CPU its plain version. That covers encoder
+self-attention and cross-attention (`causal=False`, S decoder rows over T
+encoder rows) and MLA's prefill, whose values are zero-padded to the
+192-wide head of its queries and keys. Decode attention over a cache has no
+Pallas counterpart and stays plain torch, as the reference computes it
+outside its kernel: `naive_sdpa` over the GQA and cross caches, MLA's
+absorbed einsums over the latent cache. Caches for sliding-window layers
+are ring buffers of size `window` with per-slot absolute positions;
+`slot_pos == -1` marks a free slot. The reference's `blockwise_sdpa` has no
+counterpart: full-sequence attention takes the kernel instead.
 """
 from __future__ import annotations
 
@@ -18,10 +27,12 @@ import math
 from typing import Any, Dict, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.models.layers import apply_rope, dense_init, l2norm, torch_dtype
+from repro_torch.models.layers import (apply_rope, dense_init, l2norm,
+                                       rmsnorm, torch_dtype)
 
 Params = Dict[str, Any]
 NEG_INF = -1e30
@@ -39,6 +50,11 @@ def attention_init(gen: torch.Generator, cfg: ModelConfig,
         "w_v": dense_init(gen, d, kv * hd, dt, lead),
         "w_o": dense_init(gen, h * hd, d, dt, lead),
     }
+
+
+def cross_attention_init(gen: torch.Generator, cfg: ModelConfig,
+                         lead: Tuple[int, ...] = ()) -> Params:
+    return attention_init(gen, cfg, lead)
 
 
 # ========================================================== core softmax op
@@ -89,8 +105,8 @@ def _self_attention(cfg: ModelConfig, q, k, v, *, window: int,
     if cfg.attn_logit_softcap:
         if q.is_cuda:
             raise NotImplementedError(
-                "attn_logit_softcap != 0 has no Hopper kernel yet "
-                "(gemma3's slice)")
+                "attn_logit_softcap != 0 has no Hopper kernel yet: no "
+                "config sets it")
         pos = torch.arange(S, device=q.device)
         qg = q.reshape(B, S, cfg.num_kv_heads, cfg.q_per_kv, cfg.head_dim)
         out = sdpa(qg, k, v, pos, pos, window=window, causal=causal,
@@ -185,4 +201,188 @@ def attention_decode(params: Params, cfg: ModelConfig, x, cache: Params,
                      window=window, causal=True,
                      softcap=cfg.attn_logit_softcap)
     out = out.reshape(B, 1, cfg.num_heads * cfg.head_dim)
+    return out @ params["w_o"], cache
+
+
+# ========================================================== cross-attention
+
+def cross_attention_forward(params: Params, cfg: ModelConfig, x,
+                            enc_kv: Params) -> torch.Tensor:
+    """x: (B,S,d) decoder states; enc_kv: dict(k, v) of (B,T,kv,hd). Every
+    row sees every key (the reference's `causal=False` with no window), so
+    this is the flash kernel non-causal, S rows over T keys."""
+    B, S, _ = x.shape
+    q = (x @ params["w_q"]).reshape(B, S, cfg.num_heads, cfg.head_dim)
+    out = flash_attention(q.transpose(1, 2), enc_kv["k"].transpose(1, 2),
+                          enc_kv["v"].transpose(1, 2), causal=False)
+    out = out.transpose(1, 2).reshape(B, S, cfg.num_heads * cfg.head_dim)
+    return out @ params["w_o"]
+
+
+def cross_attention_decode(params: Params, cfg: ModelConfig, x,
+                           enc_kv: Params) -> torch.Tensor:
+    """One decoder row over the cross cache (B,max_seq,kv,hd), plain torch
+    as the reference's decode computes it: every slot is attended,
+    including the zero keys and values that pad an encoder shorter than
+    `max_seq` (the reference's `kv_pos = arange(T)`, `causal=False`)."""
+    B, S, _ = x.shape
+    q = (x @ params["w_q"]).reshape(B, S, cfg.num_kv_heads, cfg.q_per_kv,
+                                    cfg.head_dim)
+    T = enc_kv["k"].shape[1]
+    kv_pos = torch.arange(T, device=x.device)
+    out = naive_sdpa(q, enc_kv["k"], enc_kv["v"],
+                     torch.full((S,), T - 1, device=x.device), kv_pos,
+                     causal=False)
+    out = out.reshape(B, S, cfg.num_heads * cfg.head_dim)
+    return out @ params["w_o"]
+
+
+def encode_cross_kv(params: Params, cfg: ModelConfig, enc_out) -> Params:
+    B, T, _ = enc_out.shape
+    kv, hd = cfg.num_kv_heads, cfg.head_dim
+    return {"k": (enc_out @ params["w_k"]).reshape(B, T, kv, hd),
+            "v": (enc_out @ params["w_v"]).reshape(B, T, kv, hd)}
+
+
+# ===================================================================== MLA
+
+def _latent_init(gen: torch.Generator, r: int, h: int, e: int, dtype,
+                 lead: Tuple[int, ...]) -> torch.Tensor:
+    """(r, h, e) normal * 1/sqrt(r), drawn in fp32: `w_uk` and `w_uv`, kept
+    3-D so the decode path can absorb them per head."""
+    w = torch.randn(*lead, r, h, e, generator=gen, device=gen.device,
+                    dtype=torch.float32)
+    return (w / math.sqrt(r)).to(dtype)
+
+
+def mla_init(gen: torch.Generator, cfg: ModelConfig,
+             lead: Tuple[int, ...] = ()) -> Params:
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.num_heads
+    dt = torch_dtype(cfg.param_dtype)
+    qk_dim = m.nope_head_dim + m.rope_head_dim
+    dev = gen.device
+    return {
+        "w_dq": dense_init(gen, d, m.q_lora_rank, dt, lead),
+        "q_norm": {"scale": torch.ones(*lead, m.q_lora_rank, dtype=dt,
+                                       device=dev)},
+        "w_uq": dense_init(gen, m.q_lora_rank, h * qk_dim, dt, lead),
+        "w_dkv": dense_init(gen, d, m.kv_lora_rank, dt, lead),
+        "kv_norm": {"scale": torch.ones(*lead, m.kv_lora_rank, dtype=dt,
+                                        device=dev)},
+        "w_kr": dense_init(gen, d, m.rope_head_dim, dt, lead),
+        "w_uk": _latent_init(gen, m.kv_lora_rank, h, m.nope_head_dim, dt,
+                             lead),
+        "w_uv": _latent_init(gen, m.kv_lora_rank, h, m.v_head_dim, dt, lead),
+        "w_o": dense_init(gen, h * m.v_head_dim, d, dt, lead),
+    }
+
+
+def _mla_q(params: Params, cfg: ModelConfig, x, positions):
+    m = cfg.mla
+    B, S, _ = x.shape
+    cq = rmsnorm(params["q_norm"], x @ params["w_dq"])
+    q = (cq @ params["w_uq"]).reshape(B, S, cfg.num_heads,
+                                      m.nope_head_dim + m.rope_head_dim)
+    q_nope, q_rope = q[..., :m.nope_head_dim], q[..., m.nope_head_dim:]
+    return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
+
+
+def _mla_ckv(params: Params, cfg: ModelConfig, x, positions):
+    c_kv = rmsnorm(params["kv_norm"], x @ params["w_dkv"])
+    k_rope = (x @ params["w_kr"])[:, :, None, :]              # (B,S,1,rope)
+    return c_kv, apply_rope(k_rope, positions, cfg.rope_theta)[:, :, 0, :]
+
+
+def mla_forward(params: Params, cfg: ModelConfig, x) -> torch.Tensor:
+    """Unabsorbed (train/prefill) MLA: K and V expanded per head (no KV
+    grouping), causal attention through the flash wrapper at head_dim
+    nope + rope. V's v_head_dim columns are zero-padded to that width for
+    the kernel, which takes one head_dim for q, k and v, and the output's
+    first v_head_dim columns kept: exact, since the padded columns weigh
+    nothing and the scale is 1/sqrt(nope + rope) either way."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    h = cfg.num_heads
+    positions = torch.arange(S, device=x.device)
+    q_nope, q_rope = _mla_q(params, cfg, x, positions)
+    c_kv, k_rope = _mla_ckv(params, cfg, x, positions)
+    k_nope = torch.einsum("bsr,rhe->bshe", c_kv, params["w_uk"])
+    v = torch.einsum("bsr,rhe->bshe", c_kv, params["w_uv"])
+    q = torch.cat([q_nope, q_rope], dim=-1)                  # (B,S,h,qk)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        B, S, h, m.rope_head_dim)], dim=-1)
+    qk_dim = q.shape[-1]
+    v = F.pad(v, (0, qk_dim - m.v_head_dim))
+    out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                          v.transpose(1, 2), causal=True)
+    out = out.transpose(1, 2)[..., :m.v_head_dim]
+    return out.reshape(B, S, h * m.v_head_dim) @ params["w_o"]
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
+                   device=None, lead: Tuple[int, ...] = ()) -> Params:
+    m = cfg.mla
+    dt = dtype or torch_dtype(cfg.param_dtype)
+    return {
+        "c_kv": torch.zeros((*lead, batch, max_seq, m.kv_lora_rank), dtype=dt,
+                            device=device),
+        "k_rope": torch.zeros((*lead, batch, max_seq, m.rope_head_dim),
+                              dtype=dt, device=device),
+        "slot_pos": torch.full((*lead, max_seq), -1, dtype=torch.int32,
+                               device=device),
+    }
+
+
+def mla_prefill(params: Params, cfg: ModelConfig, x, *, max_seq: int = 0
+                ) -> Tuple[torch.Tensor, Params]:
+    B, S, _ = x.shape
+    max_seq = max_seq or S
+    out = mla_forward(params, cfg, x)
+    positions = torch.arange(S, device=x.device)
+    c_kv, k_rope = _mla_ckv(params, cfg, x, positions)
+    cache = init_mla_cache(cfg, B, max_seq, dtype=c_kv.dtype, device=x.device)
+    cache["c_kv"][:, :S] = c_kv
+    cache["k_rope"][:, :S] = k_rope
+    cache["slot_pos"][:S] = positions.to(torch.int32)
+    return out, cache
+
+
+def mla_decode(params: Params, cfg: ModelConfig, x, cache: Params,
+               pos: Union[int, torch.Tensor]) -> Tuple[torch.Tensor, Params]:
+    """One token against the latent cache, which is written in place.
+    Absorbed (`cfg.mla.absorb_decode`): attention runs in the latent space,
+    q absorbed through W_UK and the context expanded through W_UV after, so
+    a token's cache traffic is kv_lora + rope. Unabsorbed: K and V expanded
+    per head from the cache, then `naive_sdpa`."""
+    m = cfg.mla
+    B = x.shape[0]
+    h = cfg.num_heads
+    pos = int(pos)
+    pos1 = torch.full((1,), pos, dtype=torch.int64, device=x.device)
+    q_nope, q_rope = _mla_q(params, cfg, x, pos1)               # (B,1,h,*)
+    c_kv_new, k_rope_new = _mla_ckv(params, cfg, x, pos1)
+    cache["c_kv"][:, pos] = c_kv_new[:, 0]
+    cache["k_rope"][:, pos] = k_rope_new[:, 0]
+    cache["slot_pos"][pos] = pos
+    c_kv, k_rope, slot_pos = cache["c_kv"], cache["k_rope"], cache["slot_pos"]
+
+    if m.absorb_decode:
+        q_c = torch.einsum("bqhe,rhe->bqhr", q_nope, params["w_uk"])
+        s = (torch.einsum("bqhr,btr->bhqt", q_c.float(), c_kv.float())
+             + torch.einsum("bqhe,bte->bhqt", q_rope.float(), k_rope.float()))
+        s = s / math.sqrt(m.nope_head_dim + m.rope_head_dim)
+        s = s + _mask_bias(pos1, slot_pos, 0, True)[None, None]
+        w = torch.softmax(s, dim=-1).to(x.dtype)
+        ctx_c = torch.einsum("bhqt,btr->bqhr", w, c_kv)          # latent ctx
+        out = torch.einsum("bqhr,rhe->bqhe", ctx_c, params["w_uv"])
+    else:
+        k_nope = torch.einsum("btr,rhe->bthe", c_kv, params["w_uk"])
+        v = torch.einsum("btr,rhe->bthe", c_kv, params["w_uv"])
+        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+            *k_nope.shape[:3], m.rope_head_dim)], dim=-1)
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        out = naive_sdpa(q[:, :, :, None, :], k, v, pos1, slot_pos,
+                         causal=True)
+    out = out.reshape(B, 1, h * m.v_head_dim)
     return out @ params["w_o"], cache

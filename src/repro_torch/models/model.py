@@ -1,17 +1,26 @@
-"""The decoder model: the port of `repro.models.model` for the mixer kinds
-attention (GQA), sliding-window attention, Mamba, sLSTM and mLSTM, with
-dense (SwiGLU), MoE or no FFN: stablelm-1.6b's `(ATTN,)`/`(DENSE,)`,
-xlstm-125m's `(SLSTM, MLSTM)`/`(NONE, NONE)`, mixtral-8x22b's
-`(SWA,)`/`(MOE,)` and jamba's 8-layer group of 7 Mamba layers and one
-attention layer with dense and MoE FFNs in turn. On the card the attention
-layers' full-sequence forward runs the flash attention kernel, the mLSTM
-layers the mlstm_scan kernel and the Mamba layers the ssm_scan kernel.
+"""The unified model: the port of `repro.models.model`. Every architecture of
+the reference's registry is an instance of this composable decoder,
+optionally with an encoder stack and a modality input.
+
+Mixer kinds: attention (GQA), sliding-window attention, MLA, Mamba, sLSTM
+and mLSTM. FFN kinds: dense (SwiGLU), MoE, none. `first_k_dense` leading
+layers take `pattern[0]`'s mixer and a dense FFN of `_dense_ffn_width`
+(deepseek-v2). An encoder (`encoder_layers > 0`, seamless-m4t) runs
+non-causal attention layers over projected `frames`, and every decoder
+layer cross-attends to its output. `tokens+image` inputs (internvl2) put
+projected image embeddings before the token embeddings. On the card the
+attention layers' full-sequence forward (self, encoder, cross and MLA) runs
+the flash attention kernel, the mLSTM layers the mlstm_scan kernel and the
+Mamba layers the ssm_scan kernel.
 
 Params keep the reference's nesting: `embed.table`, `final_norm.scale`,
-`lm_head` (absent with tied embeddings), and `groups`, a tuple with one
+`lm_head` (absent with tied embeddings), `frame_proj` / `img_proj`, `first`
+(a list of layer subtrees), `encoder` (`layers`, stacked along a leading
+`encoder_layers` axis, and `final_norm`), and `groups`, a tuple with one
 layer subtree per pattern entry whose leaves are stacked along a leading
-`num_groups` axis. A Python loop over that axis takes the place of the
-reference's `lax.scan`. The decode cache is stacked the same way.
+`num_groups` axis. A Python loop over those axes takes the place of the
+reference's `lax.scan`. The decode cache is nested the same way (`first`,
+`groups`); an encoder-decoder's layer caches hold `cross_k`/`cross_v`.
 
 Public surface:
     model = build_model(cfg)
@@ -21,27 +30,33 @@ Public surface:
     logits, cache = model.decode_step(params, cache, tokens, pos)
     cache = model.init_cache(batch_size, max_seq, device)
 
-MoE layers add their aux losses across layers in `forward` and `loss_fn`;
-prefill and decode drop them, as the reference does. MLA, the encoder,
-modality inputs, `first_k_dense` layers and the chunked loss raise
-`NotImplementedError` until their slices.
+`batch` holds `tokens`, and `frames` (B,T,frame_dim) for `frames` input or
+`image_embeds` (B,num_image_tokens,d) for `tokens+image`. MoE layers add
+their aux losses across layers in `forward` and `loss_fn`; prefill and
+decode drop them, as the reference does. Vocabularies of
+`CHUNKED_LOSS_VOCAB` and up take the chunked loss above 1024 positions.
+The reference's `remat_policy` is not ported: autograd keeps every
+activation.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import (ATTN, DENSE, MAMBA, MLSTM, MOE, NONE,
-                                      SLSTM, SWA, ModelConfig)
+from repro_torch.configs.base import (ATTN, DENSE, MAMBA, MLA, MLSTM, MOE,
+                                      NONE, SLSTM, SWA, ModelConfig)
 from repro_torch.models import attention as attn
 from repro_torch.models import moe, ssm, xlstm
 from repro_torch.models.layers import (embed_tokens, rmsnorm, softmax_xent,
                                        swiglu, torch_dtype, unembed)
 
 Params = Dict[str, Any]
-MIXERS = (ATTN, SWA, MAMBA, SLSTM, MLSTM)
+MIXERS = (ATTN, SWA, MLA, MAMBA, SLSTM, MLSTM)
 FFNS = (DENSE, MOE, NONE)
+INPUT_MODES = ("tokens", "frames", "tokens+image")
 
 
 def padded_vocab(cfg: ModelConfig) -> int:
@@ -49,26 +64,34 @@ def padded_vocab(cfg: ModelConfig) -> int:
     return -(-cfg.vocab_size // 512) * 512
 
 
+def _dense_ffn_width(cfg: ModelConfig) -> int:
+    """The dense FFN of a `first_k_dense` layer: deepseek-style, wider than
+    a routed expert when the config's d_ff is the expert width."""
+    if cfg.moe is not None and cfg.d_ff < cfg.d_model:
+        return 2 * cfg.d_model
+    return cfg.d_ff or 4 * cfg.d_model
+
+
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError naming what the port does not have yet."""
+    """Raise for a kind the port does not know, or a layer kind without its
+    sub-config."""
     for kind in cfg.pattern:
         if kind not in MIXERS:
             raise NotImplementedError(f"mixer kind {kind!r} is not ported")
     for kind in cfg.ffn_pattern:
         if kind not in FFNS:
             raise NotImplementedError(f"ffn kind {kind!r} is not ported")
+    if cfg.input_mode not in INPUT_MODES:
+        raise NotImplementedError(f"input_mode {cfg.input_mode!r} is not "
+                                  "ported")
     if (SLSTM in cfg.pattern or MLSTM in cfg.pattern) and cfg.xlstm is None:
         raise ValueError(f"{cfg.name}: xLSTM layers need cfg.xlstm")
     if MAMBA in cfg.pattern and cfg.mamba is None:
         raise ValueError(f"{cfg.name}: Mamba layers need cfg.mamba")
+    if MLA in cfg.pattern and cfg.mla is None:
+        raise ValueError(f"{cfg.name}: MLA layers need cfg.mla")
     if MOE in cfg.ffn_pattern and cfg.moe is None:
         raise ValueError(f"{cfg.name}: MoE layers need cfg.moe")
-    for field, value in (("first_k_dense", cfg.first_k_dense),
-                         ("encoder_layers", cfg.encoder_layers)):
-        if value:
-            raise NotImplementedError(f"{field}={value} is not ported")
-    if cfg.input_mode != "tokens":
-        raise NotImplementedError(f"input_mode {cfg.input_mode!r} is not ported")
 
 
 def _layer(group: Params, g: int) -> Params:
@@ -78,20 +101,32 @@ def _layer(group: Params, g: int) -> Params:
     return group[g]
 
 
-def _store(stacked: Params, g: int, core: Params) -> None:
-    """Write one layer's cache entries into the stacked cache, in place. A
-    conv tail shorter than the cache's (a prompt shorter than the conv
-    kernel) goes to its end: the zero rows before it are the conv's own
-    left padding."""
+def _cache_view(cache: Params, slot) -> Params:
+    """The cache entries of the layer at `slot` (views, no copies)."""
+    part, i, g = slot
+    entry = cache[part][i]
+    return entry if g is None else _layer(entry, g)
+
+
+def _store(cache: Params, slot, core: Params) -> None:
+    """Write one layer's cache entries into the cache, in place. A conv
+    tail shorter than the cache's (a prompt shorter than the conv kernel)
+    goes to its end: the zero rows before it are the conv's own left
+    padding. Cross keys and values of an encoder shorter than `max_seq`
+    go to the front: the zero slots after them are the reference's pads."""
+    part, i, g = slot
+    entry = cache[part][i]
     for key, val in core.items():
-        dst = stacked[key][g]
+        dst = entry[key] if g is None else entry[key][g]
         if key == "conv":
             dst = dst[:, dst.shape[1] - val.shape[1]:]
+        elif key in ("cross_k", "cross_v"):
+            dst = dst[:, :val.shape[1]]
         dst.copy_(val)
 
 
 class Model:
-    # vocabularies at/above this size use the chunked loss (not ported)
+    # vocabularies at/above this size use the chunked loss
     CHUNKED_LOSS_VOCAB = 131_072
 
     def __init__(self, cfg: ModelConfig):
@@ -99,16 +134,20 @@ class Model:
         self.cfg = cfg
 
     def _layers(self, params: Params):
-        """Yield (pattern index, group index, layer params)."""
+        """Yield (mixer kind, ffn kind, layer params, cache slot) for every
+        decoder layer in order: the `first` layers, then the groups. A slot
+        is (cache part, index in it, group index or None)."""
         cfg = self.cfg
+        for j, lp in enumerate(params.get("first", [])):
+            yield cfg.pattern[0], DENSE, lp, ("first", j, None)
         for g in range(cfg.num_groups):
-            for i in range(len(cfg.pattern)):
-                yield i, g, _layer(params["groups"][i], g)
+            for i, kind in enumerate(cfg.pattern):
+                yield (kind, cfg.ffn_pattern[i], _layer(params["groups"][i], g),
+                       ("groups", i, g))
 
-    def _ffn(self, lp: Params, i: int, h, aux=None):
+    def _ffn(self, lp: Params, kind: str, h, aux=None):
         """h + the layer's FFN; a MoE layer adds its aux losses into `aux`
         (in place) where one is given."""
-        kind = self.cfg.ffn_pattern[i]
         if kind == NONE:
             return h
         f_in = rmsnorm(lp["post_norm"], h, self.cfg.norm_eps)
@@ -120,10 +159,8 @@ class Model:
                 aux[k] = aux[k] + moe_aux[k]
         return h + y
 
-    def _logits(self, params: Params, h):
-        cfg = self.cfg
-        h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
-        return unembed(params["embed"], h, cfg.tie_embeddings,
+    def _unembed(self, params: Params, h):
+        return unembed(params["embed"], h, self.cfg.tie_embeddings,
                        params.get("lm_head"))
 
     @staticmethod
@@ -142,67 +179,185 @@ class Model:
         if kind in (ATTN, SWA):
             return attn.attention_forward(lp["mixer"], cfg, x,
                                           window=self._window(kind))
+        if kind == MLA:
+            return attn.mla_forward(lp["mixer"], cfg, x)
         if kind == MAMBA:
             return ssm.mamba_mix(lp["mixer"], cfg, x)[0]
         if kind == MLSTM:
             return xlstm.mlstm_mix(lp["mixer"], cfg, x)[0]
         return xlstm.slstm_mix(lp["mixer"], cfg, x)[0]
 
-    def _backbone(self, params: Params, tokens):
-        """Hidden states before the final norm, and the aux losses."""
+    def _cross(self, lp: Params, h, enc_kv):
+        """h + cross-attention to the encoder's keys and values."""
+        c_in = rmsnorm(lp["cross_norm"], h, self.cfg.norm_eps)
+        return h + attn.cross_attention_forward(lp["cross"], self.cfg, c_in,
+                                                enc_kv)
+
+    def _encode(self, params: Params, frames):
+        """The encoder: projected frames through its non-causal attention
+        layers with dense FFNs, then its final norm."""
         cfg = self.cfg
-        h = embed_tokens(params["embed"], tokens)
-        aux = self._zero_aux(h.device)
-        for i, _, lp in self._layers(params):
+        enc = params["encoder"]
+        h = frames.to(params["frame_proj"].dtype) @ params["frame_proj"]
+        for e in range(cfg.encoder_layers):
+            lp = _layer(enc["layers"], e)
             mix_in = rmsnorm(lp["pre_norm"], h, cfg.norm_eps)
-            h = self._ffn(lp, i, h + self._mix(lp, cfg.pattern[i], mix_in),
-                          aux)
-        return h, aux
+            h = h + attn.attention_forward(lp["mixer"], cfg, mix_in,
+                                           causal=False)
+            h = self._ffn(lp, DENSE, h)
+        return rmsnorm(enc["final_norm"], h, cfg.norm_eps)
+
+    def _embed_inputs(self, params: Params, batch):
+        """(decoder-input hidden states, encoder output or None)."""
+        cfg = self.cfg
+        h = embed_tokens(params["embed"], batch["tokens"])
+        if cfg.input_mode == "frames":
+            return h, self._encode(params, batch["frames"])
+        if cfg.input_mode == "tokens+image":
+            img = batch["image_embeds"].to(params["img_proj"].dtype) \
+                @ params["img_proj"]
+            h = torch.cat([img.to(h.dtype), h], dim=1)
+        return h, None
+
+    def _hidden(self, params: Params, batch):
+        """Hidden states after the final norm, and the aux losses."""
+        cfg = self.cfg
+        h, enc_out = self._embed_inputs(params, batch)
+        aux = self._zero_aux(h.device)
+        for kind, ffn, lp, _ in self._layers(params):
+            mix_in = rmsnorm(lp["pre_norm"], h, cfg.norm_eps)
+            h = h + self._mix(lp, kind, mix_in)
+            if enc_out is not None and "cross" in lp:
+                h = self._cross(lp, h, attn.encode_cross_kv(lp["cross"], cfg,
+                                                            enc_out))
+            h = self._ffn(lp, ffn, h, aux)
+        return rmsnorm(params["final_norm"], h, cfg.norm_eps), aux
 
     def forward(self, params: Params, batch) -> Tuple[torch.Tensor, Dict]:
         """Full-sequence logits (B,S,V_padded) and the aux losses."""
-        h, aux = self._backbone(params, batch["tokens"])
-        return self._logits(params, h), aux
+        h, aux = self._hidden(params, batch)
+        return self._unembed(params, h), aux
+
+    def _labels_and_mask(self, batch, s: int):
+        """Next-token labels and their validity mask at every position of
+        the hidden sequence (so the loss can chunk over S)."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        b, n = tokens.shape
+        dev = tokens.device
+        if cfg.input_mode == "tokens+image":
+            p = cfg.num_image_tokens
+            # position p-1+j predicts tokens[:, j]
+            labels = torch.zeros((b, s), dtype=tokens.dtype, device=dev)
+            start = max(0, min(p - 1, s - n))   # dynamic_update_slice's clamp
+            labels[:, start:start + n] = tokens
+            pos = torch.arange(s, device=dev)
+            mask = ((pos >= p - 1) & (pos < p - 1 + n)).float()
+            return labels, mask[None, :].expand(b, s)
+        labels = torch.cat([tokens[:, 1:], tokens.new_zeros((b, 1))], dim=1)
+        mask = torch.ones((b, s), dtype=torch.float32, device=dev)
+        mask[:, -1] = 0.0
+        return labels, mask
+
+    def _chunked_xent(self, params: Params, h, labels, mask,
+                      chunk: int = 1024):
+        """The loss without the whole (B,S,V) logits: S in chunks, each
+        chunk's logits computed, reduced and dropped; under autograd each
+        chunk is recomputed in the backward (`checkpoint`), as the
+        reference's `jax.checkpoint`ed scan body is."""
+        cfg = self.cfg
+        s = h.shape[1]
+        chunk = math.gcd(s, chunk)
+        vp = padded_vocab(cfg)
+        pad = (torch.arange(vp, device=h.device) >= cfg.vocab_size
+               if vp != cfg.vocab_size else None)
+
+        def body(hc, lc, mc):
+            logits = self._unembed(params, hc).float()
+            if cfg.logit_softcap:
+                logits = torch.tanh(logits / cfg.logit_softcap) \
+                    * cfg.logit_softcap
+            if pad is not None:
+                logits = torch.where(pad, -1e30, logits)
+            lse = torch.logsumexp(logits, dim=-1)
+            gold = torch.gather(logits, -1, lc.long()[..., None])[..., 0]
+            return torch.sum((lse - gold) * mc)
+
+        tot = torch.zeros((), dtype=torch.float32, device=h.device)
+        for a in range(0, s, chunk):
+            args = (h[:, a:a + chunk], labels[:, a:a + chunk],
+                    mask[:, a:a + chunk])
+            if torch.is_grad_enabled():
+                tot = tot + checkpoint(body, *args, use_reentrant=False)
+            else:
+                tot = tot + body(*args)
+        return tot / torch.clamp_min(mask.sum(), 1.0)
 
     def loss_fn(self, params: Params, batch) -> Tuple[torch.Tensor, Dict]:
-        """Mean next-token cross-entropy over the unchunked logits, padded
-        vocab rows masked to -1e30; total = xent + 0.01 lb + 1e-3 z."""
+        """Mean next-token cross-entropy, padded vocab rows masked to -1e30
+        (image positions predict nothing); total = xent + 0.01 lb + 1e-3 z.
+        Vocabularies of CHUNKED_LOSS_VOCAB and up over more than 1024
+        positions take `_chunked_xent`."""
         cfg = self.cfg
         vp = padded_vocab(cfg)
-        tokens = batch["tokens"]
-        if vp >= self.CHUNKED_LOSS_VOCAB and tokens.shape[1] > 1024:
-            raise NotImplementedError("the chunked loss is not ported")
-        logits, aux = self.forward(params, batch)
-        if vp != cfg.vocab_size:
-            pad = torch.arange(vp, device=logits.device) >= cfg.vocab_size
-            logits = torch.where(pad, -1e30, logits.float())
-        loss = softmax_xent(logits[:, :-1], tokens[:, 1:],
-                            logit_softcap=cfg.logit_softcap)
+        h, aux = self._hidden(params, batch)
+        s = h.shape[1]
+        if vp >= self.CHUNKED_LOSS_VOCAB and s > 1024:
+            labels, mask = self._labels_and_mask(batch, s)
+            loss = self._chunked_xent(params, h, labels, mask)
+        else:
+            logits = self._unembed(params, h)
+            if vp != cfg.vocab_size:
+                pad = torch.arange(vp, device=logits.device) >= cfg.vocab_size
+                logits = torch.where(pad, -1e30, logits.float())
+            tokens = batch["tokens"]
+            if cfg.input_mode == "tokens+image":
+                p = cfg.num_image_tokens
+                loss = softmax_xent(logits[:, p - 1:-1], tokens,
+                                    logit_softcap=cfg.logit_softcap)
+            else:
+                loss = softmax_xent(logits[:, :-1], tokens[:, 1:],
+                                    logit_softcap=cfg.logit_softcap)
         total = loss + 0.01 * aux["moe_lb_loss"] + 1e-3 * aux["moe_z_loss"]
         return total, dict(aux, xent=loss)
 
     # ------------------------------------------------------------- caches
 
     def _init_layer_cache(self, kind: str, batch: int, max_seq: int, dt,
-                          device) -> Params:
+                          device, lead: Tuple[int, ...]) -> Params:
         cfg = self.cfg
-        lead = (cfg.num_groups,)
         if kind in (ATTN, SWA):
-            return attn.init_attn_cache(cfg, batch, max_seq,
-                                        window=self._window(kind), dtype=dt,
-                                        device=device, lead=lead)
-        if kind == MAMBA:
-            return ssm.init_mamba_cache(cfg, batch, dt, device, lead)
-        if kind == MLSTM:
-            return xlstm.init_mlstm_cache(cfg, batch, dt, device, lead)
-        return xlstm.init_slstm_cache(cfg, batch, dt, device, lead)
+            c = attn.init_attn_cache(cfg, batch, max_seq,
+                                     window=self._window(kind), dtype=dt,
+                                     device=device, lead=lead)
+        elif kind == MLA:
+            c = attn.init_mla_cache(cfg, batch, max_seq, dt, device, lead)
+        elif kind == MAMBA:
+            c = ssm.init_mamba_cache(cfg, batch, dt, device, lead)
+        elif kind == MLSTM:
+            c = xlstm.init_mlstm_cache(cfg, batch, dt, device, lead)
+        else:
+            c = xlstm.init_slstm_cache(cfg, batch, dt, device, lead)
+        if cfg.encoder_layers > 0:
+            shape = (*lead, batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
+            c["cross_k"] = torch.zeros(shape, dtype=dt, device=device)
+            c["cross_v"] = torch.zeros(shape, dtype=dt, device=device)
+        return c
 
     def init_cache(self, batch: int, max_seq: int, device=None,
                    dtype=None) -> Params:
-        dt = dtype or torch_dtype(self.cfg.param_dtype)
-        return {"groups": tuple(
-            self._init_layer_cache(kind, batch, max_seq, dt, device)
-            for kind in self.cfg.pattern)}
+        cfg = self.cfg
+        dt = dtype or torch_dtype(cfg.param_dtype)
+        cache: Params = {"groups": tuple(
+            self._init_layer_cache(kind, batch, max_seq, dt, device,
+                                   (cfg.num_groups,))
+            for kind in cfg.pattern)}
+        if cfg.first_k_dense:
+            cache["first"] = [
+                self._init_layer_cache(cfg.pattern[0], batch, max_seq, dt,
+                                       device, ())
+                for _ in range(cfg.first_k_dense)]
+        return cache
 
     # ------------------------------------------------------------ prefill
 
@@ -212,6 +367,8 @@ class Model:
             return attn.attention_prefill(lp["mixer"], cfg, x,
                                           window=self._window(kind),
                                           max_seq=max_seq)
+        if kind == MLA:
+            return attn.mla_prefill(lp["mixer"], cfg, x, max_seq=max_seq)
         if kind == MAMBA:
             out, (h_last, tail) = ssm.mamba_mix(lp["mixer"], cfg, x)
             return out, {"h": h_last, "conv": tail}
@@ -224,18 +381,26 @@ class Model:
     def prefill(self, params: Params, batch, max_seq: int = 0):
         """Full-sequence forward that also builds the decode cache. Returns
         the last position's logits (B,1,V_padded), padded rows unmasked as
-        in the reference."""
+        in the reference. An encoder-decoder's cross cache holds the
+        encoder's first `max_seq` keys and values, zero slots after them
+        where it is shorter, as the reference's does."""
         cfg = self.cfg
-        tokens = batch["tokens"]
-        h = embed_tokens(params["embed"], tokens)
-        max_seq = max_seq or tokens.shape[1]
-        cache = self.init_cache(tokens.shape[0], max_seq, h.device, h.dtype)
-        for i, g, lp in self._layers(params):
+        h, enc_out = self._embed_inputs(params, batch)
+        max_seq = max_seq or h.shape[1]
+        cache = self.init_cache(h.shape[0], max_seq, h.device, h.dtype)
+        for kind, ffn, lp, slot in self._layers(params):
             mix_in = rmsnorm(lp["pre_norm"], h, cfg.norm_eps)
-            out, core = self._mix_prefill(lp, cfg.pattern[i], mix_in, max_seq)
-            _store(cache["groups"][i], g, core)
-            h = self._ffn(lp, i, h + out)
-        return self._logits(params, h[:, -1:]), cache
+            out, core = self._mix_prefill(lp, kind, mix_in, max_seq)
+            h = h + out
+            if enc_out is not None and "cross" in lp:
+                kv = attn.encode_cross_kv(lp["cross"], cfg, enc_out)
+                h = self._cross(lp, h, kv)
+                core = dict(core, cross_k=kv["k"][:, :max_seq],
+                            cross_v=kv["v"][:, :max_seq])
+            _store(cache, slot, core)
+            h = self._ffn(lp, ffn, h)
+        h = rmsnorm(params["final_norm"], h[:, -1:], cfg.norm_eps)
+        return self._unembed(params, h), cache
 
     # ------------------------------------------------------------- decode
 
@@ -244,21 +409,30 @@ class Model:
         (B,1,V_padded), cache). The cache is updated in place."""
         cfg = self.cfg
         h = embed_tokens(params["embed"], tokens)
-        for i, g, lp in self._layers(params):
-            kind = cfg.pattern[i]
+        for kind, ffn, lp, slot in self._layers(params):
             mix_in = rmsnorm(lp["pre_norm"], h, cfg.norm_eps)
-            layer_cache = _layer(cache["groups"][i], g)
+            layer_cache = _cache_view(cache, slot)
+            core = {k: v for k, v in layer_cache.items()
+                    if not k.startswith("cross_")}
             if kind in (ATTN, SWA):
-                out, _ = attn.attention_decode(lp["mixer"], cfg, mix_in,
-                                               layer_cache, pos,
-                                               window=self._window(kind))
+                out, _ = attn.attention_decode(lp["mixer"], cfg, mix_in, core,
+                                               pos, window=self._window(kind))
+            elif kind == MLA:
+                out, _ = attn.mla_decode(lp["mixer"], cfg, mix_in, core, pos)
             else:
                 decode = {MAMBA: ssm.mamba_decode, MLSTM: xlstm.mlstm_decode,
                           SLSTM: xlstm.slstm_decode}[kind]
-                out, core = decode(lp["mixer"], cfg, mix_in, layer_cache)
-                _store(cache["groups"][i], g, core)
-            h = self._ffn(lp, i, h + out)
-        return self._logits(params, h), cache
+                out, core = decode(lp["mixer"], cfg, mix_in, core)
+                _store(cache, slot, core)
+            h = h + out
+            if "cross_k" in layer_cache:
+                c_in = rmsnorm(lp["cross_norm"], h, cfg.norm_eps)
+                h = h + attn.cross_attention_decode(
+                    lp["cross"], cfg, c_in, {"k": layer_cache["cross_k"],
+                                             "v": layer_cache["cross_v"]})
+            h = self._ffn(lp, ffn, h)
+        h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
+        return self._unembed(params, h), cache
 
 
 def build_model(cfg: ModelConfig) -> Model:

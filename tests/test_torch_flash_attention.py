@@ -59,6 +59,27 @@ def test_plain_version_matches_jax(dtype, b, hq, hkv, s, t, hd, causal,
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,hq,hkv,s,t,hd,causal,window", [
+    (1, 4, 2, 32, 32, 256, True, 0),      # gemma3: hd 256, GQA 2:1, global
+    (1, 4, 2, 32, 32, 256, True, 8),      # gemma3's sliding window
+    (1, 4, 4, 32, 32, 192, True, 0),      # MLA: hd 192 (nope + rope)
+    (1, 4, 4, 16, 32, 192, False, 0),     # non-causal, S != T
+])
+def test_plain_version_wide_heads_match_jax(dtype, b, hq, hkv, s, t, hd,
+                                            causal, window):
+    """The head dims 256 (gemma3) and 192 (MLA) that the Hopper kernel now
+    takes, against the Pallas kernel in interpret mode and the oracle."""
+    (qj, kj, vj), (q, k, v) = _inputs(21, b, hq, hkv, s, t, hd, dtype)
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    assert out.shape == q.shape and out.dtype == q.dtype
+    _compare(out, jax_attention_ref(qj, kj, vj, causal=causal, window=window),
+             dtype)
+    _compare(out, jax_flash_attention(qj, kj, vj, causal=causal,
+                                      window=window, bq=16, bk=16,
+                                      backend="interpret"), dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_plain_version_cross_lengths(dtype):
     (qj, kj, vj), (q, k, v) = _inputs(1, 1, 2, 2, 64, 256, 64, dtype)
     out = attention_ref(q, k, v, causal=False)
@@ -188,6 +209,7 @@ def test_row_chunked_plain_version_equals_the_whole(s, t, causal, window,
 
 @pytest.mark.parametrize("shapes,kw,err", [
     (((1, 2, 8, 48), (1, 2, 8, 48)), {}, "head_dim 48"),
+    (((1, 2, 8, 96), (1, 2, 8, 96)), {}, "head_dim 96"),
     (((1, 3, 8, 32), (1, 2, 8, 32)), {}, "do not match"),
     (((1, 2, 8, 32), (2, 2, 8, 32)), {}, "do not match"),
     (((1, 2, 8, 32, 1), (1, 2, 8, 32)), {}, "want q"),

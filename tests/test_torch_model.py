@@ -51,17 +51,29 @@ def test_smoke_config_is_the_reference_one():
 
 
 def test_registry_names_the_ported_arches():
-    with pytest.raises(KeyError, match="ported: \\['jamba-1.5-large-398b', "
-                       "'mixtral-8x22b', 'stablelm-1.6b', 'xlstm-125m'\\]"):
-        registry.get_config("gemma3-12b")
+    """All ten of the reference's arch ids resolve, in its order, and an
+    unknown id raises the reference's KeyError."""
+    from repro.configs import registry as jreg
+    assert registry.ARCH_IDS == jreg.ARCH_IDS
+    for arch in registry.ARCH_IDS:
+        assert registry.get_config(arch).name == arch
+        assert registry.get_smoke_config(arch).name == arch
+    with pytest.raises(KeyError, match="unknown arch 'gemma4'; known: "):
+        registry.get_config("gemma4")
+    with pytest.raises(KeyError, match="unknown arch 'gemma4'"):
+        jreg.get_config("gemma4")
 
 
 @pytest.mark.parametrize("override,name", [
     (dict(pattern=(MLA,)), "mla"),
 ])
 def test_unported_kinds_raise(override, name):
+    """MLA is ported: an MLA layer without its sub-config is refused, as a
+    MoE layer without `cfg.moe` is."""
     cfg = registry.get_smoke_config("stablelm-1.6b").scaled(**override)
-    with pytest.raises(NotImplementedError, match=name):
+    assert cfg.mla is None
+    with pytest.raises(ValueError, match=f"{name.upper()} layers need "
+                       f"cfg.{name}"):
         build_model(cfg)
 
 
