@@ -20,8 +20,12 @@ Phases, each of which raises (and so exits non-zero) on any failure:
               and its 1x8192 windowed; deepseek-v2's MLA prefill, bf16
               2x128x2048 at head_dim 192 with the values zero-padded from
               128, beside the SDPA backends that take 192/128 heads; fp32
-              and bf16 cases at 192 and 256; mlstm_scan at xlstm's
-              training step, ssm_scan at jamba's prefill and decode), and
+              and bf16 cases at 192 and 256; the other bf16 shapes phases
+              4e-4g hand flash, and every shape phase 5c's training steps
+              and deepseek's smoke serve hand it (head_dim 48, padded by the
+              wrapper), each beside its bound and SDPA; mlstm_scan at
+              xlstm's training steps, ssm_scan at jamba's prefill and
+              decode), and
               time kernel, plain version and, where there is one, the
               PyTorch library call that computes the same function (a
               yardstick only; the port never calls it).
@@ -112,9 +116,14 @@ Phases, each of which raises (and so exits non-zero) on any failure:
               fp32 AdamW moments, random weights from a seed) trains through
               `repro_torch.train.lm.train_lm`, the port's training path, with
               train_lm.py's settings (global batch 8 in 2 shards, lr 1e-3) at
-              seq_len 512: 1 warm-up step, then 8 timed steps whose losses
-              must be finite and fall, with mlstm_scan launched once per
-              mLSTM layer, shard and step. Then torch.profiler over one step.
+              seq_len 512: 1 warm-up step, then 4 timed steps whose losses
+              must be finite and fall, with mlstm_scan launched twice per
+              mLSTM layer, shard and step (the config's remat_policy
+              "nothing": the forward again in the backward). Then, at
+              seq_len 128, steps under "full" and "nothing" timed in the
+              order full, nothing, nothing, full, one of each traced by
+              torch.profiler, beside one shard's forward: what the remat's
+              recompute costs and what else it adds.
   5b. train   mixtral-8x22b cut to 1 layer at full width (2,906,720,256
               bf16 parameters, bf16 AdamW moments, `dropping`), global batch
               2 x 2048, through `repro_torch.train.trainer`: (a) `Trainer`,
@@ -124,6 +133,29 @@ Phases, each of which raises (and so exits non-zero) on any failure:
               port's runtime with a gpu node, 4 steps, backup loads and a
               checkpoint task, with (a)'s losses. Each save's and restore's
               bytes and MB/s; the checkpoints go to build/ and are deleted.
+  5c. launch  the launchers' paths (`repro_torch.launch`): (a)
+              `launch.train.train`, 1 warm-up and 3 timed steps at each
+              config's own remat_policy, at full width: stablelm-1.6b,
+              internvl2-2b and seamless-m4t-medium whole, gemma3-12b cut to
+              one 6-layer group, phi3-medium-14b to 4 layers, mistral-large
+              to 2, deepseek-v2 to 2 (its dense first layer and one MoE
+              layer), xlstm-125m whole at 2x128; jamba at its smoke config
+              (a full-width group does not fit). Finite losses, and each
+              kernel launched once a layer a step, twice inside the remat.
+              (b) `_SSMScan` at jamba's full-width layer (B=1 S=2048
+              di=16,384, x bf16): y against the plain version, every
+              gradient against autograd through `ssm_scan_ref` on the card;
+              jamba smoke's loss and gradients card vs CPU. (c) gemma3's cut
+              group at 1x2048 under "full", "dots" and "nothing": every
+              gradient leaf against "full"'s, each policy's peak memory.
+              (d) `make_compressing_train_step`, 3 steps on stablelm-1.6b
+              cut to 2 layers: finite losses and error feedback;
+              `quantize_int8` on the card bit-equal to the CPU's. (e)
+              `launch.serve --smoke` for all ten arches on the card (the
+              two modal ones raise KeyError as the reference's do),
+              stablelm-1.6b and xlstm-125m at full size, and `python -m
+              repro_torch.launch.serve` once. Step ms, losses, peak memory
+              and launches printed for each.
   6. compute  the port's runtime and compute plane on a cluster of one
               gpu-typed and one cpu node (`repro_torch.core`,
               `repro_torch.compute`): int8_matmul against its plain version
@@ -151,10 +183,11 @@ Phases, each of which raises (and so exits non-zero) on any failure:
               on a cpu node, one compiled graph a step, a `ParamSet`
               published every 2 steps) with train_lm.py's defaults (global
               batch 8 in 2 shards, seq_len 128, lr 1e-3): 1 warm-up step,
-              then 4 timed steps; the losses must be finite, fall and equal
-              the `--sync` loop's over the same 5 steps to 1e-5 of their
-              value, with mlstm_scan launched 6 x 2 x 4 times and 8 kernel
-              tasks counted by the profiler.
+              then 3 timed steps; the losses must be finite, fall and equal
+              the `--sync` loop's over the same 4 steps to 1e-5 of their
+              value, with mlstm_scan launched 6 x 2 x 3 x 2 times (the
+              remat's second forward) and 6 kernel tasks counted by the
+              profiler.
   8. examples the port's quickstart (`repro_torch.examples.quickstart`) runs
               to its end: a value lost with its node comes back by lineage
               replay.
@@ -188,6 +221,7 @@ from __future__ import annotations
 import gc
 import json
 import math
+import os
 import shutil
 import statistics
 import subprocess
@@ -203,9 +237,11 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 # Published H100 SXM peaks (dense): bf16 tensor cores, fp32 outside the
-# tensor cores, HBM3 bandwidth.
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
-PEAK_BYTES_PER_S = 3.35e12
+# tensor cores, HBM3 bandwidth; the port keeps them in `launch.mesh`.
+from repro_torch.launch.mesh import HBM_BW, PEAK_FLOPS_BF16, PEAK_FLOPS_FP32  # noqa: E402
+
+PEAK_FLOPS = {torch.bfloat16: PEAK_FLOPS_BF16, torch.float32: PEAK_FLOPS_FP32}
+PEAK_BYTES_PER_S = HBM_BW
 # Kernel vs plain version, compared in fp32: |a - b| <= tol + tol * |b|.
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # ssm_scan: fp32 1e-4, as the fp32 state runs through 2,048 sequential
@@ -305,6 +341,13 @@ def reset_launch_counts() -> None:
 def launch_counts() -> dict:
     """Every kernel wrapper's launch count."""
     return {name: w.launches for name, w in _wrappers().items()}
+
+
+def remat_runs(cfg) -> int:
+    """Forwards a training step runs of each layer inside the remat: one,
+    and under `"dots"` or `"nothing"` one more in the backward's
+    recompute."""
+    return 1 if cfg.remat_policy == "full" else 2
 
 
 # ------------------------------------------------------------------ phase 1
@@ -807,11 +850,115 @@ def check_flash_new_head_dims(gen) -> dict:
         err = _err_within(f"flash_attention {label}", got, attention_ref(
             q, k, v, causal=causal, row_chunk=PLAIN_ROW_CHUNK), TOL[bf16])
         ms = cuda_ms(lambda: flash_attention(q, k, v, causal=causal), 10)
+        gqa = {"enable_gqa": True} if hkv_ != h_ else {}
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, **gqa), 10)
+        flops = 4 * b * h_ * hd * _valid_pairs(s, t, causal, 0)
+        nbytes = sum(x.numel() * x.element_size() for x in (q, k, v, q))
+        t_ops, t_bytes = flops / PEAK_FLOPS[bf16], nbytes / PEAK_BYTES_PER_S
+        bound_ms = max(t_ops, t_bytes) * 1e3
+        bound_by = "operations" if t_ops >= t_bytes else "bytes"
         log(f"[kernels] flash_attention {label} bf16 ({PATHS[bf16]}) B={b} "
             f"H={h_} Hkv={hkv_} S={s} T={t} hd={hd} causal={causal}: "
-            f"max_abs_err={err} (tol {TOL[bf16]}) ok; kernel {ms:.4f} ms")
-        out[label] = {"max_abs_err": err, "ms": ms}
+            f"max_abs_err={err} (tol {TOL[bf16]}) ok; kernel {ms:.4f} ms, "
+            f"sdpa {library_ms:.4f} ms (kernel / sdpa "
+            f"{ms / library_ms:.3f}), bound {bound_ms:.4f} ms ({bound_by}: "
+            f"{flops} flop, {nbytes} bytes), {bound_ms / ms:.3f} of it")
+        out[label] = {"max_abs_err": err, "ms": ms, "bound_ms": bound_ms,
+                      "bound_by": bound_by, "library_ms": library_ms,
+                      "share_of_bound": bound_ms / ms}
         del q, k, v, got
+    return out
+
+
+def _launch_flash_shapes() -> list:
+    """The flash calls of phase 5c: each LAUNCH_TRAIN arch's training step
+    at its batch (self-attention causal, windowed where the layer is SWA,
+    MLA at nope + rope with the values zero-padded; the encoder non-causal
+    and cross-attention over as many frames as tokens), jamba's smoke step,
+    and deepseek's smoke serve waves in 5c(e), whose MLA head_dim of 48 the
+    wrapper pads to 64. (label, dtype, B, H, Hkv, S, T, q/k hd, v hd,
+    causal, window)."""
+    from repro_torch.configs.base import MLA, SWA
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.train import launch_config
+    runs = [(arch, get_config(arch), b, s)
+            for arch, _, b, s, _ in LAUNCH_TRAIN]
+    runs += [("jamba smoke", launch_config("jamba-1.5-large-398b", True),
+              *JAMBA_SMOKE_TRAIN),
+             ("deepseek smoke serve", launch_config("deepseek-v2-236b", True),
+              8, 32)]
+    out = []
+    for what, cfg, b, s in runs:
+        dt = getattr(torch, cfg.param_dtype)
+        h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        for kind in dict.fromkeys(cfg.pattern):
+            if kind == MLA:
+                m = cfg.mla
+                qk = m.nope_head_dim + m.rope_head_dim
+                out.append((f"{what} MLA", dt, b, h, h, s, s, qk,
+                            m.v_head_dim, True, 0))
+            elif kind == SWA:
+                out.append((f"{what} SWA", dt, b, h, hkv, s, s, hd, hd, True,
+                            cfg.window_size))
+            elif kind == "attn":
+                out.append((f"{what} self", dt, b, h, hkv, s, s, hd, hd,
+                            True, 0))
+        if cfg.encoder_layers:
+            out += [(f"{what} encoder", dt, b, h, hkv, s, s, hd, hd, False, 0),
+                     (f"{what} cross {s} over {s} frames", dt, b, h, hkv, s,
+                      s, hd, hd, False, 0)]
+    return out
+
+
+def check_flash_launch_shapes(gen) -> dict:
+    """flash_attention against the plain version (TOL of the dtype, the
+    plain version a chunk of query rows at a time) at every shape of
+    `_launch_flash_shapes`; the MLA output's padded columns must be 0.
+    Each beside its bound and SDPA (on the unpadded values, causal, none
+    for a window)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+    out = {}
+    for label, dt, b, h, hkv, s, t, hd, v_hd, causal, window in \
+            _launch_flash_shapes():
+        q, k, v = _attn_inputs(gen, b, h, hkv, s, t, hd, dt)
+        v_own = v[..., :v_hd]
+        if v_hd != hd:
+            v = F.pad(v_own, (0, hd - v_hd))
+
+        def call():
+            return flash_attention(q, k, v, causal=causal, window=window)
+        got = call()
+        if v_hd != hd and not bool((got[..., v_hd:] == 0).all()):
+            raise AssertionError(f"flash {label}: padded columns not 0")
+        err = _err_within(f"flash_attention {label}", got, attention_ref(
+            q, k, v, causal=causal, window=window,
+            row_chunk=PLAIN_ROW_CHUNK), TOL[dt])
+        ms = cuda_ms(call, 10)
+        library_ms = None
+        if not window:
+            gqa = {"enable_gqa": True} if hkv != h else {}
+            library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v_own, is_causal=causal, **gqa), 10)
+        es = q.element_size()
+        flops = 2 * b * h * (hd + v_hd) * _valid_pairs(s, t, causal, window)
+        nbytes = es * (q.numel() + k.numel() + b * hkv * t * v_hd
+                       + b * h * s * v_hd)
+        t_ops, t_bytes = flops / PEAK_FLOPS[dt], nbytes / PEAK_BYTES_PER_S
+        bound_ms = max(t_ops, t_bytes) * 1e3
+        bound_by = "operations" if t_ops >= t_bytes else "bytes"
+        log(f"[kernels] flash_attention {label} {str(dt)[6:]} B={b} H={h} "
+            f"Hkv={hkv} S={s} T={t} hd={hd} v hd={v_hd} causal={causal} "
+            f"window={window}: max_abs_err={err} (tol {TOL[dt]}) ok; kernel "
+            f"{ms:.4f} ms, sdpa "
+            + (f"{library_ms:.4f} ms (kernel / sdpa {ms / library_ms:.3f})"
+               if library_ms else "none without a mask")
+            + f", bound {bound_ms:.4f} ms ({bound_by}: {flops} flop, "
+            f"{nbytes} bytes), {bound_ms / ms:.3f} of it")
+        out[label] = {"max_abs_err": err, "ms": ms, "bound_ms": bound_ms,
+                      "bound_by": bound_by, "library_ms": library_ms}
+        del q, k, v, v_own, got
     return out
 
 
@@ -882,6 +1029,7 @@ MLSTM_CASES = [  # (label, B, H, S, hd, dtypes, with_state)
     ("ragged S=130 with state hd=32", 2, 4, 130, 32, (_F32, _BF16), True),
     *[(f"decode S=1 with state hd={hd}", 4, 4, 1, hd, (_F32, _BF16), True)
       for hd in (32, 64, 256, 384)],
+    ("xlstm-125m launcher shape (phase 5c)", 2, 4, 128, 384, (_BF16,), False),
 ]
 
 
@@ -2392,28 +2540,83 @@ PORT_KERNELS = {"flash_attention": "flash_fwd", "mlstm_scan": "mlstm_fwd",
 
 # ------------------------------------------------------------------ phase 5
 
-def _plain_mlstm_losses(cfg, params, batch, seq_len, shards) -> list:
-    """The loss at `params` and the loss after one AdamW step from them, on
-    the first batch both, as phase 5 takes them, with the model's mLSTM
-    layers on the plain version (`mlstm_scan_ref` in bf16) in place of the
-    kernel. Trains `params` in place."""
+# Phase 5's profiled step runs at this sequence length: the eager sLSTM
+# loop launches a kernel set a time step, and tracing a step at 512 (619,010
+# launches under remat) took 148.4 s of the run.
+PROFILE_SEQ_LEN = 128
+
+
+def _plain_mlstm_loss(cfg, params, batch, seq_len, shards) -> float:
+    """The loss at `params` on the first batch, as phase 5 takes it, with
+    the model's mLSTM layers on the plain version (`mlstm_scan_ref` in
+    bf16) in place of the kernel. Trains `params` in place."""
     from repro_torch.kernels.mlstm_scan import mlstm_scan_ref
     from repro_torch.models import xlstm
     from repro_torch.train.lm import train_lm
     kernel = xlstm.mlstm_scan
     xlstm.mlstm_scan = mlstm_scan_ref
     try:
-        return [train_lm(cfg, 1, batch, seq_len, shards, params=params,
-                         sync=True).losses[0] for _ in range(2)]
+        return train_lm(cfg, 1, batch, seq_len, shards, params=params,
+                        sync=True).losses[0]
     finally:
         xlstm.mlstm_scan = kernel
 
 
+def _remat_breakdown(cfg, params, batch: int, shards: int) -> None:
+    """Where remat's time goes in phase 5's step, at the profiled shape
+    (batch x PROFILE_SEQ_LEN, not the timed steps' seq_len): steps under
+    "full" and under the config's policy in the order full, policy,
+    policy, full (host clock, synced, untraced), then one of each traced
+    (device busy time, launches, top kernels); and one shard's forward
+    under autograd, what the remat's recompute runs again a shard. The
+    policy's extra ms beyond `shards` such forwards is host time the
+    recompute's forward does not explain."""
+    from repro_torch.models import build_model
+    from repro_torch.train.lm import train_lm
+    from repro_torch.tree import tree_map
+    tokens = torch.randint(1, cfg.vocab_size - 1,
+                           (batch // shards, PROFILE_SEQ_LEN),
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(SEED + 3), device="cuda")
+    model = build_model(cfg.scaled(remat_policy="full"))
+
+    def forward():
+        leaves = tree_map(lambda t: t.detach().requires_grad_(True), params)
+        with torch.enable_grad():
+            model.loss_fn(leaves, {"tokens": tokens})
+        torch.cuda.synchronize()
+
+    forward()
+    t0 = time.perf_counter()
+    forward()
+    fwd_ms = (time.perf_counter() - t0) * 1e3
+    cfgs = {p: cfg.scaled(remat_policy=p) for p in ("full", cfg.remat_policy)}
+    step = {p: [] for p in cfgs}
+    for policy in ("full", cfg.remat_policy, cfg.remat_policy, "full"):
+        step[policy] += train_lm(cfgs[policy], 1, batch, PROFILE_SEQ_LEN,
+                                 shards, params=params, sync=True).step_ms
+    for policy, c in cfgs.items():
+        profiled(f"train step {batch}x{PROFILE_SEQ_LEN} in {shards} shards, "
+                 f"remat_policy {policy!r}",
+                 lambda: train_lm(c, 1, batch, PROFILE_SEQ_LEN, shards,
+                                  params=params, sync=True),
+                 host_ops=False)
+    mean = {p: statistics.mean(ms) for p, ms in step.items()}
+    extra = mean[cfg.remat_policy] - mean["full"]
+    log(f"[train] remat at {batch}x{PROFILE_SEQ_LEN} in {shards} shards "
+        f"(host clock, synced, untraced, in the order full, "
+        f"{cfg.remat_policy}, {cfg.remat_policy}, full): step ms {step}, "
+        f"means {mean}; {cfg.remat_policy!r} adds {extra:.1f} ms; one "
+        f"shard's forward under autograd {fwd_ms:.1f} ms, x {shards} shards "
+        f"= {shards * fwd_ms:.1f} ms of recompute; the rest "
+        f"{extra - shards * fwd_ms:.1f} ms")
+
+
 def train_full_model() -> int:
     """Full xlstm-125m through `train_lm`; returns mlstm_scan's launches in
-    the 8 timed steps. Then the same first two losses with the plain
-    version in place of the kernel (`_plain_mlstm_losses`): the loss at the
-    initial weights must agree to MLSTM_LOSS_RTOL."""
+    the 4 timed steps. Then the loss at the initial weights with the plain
+    version in place of the kernel (`_plain_mlstm_loss`): it must agree to
+    MLSTM_LOSS_RTOL."""
     from repro_torch.bridge import init_params
     from repro_torch.configs.base import MLSTM
     from repro_torch.configs.registry import get_config
@@ -2422,7 +2625,7 @@ def train_full_model() -> int:
     from repro_torch.tree import tree_map
 
     cfg = get_config("xlstm-125m")
-    batch, shards, seq_len, steps = 8, 2, 512, 8
+    batch, shards, seq_len, steps = 8, 2, 512, 4
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED + 2))
     torch.cuda.synchronize()
@@ -2441,10 +2644,12 @@ def train_full_model() -> int:
                    sync=True)
     launches = mlstm_scan.launches
 
-    want = cfg.pattern.count(MLSTM) * cfg.num_groups * shards * steps
+    want = cfg.pattern.count(MLSTM) * cfg.num_groups * shards * steps \
+        * remat_runs(cfg)
     if launches != want:
         raise AssertionError(f"mlstm_scan launched {launches} times, want "
-                             f"{want} (mLSTM layers x shards x steps)")
+                             f"{want} (mLSTM layers x shards x steps x "
+                             f"forwards a step under remat)")
     if not all(math.isfinite(x) for x in res.losses):
         raise AssertionError(f"non-finite loss: {res.losses}")
     if not res.losses[-1] < res.losses[0]:
@@ -2453,26 +2658,23 @@ def train_full_model() -> int:
     log(f"[train] {steps} steps, global batch {batch} x {seq_len} tokens in "
         f"{shards} shards: losses {res.losses}")
     log(f"[train] mlstm_scan launches {launches} = "
-        f"{want // (shards * steps)} mLSTM layers x {shards} shards x "
-        f"{steps} steps")
+        f"{want // (shards * steps * remat_runs(cfg))} mLSTM layers x "
+        f"{shards} shards x {steps} steps x {remat_runs(cfg)} forwards "
+        f"(remat_policy {cfg.remat_policy!r})")
     log(f"[train] step ms (host clock, synced): median {step_ms:.3f}, all "
         f"{[round(x, 3) for x in res.step_ms]}; "
         f"{batch * seq_len / (step_ms / 1e3):.1f} tokens/s; "
         f"max_memory_allocated {torch.cuda.max_memory_allocated()} bytes")
-    profiled(f"train step {batch}x{seq_len} in {shards} shards",
-             lambda: train_lm(cfg, 1, batch, seq_len, shards, params=params,
-                              sync=True),
-             host_ops=False)
-    plain = _plain_mlstm_losses(cfg, initial, batch, seq_len, shards)
-    got = [warm.losses[0], res.losses[0]]
+    _remat_breakdown(cfg, params, batch, shards)
+    plain = _plain_mlstm_loss(cfg, initial, batch, seq_len, shards)
+    got = warm.losses[0]
     log(f"[train] the plain mlstm_scan_ref (bf16) in place of the kernel, "
-        f"from the same initial weights: loss {plain[0]} at them (kernel "
-        f"{got[0]}, rel diff {abs(got[0] - plain[0]) / abs(plain[0]):.3g}, "
-        f"gate {MLSTM_LOSS_RTOL}), {plain[1]} after one AdamW step (kernel "
-        f"{got[1]}, diff {got[1] - plain[1]:.4f})")
-    if not abs(got[0] - plain[0]) <= MLSTM_LOSS_RTOL * abs(plain[0]):
-        raise AssertionError(f"loss at the initial weights: kernel {got[0]}, "
-                             f"plain version {plain[0]}")
+        f"from the same initial weights: loss {plain} at them (kernel "
+        f"{got}, rel diff {abs(got - plain) / abs(plain):.3g}, gate "
+        f"{MLSTM_LOSS_RTOL})")
+    if not abs(got - plain) <= MLSTM_LOSS_RTOL * abs(plain):
+        raise AssertionError(f"loss at the initial weights: kernel {got}, "
+                             f"plain version {plain}")
     return launches
 
 
@@ -2625,7 +2827,362 @@ def train_mixtral() -> dict:
     return launches
 
 
-# ------------------------------------------------------------------ phase 6
+# ----------------------------------------------------------------- phase 5c
+
+# 5c(a): each arch through `launch.train.train` at its config's own
+# remat_policy: (arch, depth cut or None, global batch, seq_len, params).
+# Widths are never cut. B x S is chosen to fit the card beside the state:
+# flash's recompute backward holds (B,H,S,S) fp32 scores a layer (MLA's 128
+# heads: 2.1 GB a 1x2048); xlstm runs short (its eager sLSTM loop, A4).
+LAUNCH_TRAIN = (
+    ("stablelm-1.6b", None, 2, 2048, 1_644_267_520),
+    ("internvl2-2b", None, 2, 2048, 1_893_828_608),
+    ("seamless-m4t-medium", None, 2, 1024, 979_433_472),
+    ("gemma3-12b", 6, 1, 2048, 2_351_481_600),
+    ("phi3-medium-14b", 4, 1, 2048, 2_390_799_360),
+    ("mistral-large-123b", 2, 1, 2048, 3_573_608_448),
+    ("deepseek-v2-236b", 2, 1, 2048, 5_327_221_760),
+    ("xlstm-125m", None, 2, 128, 141_742_896),
+)
+# 1 warm-up step, then the timed ones
+LAUNCH_STEPS = 4
+# jamba-1.5-large-398b trains at its smoke config: one full-width group
+# with dense FFNs is JAMBA_CUT_PARAMS, 72 GB of bf16 params and grads and
+# bf16 moments before any activation.
+JAMBA_SMOKE_TRAIN = (2, 64)
+# 5c(b): ssm_scan at jamba's full-width layer, B=1 S=2048 di=16,384 ds=16.
+SSM_TRAIN_SHAPE = (1, 2048, 16_384, 16)
+# 5c(c): gemma3-12b's cut group at 2048 positions under each policy. The
+# grads of a policy against "full"'s, each leaf to GRAD_RTOL of its largest
+# entry: the recompute runs the same kernels on the same inputs, but the
+# card's embedding backward adds by atomics in no fixed order.
+REMAT_POLICIES = ("full", "dots", "nothing")
+# 5c(d): stablelm-1.6b cut to 2 layers at full width, 3 compressed steps.
+COMPRESS_LAYERS, COMPRESS_STEPS = 2, 3
+STABLELM_CUT2_PARAMS = 513_812_480
+
+
+def _train_launches(cfg) -> dict:
+    """Each kernel's launches a training step: one a layer the forward
+    runs, the layers inside the remat (the groups, the encoder) twice
+    under `"dots"` and `"nothing"`; the `first` layers once. Cross-
+    attention is one more flash call a decoder layer."""
+    from repro_torch.configs.base import ATTN, MAMBA, MLA, MLSTM, SWA
+    r = remat_runs(cfg)
+    attn, cross = (ATTN, SWA, MLA), int(cfg.encoder_layers > 0)
+    first = cfg.first_k_dense * (int(cfg.pattern[0] in attn) + cross)
+    group = cfg.num_groups * (sum(k in attn for k in cfg.pattern)
+                              + cross * len(cfg.pattern))
+    return {"flash_attention": first + r * (group + cfg.encoder_layers),
+            "mlstm_scan": r * cfg.num_groups * cfg.pattern.count(MLSTM),
+            "ssm_scan": r * cfg.num_groups * cfg.pattern.count(MAMBA),
+            "int8_matmul": 0}
+
+
+def _launch_train_one(what: str, cfg, params, batch: int, seq_len: int,
+                      n_params: int) -> dict:
+    """`launch.train.train` for LAUNCH_STEPS steps from `params`: finite
+    losses, each kernel launched as `_train_launches` says; step ms of the
+    timed steps, peak memory."""
+    from repro_torch.launch.train import train
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ends = []
+
+    def on_step(step, metrics):   # an event at each step's end, no sync
+        ends.append(torch.cuda.Event(enable_timing=True))
+        ends[-1].record()
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    losses = train(cfg, steps=LAUNCH_STEPS, batch=batch, seq_len=seq_len,
+                   params=params, log_every=LAUNCH_STEPS, on_step=on_step)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = launch_counts()
+    step_ms = [a.elapsed_time(b) for a, b in zip(ends, ends[1:])]
+    want = {k: n * LAUNCH_STEPS for k, n in _train_launches(cfg).items()}
+    if launches != want:
+        raise AssertionError(f"{what}: launches {launches}, want {want}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{what}: non-finite loss {losses}")
+    moments = 2 * (4 if cfg.opt_state_dtype == "float32" else 2)
+    out = {"params": n_params, "remat_policy": cfg.remat_policy,
+           "batch": f"{batch}x{seq_len}", "losses": losses,
+           "step_ms": statistics.median(step_ms), "all_step_ms": step_ms,
+           "wall_ms": wall_ms,
+           "state_bytes": n_params * (2 + 2 + moments),
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "launches": launches}
+    log(f"[launch] {what}: {n_params} params ({cfg.param_dtype}, "
+        f"{cfg.opt_state_dtype} moments; params, grads and moments "
+        f"{out['state_bytes']} bytes), remat_policy {cfg.remat_policy!r}, "
+        f"global batch {batch} x {seq_len}: losses {losses}; step ms "
+        f"(CUDA events between step ends) median of {LAUNCH_STEPS - 1} "
+        f"after a warm-up {out['step_ms']:.3f}, all "
+        f"{[round(x, 3) for x in step_ms]}; train() {wall_ms:.1f} ms on the "
+        f"host clock, set-up and warm-up included; "
+        f"{batch * seq_len / (out['step_ms'] / 1e3):.1f} tokens/s; "
+        f"max_memory_allocated {out['max_memory_allocated']} bytes; "
+        f"launches {launches} = a step's {_train_launches(cfg)} x "
+        f"{LAUNCH_STEPS} steps")
+    return out
+
+
+def launch_train_zoo() -> dict:
+    """5c(a): every arch but mixtral (phase 5b) through the launcher's
+    loop at full width, cut by depth where LAUNCH_TRAIN says; jamba at its
+    smoke config (`launch_config(..., smoke=True)`, fp32)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.train import launch_config
+    out = {}
+    for i, (arch, layers, batch, seq_len, want) in enumerate(LAUNCH_TRAIN):
+        cfg = get_config(arch)
+        if layers:
+            cfg = cfg.scaled(num_layers=layers)
+        what = f"{arch}" + (f" cut to {layers} layers" if layers else
+                            " whole")
+        params = _init_checked(cfg, SEED + 20 + i, want)
+        out[arch] = _launch_train_one(what, cfg, params, batch, seq_len,
+                                      want)
+        del params
+        release_memory()
+    cfg = launch_config("jamba-1.5-large-398b", smoke=True)
+    params, n = _init_full(cfg, SEED + 30)
+    out["jamba-1.5-large-398b smoke"] = _launch_train_one(
+        f"jamba-1.5-large-398b smoke (d={cfg.d_model}, {cfg.num_layers} "
+        f"layers, fp32; a full-width group does not fit: {JAMBA_CUT_PARAMS} "
+        f"params)", cfg, params, *JAMBA_SMOKE_TRAIN, n)
+    return out
+
+
+def check_ssm_scan_backward(gen) -> dict:
+    """5c(b): `_SSMScan` at jamba's full-width layer shape (x bf16, dt, B,
+    C fp32): y against the plain version (SSM_TOL) and every gradient
+    against autograd through `ssm_scan_ref` on the card (both run the same
+    plain backward on the same inputs); the forward + backward's ms. Then
+    jamba's smoke model, fp32, card vs CPU: loss and every gradient leaf."""
+    from repro_torch.bridge import init_params, params_to
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_ref
+    from repro_torch.models import build_model
+    b, s, di, ds = SSM_TRAIN_SHAPE
+    args, h0 = _ssm_case(gen, b, s, di, ds, torch.bfloat16, torch.float32)
+    cot = torch.randn(b, s, di, generator=gen, device="cuda")
+
+    def fwd_bwd(fn):
+        leaves = [t.detach().requires_grad_(True) for t in args]
+        y, h1 = fn(*leaves)
+        grads = torch.autograd.grad((y.float() * cot).sum(), leaves)
+        return (y.detach(), h1.detach()), grads
+
+    reset_launch_counts()
+    y, grads = fwd_bwd(ssm_scan)
+    if ssm_scan.launches != 1:
+        raise AssertionError(f"ssm_scan launched {ssm_scan.launches} times "
+                             "in one forward + backward")
+    y_ref, grads_ref = fwd_bwd(ssm_scan_ref)
+    err = _ssm_err("through _SSMScan at the train shape", y, y_ref)
+    grad_err = 0.0
+    for name, a, r in zip(("x", "dt", "B", "C", "A", "D"), grads, grads_ref):
+        rel = float((a.float() - r.float()).abs().max()) / max(
+            float(r.float().abs().max()), 1e-30)
+        if not (torch.isfinite(a).all() and rel <= GRAD_RTOL):
+            raise AssertionError(f"ssm_scan d{name}: {rel} > {GRAD_RTOL}")
+        grad_err = max(grad_err, rel)
+    del y, y_ref, grads, grads_ref
+    ms = cuda_ms(lambda: fwd_bwd(ssm_scan), 2, warmup=0)
+    plain_ms = cuda_ms(lambda: fwd_bwd(ssm_scan_ref), 2, warmup=0)
+    log(f"[launch] ssm_scan through _SSMScan at B={b} S={s} di={di} ds={ds} "
+        f"(x bf16, dt/B/C fp32): y max_abs_err {err} (tol "
+        f"{SSM_TOL[torch.bfloat16]}, h_last {SSM_TOL[torch.float32]}); dx, ddt, dB, dC, dA, dD against "
+        f"autograd through ssm_scan_ref on the card: max err / max |g| "
+        f"{grad_err} (tol {GRAD_RTOL}); forward + backward {ms:.3f} ms "
+        f"(kernel forward, plain recompute backward), all plain "
+        f"{plain_ms:.3f} ms")
+    release_memory()
+
+    cfg = get_smoke_config("jamba-1.5-large-398b").scaled(
+        param_dtype="float32")
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED))
+    figures = _grads_card_vs_cpu("jamba smoke", build_model(cfg), params,
+                                 params_to(params, "cpu"),
+                                 _train_tokens(cfg.vocab_size, 64))
+    log(f"[launch] jamba-1.5-large-398b smoke (MoE {cfg.moe.dispatch}), "
+        f"fp32, 2x64 tokens, card vs CPU: {figures}")
+    return {"shape": f"B={b} S={s} di={di} ds={ds} x bf16",
+            "fwd_bwd_ms": ms, "plain_fwd_bwd_ms": plain_ms,
+            "y_max_abs_err": err, "grad_rel_err": grad_err}
+
+
+def check_remat_on_the_card() -> dict:
+    """5c(c): gemma3-12b cut to one 6-layer group, bf16, 1 x 2048 tokens:
+    every gradient leaf under "dots" and "nothing" against "full"'s, and
+    each policy's peak memory above what the step started with."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import build_model
+    from repro_torch.train.train_step import value_and_grad
+    from repro_torch.tree import tree_leaves
+    cfg = get_config("gemma3-12b").scaled(num_layers=6)
+    params = _init_checked(cfg, SEED + 40, LAUNCH_TRAIN[3][4])
+    batch = {"tokens": _train_tokens(cfg.vocab_size, 2048)[:1].cuda()}
+    out, full = {}, None
+    for policy in REMAT_POLICIES:
+        model = build_model(cfg.scaled(remat_policy=policy))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        (loss, _), grads = value_and_grad(model, params, batch)
+        grads = tree_leaves(grads)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        flash = launch_counts()["flash_attention"]
+        if flash != _train_launches(model.cfg)["flash_attention"]:
+            raise AssertionError(f"remat {policy}: flash launched {flash}")
+        if full is None:
+            full, equal, worst = (float(loss), grads), len(grads), 0.0
+        else:
+            if float(loss) != full[0]:
+                raise AssertionError(f"remat {policy}: loss {float(loss)} vs "
+                                     f"full {full[0]}")
+            equal, worst = 0, 0.0
+            for a, r in zip(grads, full[1]):
+                equal += bool(torch.equal(a, r))
+                rel = float((a.float() - r.float()).abs().max()) / max(
+                    float(r.float().abs().max()), 1e-30)
+                if not rel <= GRAD_RTOL:
+                    raise AssertionError(f"remat {policy} grad "
+                                         f"{tuple(a.shape)}: {rel}")
+                worst = max(worst, rel)
+            del grads
+        out[policy] = {"peak_bytes": peak, "leaves_bit_equal": equal,
+                       "leaves": len(full[1]), "max_rel_err": worst,
+                       "flash_launches": flash}
+        log(f"[launch] remat {policy!r}, gemma3-12b cut to 6 layers, 1x2048 "
+            f"bf16: loss {float(loss)}; peak memory above the params "
+            f"{peak} bytes; {equal} of {len(full[1])} gradient leaves "
+            f"bit-equal to 'full''s, max err / max |g| {worst} (tol "
+            f"{GRAD_RTOL}); flash launches {flash}")
+        release_memory()
+    return out
+
+
+def check_compression() -> dict:
+    """5c(d): `make_compressing_train_step` for COMPRESS_STEPS steps on
+    stablelm-1.6b cut to 2 layers at full width (bf16, every leaf of 4096
+    elements and up through int8 with error feedback): finite losses, a
+    finite error feedback; `quantize_int8` on the card against the CPU, bit
+    for bit, on a stablelm-sized leaf."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import build_model
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.parallel.compression import (
+        init_error_feedback, make_compressing_train_step, quantize_int8)
+    from repro_torch.tree import tree_leaves
+    cfg = get_config("stablelm-1.6b").scaled(num_layers=COMPRESS_LAYERS)
+    params = _init_checked(cfg, SEED + 50, STABLELM_CUT2_PARAMS)
+    opt = adamw_init(params, cfg.opt_state_dtype)
+    efb = init_error_feedback(params)
+    step = make_compressing_train_step(
+        build_model(cfg), AdamWConfig(state_dtype=cfg.opt_state_dtype))
+    batch = {"tokens": _train_tokens(cfg.vocab_size, 2048).cuda()}
+    losses, step_ms = [], []
+    reset_launch_counts()
+    for _ in range(COMPRESS_STEPS):
+        t0 = time.perf_counter()
+        params, opt, efb, m = step(params, opt, efb, batch)
+        losses.append(float(m["loss"]))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = launch_counts()
+    efb_max = max(float(e.abs().max()) for e in tree_leaves(efb))
+    if not (all(math.isfinite(x) for x in losses) and math.isfinite(efb_max)
+            and efb_max > 0):
+        raise AssertionError(f"compression: losses {losses}, error feedback "
+                             f"max {efb_max}")
+    want = COMPRESS_STEPS * _train_launches(cfg)["flash_attention"]
+    if launches["flash_attention"] != want:
+        raise AssertionError(f"compression: launches {launches}")
+    x = torch.randn(*STABLELM_UP, generator=torch.Generator(
+        device="cuda").manual_seed(SEED + 51), device="cuda")
+    q, s = quantize_int8(x)
+    q_cpu, s_cpu = quantize_int8(x.cpu())
+    if not (torch.equal(q.cpu(), q_cpu) and torch.equal(s.cpu(), s_cpu)):
+        raise AssertionError("quantize_int8 on the card differs from the CPU")
+    log(f"[launch] make_compressing_train_step, stablelm-1.6b cut to "
+        f"{COMPRESS_LAYERS} layers ({STABLELM_CUT2_PARAMS} params, bf16), "
+        f"2x2048 tokens: losses {losses}; error feedback max |e| {efb_max}; "
+        f"step ms {[round(t, 3) for t in step_ms]}; launches {launches}; "
+        f"quantize_int8 of a {STABLELM_UP} fp32 leaf on the card equal to "
+        f"the CPU's bit for bit (scale {float(s)})")
+    return {"losses": losses, "step_ms": step_ms, "launches": launches}
+
+
+LAUNCH_SERVE_MODAL = {"seamless-m4t-medium": "frames",
+                      "internvl2-2b": "image_embeds"}
+
+
+def launch_serve_zoo() -> dict:
+    """5c(e): `repro_torch.launch.serve` with `--smoke` for each of the ten
+    arches on the card (its default device): the two modal arches raise
+    KeyError as the reference's do; stablelm-1.6b and xlstm-125m at full
+    size; and the module itself once as `python -m`."""
+    import contextlib
+    import io
+    from repro_torch.configs.registry import ARCH_IDS
+    from repro_torch.launch import serve
+    out = {}
+    runs = [(a, ["--arch", a, "--smoke"]) for a in ARCH_IDS] + [
+        (f"{a} full", ["--arch", a]) for a in ("stablelm-1.6b", "xlstm-125m")]
+    for what, argv in runs:
+        reset_launch_counts()
+        buf = io.StringIO()
+        arch = argv[1]
+        try:
+            with contextlib.redirect_stdout(buf):
+                serve.main(argv)
+        except KeyError as e:
+            if arch not in LAUNCH_SERVE_MODAL or \
+                    e.args != (LAUNCH_SERVE_MODAL[arch],):
+                raise
+            line = f"KeyError {e} (the engine takes tokens only)"
+        else:
+            if arch in LAUNCH_SERVE_MODAL:
+                raise AssertionError(f"{what}: served without its modality")
+            line = buf.getvalue().strip().splitlines()[-1]
+            if not line.startswith("8 requests, 64 tokens"):
+                raise AssertionError(f"{what}: {line}")
+        out[what] = {"line": line, "launches": launch_counts()}
+        log(f"[launch] serve {what}: {line}; launches {out[what]['launches']}")
+        release_memory()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         "stablelm-1.6b", "--smoke"], capture_output=True, text=True,
+        timeout=300, cwd=ROOT, env={**os.environ,
+                                    "PYTHONPATH": str(ROOT / "src")})
+    if proc.returncode != 0 or "8 requests, 64 tokens" not in proc.stdout:
+        raise AssertionError(f"python -m repro_torch.launch.serve: rc "
+                             f"{proc.returncode}\n{proc.stdout}\n"
+                             f"{proc.stderr[-2000:]}")
+    log(f"[launch] python -m repro_torch.launch.serve --arch stablelm-1.6b "
+        f"--smoke: {proc.stdout.strip()}")
+    return out
+
+
+def launch_phase(gen) -> dict:
+    """Phase 5c: the launchers' paths, (a) to (e)."""
+    out = {"train": timed("launch train", launch_train_zoo)}
+    out["ssm_backward"] = timed("launch ssm_scan backward",
+                                check_ssm_scan_backward, gen)
+    release_memory()
+    out["remat"] = timed("launch remat", check_remat_on_the_card)
+    release_memory()
+    out["compression"] = timed("launch compression", check_compression)
+    release_memory()
+    out["serve"] = timed("launch serve", launch_serve_zoo)
+    release_memory()
+    return out
+
+
 # ------------------------------------------------------------------ phase 6
 
 # stablelm-1.6b's MLP up-projection: d_model 2048 -> d_ff 5632.
@@ -3107,7 +3664,7 @@ def train_graph() -> int:
     from repro_torch.train.lm import train_lm
 
     cfg = get_config("xlstm-125m")
-    batch, shards, seq_len, steps, every = 8, 2, 128, 4, 2
+    batch, shards, seq_len, steps, every = 8, 2, 128, 3, 2
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED + 4))
     warm = train_lm(cfg, 1, batch, seq_len, shards, params=params,
                     publish_every=every)
@@ -3119,7 +3676,7 @@ def train_graph() -> int:
     launches = mlstm_scan.launches
     stats = res.stats
 
-    # the --sync loop from the same weights over the same 1 + 4 steps
+    # the --sync loop from the same weights over the same 1 + 3 steps
     # (the task graph left `params` as they were)
     sync_warm = train_lm(cfg, 1, batch, seq_len, shards, params=params,
                          sync=True)
@@ -3128,10 +3685,12 @@ def train_graph() -> int:
     graph_losses = warm.losses + res.losses
     sync_losses = sync_warm.losses + sync.losses
 
-    want = cfg.pattern.count(MLSTM) * cfg.num_groups * shards * steps
+    want = cfg.pattern.count(MLSTM) * cfg.num_groups * shards * steps \
+        * remat_runs(cfg)
     if launches != want:
         raise AssertionError(f"mlstm_scan launched {launches} times, want "
-                             f"{want} (mLSTM layers x shards x steps)")
+                             f"{want} (mLSTM layers x shards x steps x "
+                             f"forwards a step under remat)")
     if stats["kernel_tasks"] != shards * steps:
         raise AssertionError(f"{stats['kernel_tasks']} kernel tasks, want "
                              f"{shards * steps}")
@@ -3153,8 +3712,9 @@ def train_graph() -> int:
     log(f"[train graph] losses of the 1 + {steps} steps vs --sync: max rel "
         f"err {rel} (tol {LOSS_RTOL}); --sync {sync_losses}")
     log(f"[train graph] mlstm_scan launches {launches} = "
-        f"{want // (shards * steps)} mLSTM layers x {shards} shards x {steps} "
-        f"steps; profiler: kernel_tasks {stats['kernel_tasks']}, "
+        f"{want // (shards * steps * remat_runs(cfg))} mLSTM layers x "
+        f"{shards} shards x {steps} steps x {remat_runs(cfg)} forwards; "
+        f"profiler: kernel_tasks {stats['kernel_tasks']}, "
         f"kernel_time_ms_mean {stats['kernel_time_ms_mean']:.3f}, "
         f"device_waits {stats['device_waits']}, param_publishes "
         f"{stats['param_publishes']}, graph_invocations "
@@ -3574,6 +4134,10 @@ def main() -> int:
         "kernels flash_attention hd 256 and 192", check_flash_new_head_dims,
         torch.Generator(device="cuda").manual_seed(SEED + 11))
     release_memory()
+    flash["at_launch_shapes"] = timed(
+        "kernels flash_attention 5c shapes", check_flash_launch_shapes,
+        torch.Generator(device="cuda").manual_seed(SEED + 17))
+    release_memory()
     timed("parity stablelm", check_card_vs_cpu)
     timed("parity xlstm", check_xlstm_card_vs_cpu)
     timed("parity mixtral", check_mixtral_card_vs_cpu)
@@ -3598,11 +4162,21 @@ def main() -> int:
     release_memory()
     dense = timed("serve phi3 and mistral-large", serve_dense_models, card)
     release_memory()
-    ssm["launches"] = jamba["ssm_scan"]
     mlstm_sync = timed("train", train_full_model)
     release_memory()
     mixtral_train = timed("train mixtral", train_mixtral)
     release_memory()
+    launch = timed("launch", launch_phase,
+                   torch.Generator(device="cuda").manual_seed(SEED + 13))
+    release_memory()
+    launch_paths = {
+        **{f"launch.train {a} (phase 5c a)": r["launches"]
+           for a, r in launch["train"].items()},
+        **{f"remat {p} (phase 5c c)": {"flash_attention": r["flash_launches"]}
+           for p, r in launch["remat"].items()},
+        "compressing step (phase 5c d)": launch["compression"]["launches"],
+        **{f"launch.serve {a} (phase 5c e)": r["launches"]
+           for a, r in launch["serve"].items()}}
     flash["launches_by_path"] = {
         "serve stablelm-1.6b": stablelm_flash,
         "serve_llm --full through the FrontDoor (phase 4c)":
@@ -3618,14 +4192,25 @@ def main() -> int:
         **{f"serve {name} (phase 4g)": r["flash"]
            for name, r in dense.items()},
         **{f"train mixtral-8x22b cut, {what} (phase 5b)": n
-           for what, n in mixtral_train.items()}}
+           for what, n in mixtral_train.items()},
+        **{p: n["flash_attention"] for p, n in launch_paths.items()
+           if n["flash_attention"]}}
     flash["launches"] = sum(flash["launches_by_path"].values())
+    ssm["launches_by_path"] = {
+        "serve jamba cut (phase 4b)": jamba["ssm_scan"],
+        "_SSMScan at the train shape (phase 5c b)": 1,
+        **{p: n["ssm_scan"] for p, n in launch_paths.items()
+           if n.get("ssm_scan")}}
+    ssm["launches"] = sum(ssm["launches_by_path"].values())
     int8, round_trip_us = timed("compute", compute_plane, gen)
     release_memory()
     mlstm_graph = timed("train graph", train_graph)
-    mlstm["launches"] = mlstm_sync + mlstm_graph
-    mlstm["launches_by_path"] = {"train --sync (phase 5)": mlstm_sync,
-                                 "train task graph (phase 7)": mlstm_graph}
+    mlstm["launches_by_path"] = {
+        "train --sync (phase 5)": mlstm_sync,
+        "train task graph (phase 7)": mlstm_graph,
+        **{p: n["mlstm_scan"] for p, n in launch_paths.items()
+           if n.get("mlstm_scan")}}
+    mlstm["launches"] = sum(mlstm["launches_by_path"].values())
     release_memory()
 
     # phases 8-8d run no Pallas kernel's counterpart: their launches are

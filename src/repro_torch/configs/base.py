@@ -148,3 +148,20 @@ class ShapeConfig:
     kind: str            # train | prefill | decode
     seq_len: int
     global_batch: int
+
+
+TRAIN_4K = ShapeConfig("train_4k", "train", 4096, 256)
+PREFILL_32K = ShapeConfig("prefill_32k", "prefill", 32_768, 32)
+DECODE_32K = ShapeConfig("decode_32k", "decode", 32_768, 128)
+LONG_500K = ShapeConfig("long_500k", "decode", 524_288, 1)
+
+ALL_SHAPES = (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
+
+
+def shapes_for(cfg: ModelConfig) -> Tuple[ShapeConfig, ...]:
+    """Shape cells that apply to this architecture (long_500k only for
+    sub-quadratic archs)."""
+    out = [TRAIN_4K, PREFILL_32K, DECODE_32K]
+    if cfg.sub_quadratic:
+        out.append(LONG_500K)
+    return tuple(out)

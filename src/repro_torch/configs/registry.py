@@ -7,7 +7,7 @@ from repro_torch.configs import (deepseek_v2_236b, gemma3_12b, internvl2_2b,
                                   mixtral_8x22b, phi3_medium_14b,
                                   seamless_m4t_medium, stablelm_1_6b,
                                   xlstm_125m)
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, shapes_for
 
 _MODULES = {
     "xlstm-125m": xlstm_125m,
@@ -37,3 +37,11 @@ def get_config(arch: str) -> ModelConfig:
 
 def get_smoke_config(arch: str) -> ModelConfig:
     return _module(arch).SMOKE
+
+
+def all_cells():
+    """Yield every (arch, shape) cell (34 in all; long_500k only for
+    sub-quadratic archs), in the reference's order."""
+    for arch in ARCH_IDS:
+        for shape in shapes_for(get_config(arch)):
+            yield arch, shape

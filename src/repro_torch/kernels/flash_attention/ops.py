@@ -5,9 +5,11 @@ launches the Hopper kernel (`csrc/flash_attention.cu`) or raises: there is
 no fallback on the card. bf16 runs on the tensor cores (`mma.sync`, every
 row start 16-byte aligned for its `cp.async` copies), fp32 on the CUDA
 cores, each at head_dim 32, 64, 128, 192 (MLA's queries and keys) and 256
-(gemma3); any other head_dim raises on the card. q, k and v share one
-head_dim: MLA pads its values to it. `flash_attention.launches` counts
-kernel launches.
+(gemma3). A smaller head_dim between these (deepseek's smoke MLA, 48) is
+zero-padded on the card to the next one, q scaled to keep the softmax
+scale 1/sqrt(head_dim), and the output cropped back (`_padded`); one above
+256 raises. q, k and v share one head_dim: MLA pads its values to it.
+`flash_attention.launches` counts kernel launches.
 
 The kernel is a forward only, as the Pallas kernel is. Where autograd needs
 a gradient on the card, `_FlashAttention` runs the kernel forward and gets
@@ -17,9 +19,11 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 import threading
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import attention_ref
@@ -142,6 +146,20 @@ class _FlashAttention(torch.autograd.Function):
                 *(next(grads) if t.requires_grad else None for t in inputs))
 
 
+def _padded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+            causal: bool, window: int) -> torch.Tensor:
+    """`flash_attention` at a head_dim between the kernel's: q, k and v
+    zero-padded to the next of HEAD_DIMS, q scaled by sqrt(padded /
+    head_dim) so that the kernel's 1/sqrt(padded) makes 1/sqrt(head_dim);
+    the padded columns add 0 to q.k and give 0 columns of the output, which
+    are cropped. Exact but for the scaling's rounding of q."""
+    hd = q.shape[-1]
+    wide = next(d for d in HEAD_DIMS if d > hd)
+    q = F.pad(q * math.sqrt(wide / hd), (0, wide - hd))
+    k, v = (F.pad(t, (0, wide - hd)) for t in (k, v))
+    return flash_attention(q, k, v, causal=causal, window=window)[..., :hd]
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """q: (B,H,S,hd); k,v: (B,Hkv,T,hd) -> (B,H,S,hd) in q.dtype.
@@ -154,6 +172,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu" and k.device.type == "cpu" \
             and v.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window)
+    hd = q.shape[-1]
+    if hd not in HEAD_DIMS and hd < HEAD_DIMS[-1] and q.dim() == 4 \
+            and k.shape[-1] == v.shape[-1] == hd:
+        return _padded(q, k, v, causal=causal, window=window)
     _check(q, k, v, window)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return _FlashAttention.apply(_launch, causal, window, q, k, v)

@@ -4,9 +4,10 @@ A CPU tensor goes to the plain version (`ref.ssm_scan_ref`). A CUDA tensor
 launches the Hopper kernel (`csrc/ssm_scan.cu`) or raises: there is no
 fallback on the card. `ssm_scan.launches` counts kernel launches.
 
-The kernel has no backward yet: on the card a call that would need a
-gradient raises `NotImplementedError` (ROADMAP B4-bwd). Serving, the path
-this kernel is on, runs under `torch.inference_mode()`.
+On the card a call that needs a gradient goes through `_SSMScan`: the
+kernel launch is its forward, and its backward recomputes the plain version
+under autograd (a backward kernel is ROADMAP B4-bwd). A call that needs no
+gradient (serving, decode) launches bare.
 """
 from __future__ import annotations
 
@@ -113,11 +114,41 @@ def _launch(x, dt, b_t, c_t, a, d, h0: Optional[torch.Tensor]):
     return y, h1
 
 
+class _SSMScan(torch.autograd.Function):
+    """Forward by `forward_fn` (the kernel launch on the card); backward by
+    recomputing `ssm_scan_ref` under autograd, for every input that needs a
+    gradient. h_last takes a cotangent where one is given (training gives
+    none)."""
+
+    @staticmethod
+    def forward(ctx, forward_fn, x, dt, b_t, c_t, a, d, h0):
+        y, h1 = forward_fn(x, dt, b_t, c_t, a, d, h0)
+        ctx.save_for_backward(x, dt, b_t, c_t, a, d, h0)
+        ctx.set_materialize_grads(False)
+        return y, h1
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        saved = ctx.saved_tensors
+        needs = ctx.needs_input_grad[1:]
+        inputs = [None if t is None else t.detach().requires_grad_(need)
+                  for t, need in zip(saved, needs)]
+        with torch.enable_grad():
+            y, h1 = ssm_scan_ref(*inputs)
+        pairs = [(o, g) for o, g in ((y, dy), (h1, dh)) if g is not None]
+        wanted = [t for t in inputs if t is not None and t.requires_grad]
+        grads = iter(torch.autograd.grad(
+            [o for o, _ in pairs], wanted, [g for _, g in pairs],
+            allow_unused=True) if pairs and wanted else ())
+        return (None, *(next(grads) if t is not None and t.requires_grad
+                         else None for t in inputs))
+
+
 def ssm_scan(x, dt, b_t, c_t, a, d, h0: Optional[torch.Tensor] = None):
     """x, dt: (B,S,di); b_t, c_t: (B,S,ds); a: (di,ds) fp32; d: (di,) fp32;
     h0: (B,di,ds) fp32 or None (zeros). x fp32 or bf16; dt, B, C fp32 or
     bf16, one type for the three. Returns (y (B,S,di) in x.dtype, h_last
-    (B,di,ds) fp32).
+    (B,di,ds) fp32). Differentiable in every tensor input.
 
     x, dt, B and C are read by strides, so column slices of a wider
     activation (the B and C of `x_proj`'s output) need no copy."""
@@ -125,11 +156,10 @@ def ssm_scan(x, dt, b_t, c_t, a, d, h0: Optional[torch.Tensor] = None):
     if all(t.device.type == "cpu" for t in tensors):
         return ssm_scan_ref(x, dt, b_t, c_t, a, d, h0)
     _check(x, dt, b_t, c_t, a, d, h0)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            "ssm_scan has no backward kernel yet (ROADMAP B4-bwd); call it "
-            "under torch.no_grad() or torch.inference_mode()")
-    return _launch(x, dt, b_t, c_t, a, d, h0)
+    if not (torch.is_grad_enabled()
+            and any(t.requires_grad for t in tensors)):
+        return _launch(x, dt, b_t, c_t, a, d, h0)
+    return _SSMScan.apply(_launch, x, dt, b_t, c_t, a, d, h0)
 
 
 ssm_scan.launches = 0

@@ -35,19 +35,29 @@ Public surface:
 their aux losses across layers in `forward` and `loss_fn`; prefill and
 decode drop them, as the reference does. Vocabularies of
 `CHUNKED_LOSS_VOCAB` and up take the chunked loss above 1024 positions.
-The reference's `remat_policy` is not ported: autograd keeps every
-activation.
+
+The config's `remat_policy` applies under autograd, as the reference's
+`_remat` does: each decoder group and each encoder layer runs inside a
+non-reentrant `torch.utils.checkpoint` (the `first` layers run outside it,
+as the reference runs them outside its scan). `"full"` keeps every
+activation; `"nothing"` keeps only the group's inputs and recomputes the
+rest in the backward; `"dots"` also keeps the outputs of the weight GEMMs
+(`save_dots`, JAX's `dots_with_no_batch_dims_saveable`). A kernel inside a
+recomputed group launches again in the backward, into fresh buffers.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import (ATTN, DENSE, MAMBA, MLA, MLSTM, MOE,
-                                      NONE, SLSTM, SWA, ModelConfig)
+                                      NONE, SLSTM, SWA, ModelConfig,
+                                      ShapeConfig)
 from repro_torch.models import attention as attn
 from repro_torch.models import moe, ssm, xlstm
 from repro_torch.models.layers import (embed_tokens, rmsnorm, softmax_xent,
@@ -92,6 +102,23 @@ def check_supported(cfg: ModelConfig) -> None:
         raise ValueError(f"{cfg.name}: MLA layers need cfg.mla")
     if MOE in cfg.ffn_pattern and cfg.moe is None:
         raise ValueError(f"{cfg.name}: MoE layers need cfg.moe")
+
+
+_aten = torch.ops.aten
+
+
+def save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """The `"dots"` policy: keep the output of a matrix product with no
+    batch dimension, recompute everything else. A weight GEMM reaches the
+    policy as `aten.mm` (`x @ w`) or as an `aten.bmm` of batch 1 (what
+    `einsum("btd,df->btf")` becomes); attention's and the experts' products
+    are `bmm`s of a batch above 1. So the batch size decides, not the op's
+    name. Allocations (`torch.empty`, the buffers a kernel writes) are
+    never kept."""
+    if op in (_aten.mm.default, _aten.addmm.default) or (
+            op is _aten.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
 
 
 def _layer(group: Params, g: int) -> Params:
@@ -187,6 +214,37 @@ class Model:
             return xlstm.mlstm_mix(lp["mixer"], cfg, x)[0]
         return xlstm.slstm_mix(lp["mixer"], cfg, x)[0]
 
+    def _remat(self, fn):
+        """`fn` under the config's remat policy: `"full"` as it is,
+        `"dots"` checkpointed keeping `save_dots`'s products, anything else
+        (`"nothing"`) checkpointed keeping only its inputs. Without grad
+        `fn` runs as it is."""
+        pol = self.cfg.remat_policy
+        if pol == "full":
+            return fn
+        kw = {}
+        if pol == "dots":
+            kw["context_fn"] = functools.partial(
+                create_selective_checkpoint_contexts, save_dots)
+
+        def run(*args):
+            if not torch.is_grad_enabled():
+                return fn(*args)
+            return checkpoint(fn, *args, use_reentrant=False, **kw)
+        return run
+
+    def _layer_forward(self, lp: Params, kind: str, ffn: str, h, aux,
+                       enc_out=None):
+        """One decoder layer: mixer, cross-attention to the encoder where
+        there is one, FFN (a MoE layer adds its aux losses into `aux`)."""
+        cfg = self.cfg
+        mix_in = rmsnorm(lp["pre_norm"], h, cfg.norm_eps)
+        h = h + self._mix(lp, kind, mix_in)
+        if enc_out is not None and "cross" in lp:
+            h = self._cross(lp, h, attn.encode_cross_kv(lp["cross"], cfg,
+                                                        enc_out))
+        return self._ffn(lp, ffn, h, aux)
+
     def _cross(self, lp: Params, h, enc_kv):
         """h + cross-attention to the encoder's keys and values."""
         c_in = rmsnorm(lp["cross_norm"], h, self.cfg.norm_eps)
@@ -199,12 +257,16 @@ class Model:
         cfg = self.cfg
         enc = params["encoder"]
         h = frames.to(params["frame_proj"].dtype) @ params["frame_proj"]
-        for e in range(cfg.encoder_layers):
-            lp = _layer(enc["layers"], e)
+
+        def enc_layer(lp, h):
             mix_in = rmsnorm(lp["pre_norm"], h, cfg.norm_eps)
             h = h + attn.attention_forward(lp["mixer"], cfg, mix_in,
                                            causal=False)
-            h = self._ffn(lp, DENSE, h)
+            return self._ffn(lp, DENSE, h)
+
+        for e in range(cfg.encoder_layers):
+            h = self._remat(functools.partial(
+                enc_layer, _layer(enc["layers"], e)))(h)
         return rmsnorm(enc["final_norm"], h, cfg.norm_eps)
 
     def _embed_inputs(self, params: Params, batch):
@@ -224,13 +286,21 @@ class Model:
         cfg = self.cfg
         h, enc_out = self._embed_inputs(params, batch)
         aux = self._zero_aux(h.device)
-        for kind, ffn, lp, _ in self._layers(params):
-            mix_in = rmsnorm(lp["pre_norm"], h, cfg.norm_eps)
-            h = h + self._mix(lp, kind, mix_in)
-            if enc_out is not None and "cross" in lp:
-                h = self._cross(lp, h, attn.encode_cross_kv(lp["cross"], cfg,
-                                                            enc_out))
-            h = self._ffn(lp, ffn, h, aux)
+        for lp in params.get("first", []):     # outside the remat
+            h = self._layer_forward(lp, cfg.pattern[0], DENSE, h, aux,
+                                    enc_out)
+
+        def group(layers, h, lb, z):
+            g_aux = {"moe_lb_loss": lb, "moe_z_loss": z}
+            for kind, ffn, lp in zip(cfg.pattern, cfg.ffn_pattern, layers):
+                h = self._layer_forward(lp, kind, ffn, h, g_aux, enc_out)
+            return h, g_aux["moe_lb_loss"], g_aux["moe_z_loss"]
+
+        for g in range(cfg.num_groups):
+            layers = [_layer(stack, g) for stack in params["groups"]]
+            h, aux["moe_lb_loss"], aux["moe_z_loss"] = self._remat(
+                functools.partial(group, layers))(
+                    h, aux["moe_lb_loss"], aux["moe_z_loss"])
         return rmsnorm(params["final_norm"], h, cfg.norm_eps), aux
 
     def forward(self, params: Params, batch) -> Tuple[torch.Tensor, Dict]:
@@ -433,6 +503,32 @@ class Model:
             h = self._ffn(lp, ffn, h)
         h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
         return self._unembed(params, h), cache
+
+
+    # -------------------------------------------------------------- specs
+
+    def input_specs(self, shape: ShapeConfig) -> Dict[str, torch.Tensor]:
+        """Stand-ins on the `meta` device for every model input of this
+        cell: the shapes and dtypes of the reference's ShapeDtypeStructs."""
+        cfg = self.cfg
+        b, s = shape.global_batch, shape.seq_len
+
+        def spec(shape, dtype):
+            return torch.empty(shape, dtype=dtype, device="meta")
+
+        dt, i32 = torch_dtype(cfg.param_dtype), torch.int32
+        if shape.kind in ("train", "prefill"):
+            if cfg.input_mode == "frames":
+                return {"frames": spec((b, s, cfg.frame_dim or cfg.d_model),
+                                       dt),
+                        "tokens": spec((b, s), i32)}
+            if cfg.input_mode == "tokens+image":
+                p = cfg.num_image_tokens
+                return {"image_embeds": spec((b, p, cfg.d_model), dt),
+                        "tokens": spec((b, s - p), i32)}
+            return {"tokens": spec((b, s), i32)}
+        # decode: one new token against a cache of length seq_len
+        return {"tokens": spec((b, 1), i32)}
 
 
 def build_model(cfg: ModelConfig) -> Model:

@@ -193,6 +193,29 @@ def test_card_tensors_that_need_grad_go_through_the_function(monkeypatch):
     assert calls == [(True, 0), (True, 0), (True, 8)]
 
 
+@pytest.mark.parametrize("hd,wide", [(48, 64), (96, 128), (20, 32)])
+def test_head_dims_between_the_kernels_are_padded(monkeypatch, hd, wide):
+    """Off the CPU a head_dim between the kernel's launches it at the next
+    one (q, k, v zero-padded, q scaled) and crops the output; the same
+    padding through the plain version gives the unpadded result (fp32)."""
+    shapes = []
+
+    def launch(q, k, v, *, causal, window):
+        shapes.append(tuple(q.shape))
+        return torch.empty_like(q)
+
+    monkeypatch.setattr(ops, "_launch", launch)
+    q, k, v = (torch.empty(1, 4, 16, hd, device="meta") for _ in range(3))
+    assert flash_attention(q, k, v).shape == q.shape
+    assert shapes == [(1, 4, 16, wide)]
+    _, (q, k, v) = _inputs(5, 2, 4, 2, 24, 24, hd, "float32")
+    for causal, window in ((True, 0), (True, 7), (False, 0)):
+        torch.testing.assert_close(
+            ops._padded(q, k, v, causal=causal, window=window),
+            attention_ref(q, k, v, causal=causal, window=window),
+            rtol=1e-6, atol=1e-6)
+
+
 @pytest.mark.parametrize("s,t,causal,window,chunk", [
     (40, 40, True, 0, 8), (40, 40, True, 7, 16), (64, 64, True, 100, 24),
     (30, 50, False, 9, 8), (50, 30, True, 0, 16)])

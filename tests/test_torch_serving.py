@@ -128,7 +128,9 @@ def test_port_imports_neither_jax_nor_reference():
             "configs/gemma3_12b.py", "configs/deepseek_v2_236b.py",
             "configs/seamless_m4t_medium.py", "configs/internvl2_2b.py",
             "configs/phi3_medium_14b.py",
-            "configs/mistral_large_123b.py"} <= {
+            "configs/mistral_large_123b.py", "launch/train.py",
+            "launch/serve.py", "launch/mesh.py",
+            "parallel/compression.py"} <= {
         p.relative_to(pkg).as_posix() for p in files}
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 10

@@ -152,15 +152,95 @@ def test_non_cpu_tensors_never_fall_back(monkeypatch):
 
 
 def test_gradient_on_the_card_raises(monkeypatch):
-    """No backward kernel yet: a call off the CPU that needs a gradient
-    raises before it launches, naming the ROADMAP item."""
+    """A call off the CPU that needs a gradient goes to the kernel too, and
+    raises when the kernel cannot launch: the plain version never answers
+    for it."""
     def no_build(name):
-        raise AssertionError("must not reach the build")
+        raise RuntimeError(f"cannot build {name}")
     monkeypatch.setattr(_build, "load", no_build)
     ops._entry.cache_clear()
-    with pytest.raises(NotImplementedError, match="B4-bwd"):
+    with pytest.raises(RuntimeError, match="cannot build ssm_scan"):
         ssm_scan(*_meta_args(grad=True))
     ops._entry.cache_clear()
+    assert ssm_scan.launches == 0
+
+
+def _plain_forward(x, dt, b_t, c_t, a, d, h0):
+    return ssm_scan_ref(x, dt, b_t, c_t, a, d, h0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("with_state", [False, True])
+def test_custom_backward_matches_autograd(dtype, with_state):
+    """`_SSMScan` (forward by the given function, backward by recompute)
+    against autograd straight through the plain version: dx, ddt, dB, dC,
+    dA, dD and dh0, with cotangents on y and on the state out. x in
+    `dtype`, dt, B, C in fp32 (jamba's types when x is bf16). On the card
+    the forward is the kernel; here it is the plain version."""
+    _, tt = _inputs(21, 2, 24, 32, 16, dtype, param_dtype="float32")
+    rng = np.random.default_rng(22)
+    h0 = [torch.from_numpy(rng.standard_normal((2, 32, 16),
+                                               dtype=np.float32))] \
+        if with_state else []
+    cot = [torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+           for shape in ((2, 24, 32), (2, 32, 16))]
+
+    def grads(run):
+        leaves = [x.clone().requires_grad_(True) for x in (*tt, *h0)]
+        y, h1 = run(leaves)
+        loss = (y.float() * cot[0]).sum() + (h1 * cot[1]).sum()
+        return torch.autograd.grad(loss, leaves)
+
+    def custom(leaves):
+        return ops._SSMScan.apply(_plain_forward, *leaves[:6],
+                                  leaves[6] if with_state else None)
+
+    def straight(leaves):
+        return ssm_scan_ref(*leaves)
+
+    got, want = grads(custom), grads(straight)
+    assert len(got) == 6 + len(h0)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_custom_backward_with_y_only_and_some_inputs():
+    """Training gives h_last no cotangent; inputs that need no gradient
+    (A and D frozen) get none."""
+    _, tt = _inputs(23, 1, 16, 32, 8)
+    needs = (True, True, True, True, False, False)
+    leaves = [x.clone().requires_grad_(n) for x, n in zip(tt, needs)]
+    y, _ = ops._SSMScan.apply(_plain_forward, *leaves, None)
+    got = torch.autograd.grad(y.square().sum(), leaves[:4])
+    ref = [x.clone().requires_grad_(n) for x, n in zip(tt, needs)]
+    want = torch.autograd.grad(ssm_scan_ref(*ref)[0].square().sum(), ref[:4])
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_card_tensors_that_need_grad_go_through_the_function(monkeypatch):
+    """On a non-CPU tensor that needs a gradient the wrapper launches inside
+    `_SSMScan` (backward reaches every input); without grad, or under
+    no_grad, it launches bare. Meta tensors and a stub launch stand in for
+    the card."""
+    calls = []
+
+    def launch(x, dt, b_t, c_t, a, d, h0):
+        calls.append(h0 is None)
+        return (torch.empty_like(x),
+                torch.empty(x.shape[0], x.shape[2], a.shape[1],
+                            device=x.device))
+
+    monkeypatch.setattr(ops, "_launch", launch)
+    y, _ = ssm_scan(*_meta_args())
+    assert y.grad_fn is None
+    args = [t.requires_grad_() for t in _meta_args()]
+    with torch.no_grad():
+        assert ssm_scan(*args)[0].grad_fn is None
+    y, h1 = ssm_scan(*args)
+    assert type(y.grad_fn).__name__ == "_SSMScanBackward"
+    assert calls == [True, True, True]
 
 
 def _t(*shape, dtype=torch.float32):
