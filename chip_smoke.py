@@ -395,14 +395,8 @@ def _attn_inputs(gen, b, h, hkv, s, t, hd, dtype, pad=0):
 
 
 def _valid_pairs(s: int, t: int, causal: bool, window: int) -> int:
-    qi = torch.arange(s)[:, None]
-    kj = torch.arange(t)[None, :]
-    valid = torch.ones(s, t, dtype=torch.bool)
-    if causal:
-        valid &= kj <= qi
-    if window > 0:
-        valid &= (qi - kj) < window
-    return int(valid.sum())
+    from repro_torch.kernels.cost import valid_pairs
+    return valid_pairs(s, t, causal, window)
 
 
 def _err_within(label, got, want, tol) -> float:
@@ -486,6 +480,7 @@ def _flash_times(q, k, v) -> dict:
     rate and share of the bound, and the kernel/SDPA ratio."""
     from repro_torch.kernels.flash_attention import attention_ref, flash_attention
     from repro_torch.kernels.flash_attention.ops import PATHS
+    from repro_torch.kernels.flash_attention.ops import cost as flash_cost
     b, h, s, hd = q.shape
     hkv, t = k.shape[1], k.shape[2]
     kernel_ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True), 20)
@@ -493,8 +488,7 @@ def _flash_times(q, k, v) -> dict:
     gqa = {"enable_gqa": True} if hkv != h else {}
     library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         q, k, v, is_causal=True, **gqa), 20)
-    flops = 4 * b * h * hd * _valid_pairs(s, t, True, 0)
-    nbytes = sum(x.numel() * x.element_size() for x in (q, k, v, q))
+    flops, nbytes, _ = flash_cost(q, k, v, causal=True)
     t_ops, t_bytes = flops / PEAK_FLOPS[q.dtype], nbytes / PEAK_BYTES_PER_S
     bound_ms = max(t_ops, t_bytes) * 1e3
     times = {
@@ -599,9 +593,9 @@ def _flash_window_times(q, k, v, window: int) -> dict:
     library_causal_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         q, kx, vx, is_causal=True), 10)
     del mask, kx, vx
+    from repro_torch.kernels.flash_attention.ops import cost as flash_cost
     pairs = _valid_pairs(s, t, True, window)
-    flops = 4 * b * h * hd * pairs
-    nbytes = sum(x.numel() * x.element_size() for x in (q, k, v, q))
+    flops, nbytes, _ = flash_cost(q, k, v, causal=True, window=window)
     t_ops, t_bytes = flops / PEAK_FLOPS[q.dtype], nbytes / PEAK_BYTES_PER_S
     bound_ms = max(t_ops, t_bytes) * 1e3
     times = {
@@ -752,6 +746,7 @@ def check_flash_new_head_dims(gen) -> dict:
     and SDPA (the backends that take MLA's 192/128 heads named)."""
     from repro_torch.kernels.flash_attention import attention_ref, flash_attention
     from repro_torch.kernels.flash_attention.ops import PATHS
+    from repro_torch.kernels.flash_attention.ops import cost as flash_cost
     import torch.nn.functional as F
     bf16 = torch.bfloat16
     h, hkv = GEMMA3_HEADS
@@ -797,8 +792,7 @@ def check_flash_new_head_dims(gen) -> dict:
         q, k, v, is_causal=True), 10)
     # the function MLA needs: q.k over 192 channels, P.v over 128
     pairs = _valid_pairs(s, s, True, 0)
-    flops = 2 * b * MLA_HEADS * pairs * (MLA_QK + MLA_V)
-    nbytes = 2 * b * MLA_HEADS * s * (2 * MLA_QK + 2 * MLA_V)
+    flops, nbytes, _ = flash_cost(q, k, vp, causal=True, v_head_dim=MLA_V)
     t_ops, t_bytes = flops / PEAK_FLOPS[bf16], nbytes / PEAK_BYTES_PER_S
     bound_ms = max(t_ops, t_bytes) * 1e3
     out["MLA 2x2048"] = {
@@ -853,8 +847,7 @@ def check_flash_new_head_dims(gen) -> dict:
         gqa = {"enable_gqa": True} if hkv_ != h_ else {}
         library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=causal, **gqa), 10)
-        flops = 4 * b * h_ * hd * _valid_pairs(s, t, causal, 0)
-        nbytes = sum(x.numel() * x.element_size() for x in (q, k, v, q))
+        flops, nbytes, _ = flash_cost(q, k, v, causal=causal)
         t_ops, t_bytes = flops / PEAK_FLOPS[bf16], nbytes / PEAK_BYTES_PER_S
         bound_ms = max(t_ops, t_bytes) * 1e3
         bound_by = "operations" if t_ops >= t_bytes else "bytes"
@@ -915,10 +908,11 @@ def check_flash_launch_shapes(gen) -> dict:
     """flash_attention against the plain version (TOL of the dtype, the
     plain version a chunk of query rows at a time) at every shape of
     `_launch_flash_shapes`; the MLA output's padded columns must be 0.
-    Each beside its bound and SDPA (on the unpadded values, causal, none
-    for a window)."""
+    Each beside its bound and SDPA (on the unpadded values, causal; a
+    window as a boolean mask)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+    from repro_torch.kernels.flash_attention.ops import cost as flash_cost
     out = {}
     for label, dt, b, h, hkv, s, t, hd, v_hd, causal, window in \
             _launch_flash_shapes():
@@ -936,24 +930,34 @@ def check_flash_launch_shapes(gen) -> dict:
             q, k, v, causal=causal, window=window,
             row_chunk=PLAIN_ROW_CHUNK), TOL[dt])
         ms = cuda_ms(call, 10)
-        library_ms = None
         if not window:
             gqa = {"enable_gqa": True} if hkv != h else {}
             library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v_own, is_causal=causal, **gqa), 10)
-        es = q.element_size()
-        flops = 2 * b * h * (hd + v_hd) * _valid_pairs(s, t, causal, window)
-        nbytes = es * (q.numel() + k.numel() + b * hkv * t * v_hd
-                       + b * h * s * v_hd)
+        else:
+            # the window as a boolean mask (k, v expanded to the query
+            # heads), as for mixtral's window in phase 2
+            qi = torch.arange(s, device="cuda")[:, None]
+            kj = torch.arange(t, device="cuda")[None, :]
+            mask = (qi - kj) < window
+            if causal:
+                mask &= kj <= qi
+            kx, vx = (x.repeat_interleave(h // hkv, dim=1)
+                      for x in (k, v_own))
+            library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, kx, vx, attn_mask=mask), 10)
+            del mask, kx, vx
+        flops, nbytes, _ = flash_cost(q, k, v, causal=causal, window=window,
+                                      v_head_dim=v_hd)
         t_ops, t_bytes = flops / PEAK_FLOPS[dt], nbytes / PEAK_BYTES_PER_S
         bound_ms = max(t_ops, t_bytes) * 1e3
         bound_by = "operations" if t_ops >= t_bytes else "bytes"
         log(f"[kernels] flash_attention {label} {str(dt)[6:]} B={b} H={h} "
             f"Hkv={hkv} S={s} T={t} hd={hd} v hd={v_hd} causal={causal} "
             f"window={window}: max_abs_err={err} (tol {TOL[dt]}) ok; kernel "
-            f"{ms:.4f} ms, sdpa "
-            + (f"{library_ms:.4f} ms (kernel / sdpa {ms / library_ms:.3f})"
-               if library_ms else "none without a mask")
+            f"{ms:.4f} ms, sdpa" + (" (the window as a mask)" if window
+                                    else "")
+            + f" {library_ms:.4f} ms (kernel / sdpa {ms / library_ms:.3f})"
             + f", bound {bound_ms:.4f} ms ({bound_by}: {flops} flop, "
             f"{nbytes} bytes), {bound_ms / ms:.3f} of it")
         out[label] = {"max_abs_err": err, "ms": ms, "bound_ms": bound_ms,
@@ -999,23 +1003,10 @@ def _mlstm_err(label, dt, got, want, y_tol=None) -> float:
 
 
 def _mlstm_work(q, state) -> tuple:
-    """Useful flops and bytes of one call, by the chunk of the bf16 kernels
-    (CHUNK = 64 rows): per (b, h) the in-chunk causal scores and their
-    weighted sum (2 flop a product each over hd), plus q.C and the C update
-    at 2 S hd^2 each. The kernels do more than this (every v-tile block
-    recomputes its chunk's scores, the scores' upper triangle is computed
-    and masked, the C update runs three bf16 parts), which is why it is the
-    useful work. Bytes: q, k, v and y, the gates, the state out and, if
-    given, the state in, each once."""
-    from repro_torch.kernels.mlstm_scan.ops import CHUNK
-    b, h, s, hd = q.shape
-    pairs = sum(n * (n + 1) // 2 for n in
-                [CHUNK] * (s // CHUNK) + ([s % CHUNK] if s % CHUNK else []))
-    flops = b * h * (4 * hd * pairs + 4 * s * hd * hd)
-    state_bytes = 4 * b * h * (hd * hd + hd + 1)
-    nbytes = (4 * q.numel() * q.element_size() + 2 * 4 * b * h * s
-              + state_bytes * (2 if state is not None else 1))
-    return flops, nbytes
+    """Useful flops and bytes of one call: `mlstm_scan.ops.cost`, the count
+    the dry run's trace adds up."""
+    from repro_torch.kernels.mlstm_scan.ops import cost
+    return cost(q, state)[:2]
 
 
 _F32, _BF16 = torch.float32, torch.bfloat16
@@ -1331,13 +1322,10 @@ def _ssm_times(args, h0, err, clock_mhz) -> dict:
     kernel_ms = cuda_ms(lambda: ssm_scan(*args, h0), 20)
     device_ms = queued_ms(lambda: ssm_scan(*args, h0))
     plain_ms = cuda_ms(lambda: ssm_scan_ref(*args, h0), 3, warmup=1)
-    updates = b * s * di * ds
     # per state update: dt*A, dt*B*x (2), the fma into h (2), the fma of
-    # C.h (2); per channel and step D*x and its add
-    flops = 6 * updates + 2 * b * s * di
-    state_bytes = 4 * b * di * ds * (2 if h0 is not None else 1)
-    nbytes = (sum(t.numel() * t.element_size() for t in args)
-              + x.numel() * x.element_size() + state_bytes)
+    # C.h (2); per channel and step D*x and its add (`ssm_scan.ops.cost`)
+    from repro_torch.kernels.ssm_scan.ops import cost
+    flops, nbytes, updates = cost(*args, h0)
     t_exp = updates / (SMS * SFU_PER_SM_CLOCK * clock_mhz * 1e6)
     t_ops = max(flops / PEAK_FLOPS[torch.float32], t_exp)
     t_bytes = nbytes / PEAK_BYTES_PER_S
@@ -2885,18 +2873,25 @@ def _launch_train_one(what: str, cfg, params, batch: int, seq_len: int,
     losses, each kernel launched as `_train_launches` says; step ms of the
     timed steps, peak memory."""
     from repro_torch.launch.train import train
+    from repro_torch.tree import tree_leaves
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ends = []
+    ends, held = [], {}
 
     def on_step(step, metrics):   # an event at each step's end, no sync
         ends.append(torch.cuda.Event(enable_timing=True))
         ends[-1].record()
 
+    def on_state(params, opt_state):   # what the loop holds: phase 9 (a)
+        leaves = tree_leaves(params) + tree_leaves(opt_state)
+        held["devices"] = sorted({t.device.type for t in leaves})
+        held["bytes"] = sum(t.numel() * t.element_size() for t in leaves)
+
     reset_launch_counts()
     t0 = time.perf_counter()
     losses = train(cfg, steps=LAUNCH_STEPS, batch=batch, seq_len=seq_len,
-                   params=params, log_every=LAUNCH_STEPS, on_step=on_step)
+                   params=params, log_every=LAUNCH_STEPS, on_step=on_step,
+                   on_state=on_state)
     wall_ms = (time.perf_counter() - t0) * 1e3
     launches = launch_counts()
     step_ms = [a.elapsed_time(b) for a, b in zip(ends, ends[1:])]
@@ -2911,6 +2906,8 @@ def _launch_train_one(what: str, cfg, params, batch: int, seq_len: int,
            "step_ms": statistics.median(step_ms), "all_step_ms": step_ms,
            "wall_ms": wall_ms,
            "state_bytes": n_params * (2 + 2 + moments),
+           "held_state_bytes": held["bytes"],
+           "held_state_devices": held["devices"],
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
            "launches": launches}
     log(f"[launch] {what}: {n_params} params ({cfg.param_dtype}, "
@@ -3183,6 +3180,124 @@ def launch_phase(gen) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ phase 9
+
+# 9(b): one full-width cell of each kind through the dry run's entry point
+# on the single-pod plan (16 x 16), which needs no card
+DRYRUN_CELLS = (("deepseek-v2-236b", "train_4k"),
+                ("mixtral-8x22b", "prefill_32k"),
+                ("gemma3-12b", "decode_32k"),
+                ("jamba-1.5-large-398b", "long_500k"))
+
+
+def _phase_5c_configs():
+    """(name in phase 5c's record, config, global batch, seq_len) of every
+    config phase 5c(a) trains, as it builds them."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.train import launch_config
+    out = []
+    for arch, layers, batch, seq_len, _ in LAUNCH_TRAIN:
+        cfg = get_config(arch)
+        out.append((arch, cfg.scaled(num_layers=layers) if layers else cfg,
+                    batch, seq_len))
+    out.append(("jamba-1.5-large-398b smoke",
+                launch_config("jamba-1.5-large-398b", smoke=True),
+                *JAMBA_SMOKE_TRAIN))
+    return out
+
+
+def _dryrun_entry_point() -> list:
+    """Starts `python -m repro_torch.launch.dryrun` for each DRYRUN_CELLS
+    cell, all at once; returns the processes."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    return [(arch, shape, subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--mesh", "single", "--tag", "chip_smoke",
+         "--force"], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True))
+        for arch, shape in DRYRUN_CELLS]
+
+
+def dryrun_phase(trained: dict) -> dict:
+    """Phase 9: (a) the dry run at world size 1 (`make_host_mesh()`) of
+    every config phase 5c(a) trained, against that config's steps on the
+    card: the state's bytes equal the params and AdamW state the launcher
+    held, exactly; each kernel's calls a step equal `_train_launches` and
+    the launches counted on the card, exactly; the predicted peak (args +
+    temp) beside `max_memory_allocated`, and the step's FLOPs share of the
+    card's peak (the trace's FLOPs, recompute included, over the median
+    step). (b) `python -m repro_torch.launch.dryrun` on DRYRUN_CELLS: every
+    record ok, and the process never initialized CUDA."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    procs = _dryrun_entry_point()
+    out = {"world_size_1": {}, "entry_point": {}}
+    for name, cfg, batch, seq_len in _phase_5c_configs():
+        card = trained[name]
+        t0 = time.perf_counter()
+        rec = dryrun.trace_cell(cfg, ShapeConfig("5c", "train", seq_len,
+                                                 batch), make_host_mesh())
+        trace_s = time.perf_counter() - t0
+        if card["held_state_devices"] != ["cuda"] or \
+                rec["state_bytes"] != card["held_state_bytes"]:
+            raise AssertionError(f"dry run {name}: state {rec['state_bytes']}"
+                                 f" bytes, the launcher held "
+                                 f"{card['held_state_bytes']} on "
+                                 f"{card['held_state_devices']}")
+        calls = {k: v["calls"] for k, v in rec["kernel_calls"].items()}
+        per_step = {k: n // LAUNCH_STEPS for k, n in card["launches"].items()
+                    if n}
+        want = {k: n for k, n in _train_launches(cfg).items() if n}
+        if not calls == want == per_step:
+            raise AssertionError(f"dry run {name}: kernel calls a step "
+                                 f"{calls}, _train_launches {want}, the "
+                                 f"card's {per_step}")
+        peak = rec["arg_bytes_per_dev"] + rec["temp_bytes_per_dev"]
+        rate = PEAK_FLOPS[torch.float32 if cfg.param_dtype == "float32"
+                          else torch.bfloat16]
+        share = rec["hlo_flops"] / (card["step_ms"] / 1e3 * rate)
+        out["world_size_1"][name] = entry = {
+            "batch": f"{batch}x{seq_len}", "state_bytes": rec["state_bytes"],
+            "kernel_calls_per_step": calls,
+            "predicted_peak_bytes": peak,
+            "max_memory_allocated": card["max_memory_allocated"],
+            "peak_ratio": peak / card["max_memory_allocated"],
+            "flops": rec["hlo_flops"], "dot_flops": rec["hlo_dot_flops"],
+            "step_ms": card["step_ms"], "peak_flops": rate,
+            "flops_share_of_peak": share, "trace_s": trace_s}
+        log(f"[dryrun] {name} {batch}x{seq_len} at world size 1: state "
+            f"{rec['state_bytes']} bytes = the launcher's on the card; "
+            f"kernel calls a step {calls} = _train_launches = the card's; "
+            f"predicted peak (args {rec['arg_bytes_per_dev']} + temp "
+            f"{rec['temp_bytes_per_dev']}) {peak} bytes, "
+            f"max_memory_allocated {card['max_memory_allocated']}, ratio "
+            f"{entry['peak_ratio']:.3f}; {rec['hlo_flops']:.6g} flop a step "
+            f"({rec['hlo_dot_flops']:.6g} in products) over the median step "
+            f"{card['step_ms']:.3f} ms = {share:.4g} of {rate:.3g} flop/s; "
+            f"traced in {trace_s:.2f} s")
+    for arch, shape, proc in procs:
+        text, _ = proc.communicate(timeout=600)
+        path = dryrun.RESULTS_DIR / f"{arch}__{shape}__single__chip_smoke.json"
+        rec = json.loads(path.read_text()) if path.exists() else {}
+        if proc.returncode != 0 or not rec.get("ok") or \
+                rec.get("cuda_initialized") is not False:
+            raise AssertionError(f"python -m repro_torch.launch.dryrun "
+                                 f"{arch} {shape}: rc {proc.returncode}, "
+                                 f"record {rec.get('error')}, cuda "
+                                 f"initialized {rec.get('cuda_initialized')}"
+                                 f"\n{text[-2000:]}")
+        out["entry_point"][f"{arch} {shape}"] = keep = {
+            k: rec[k] for k in ("n_params", "hbm_per_dev_gb", "fits_80gb",
+                                "hlo_flops", "collective_bytes_total",
+                                "collective_bytes_off_node", "kernel_calls",
+                                "total_s")}
+        log(f"[dryrun] python -m repro_torch.launch.dryrun --arch {arch} "
+            f"--shape {shape} --mesh single: ok, CUDA never initialized; "
+            f"{json.dumps(keep)}")
+    return out
+
+
 # ------------------------------------------------------------------ phase 6
 
 # stablelm-1.6b's MLP up-projection: d_model 2048 -> d_ff 5632.
@@ -3222,12 +3337,9 @@ def _int8_case(gen, m, k, n, dtype, row_stride=None):
 
 def _int8_work(x, wq) -> tuple:
     """flop (2 M K N) and bytes (x, wq, scales read once, out written once)
-    of one call."""
-    m, k = x.shape
-    n = wq.shape[1]
-    nbytes = (x.numel() * x.element_size() + wq.numel() + 4 * n
-              + m * n * x.element_size())
-    return 2 * m * k * n, nbytes
+    of one call: `int8_matmul.ops.cost`."""
+    from repro_torch.kernels.int8_matmul.ops import cost
+    return cost(x, wq)[:2]
 
 
 def queued_ms(fn, calls: int = 20) -> float:
@@ -4221,6 +4333,7 @@ def main() -> int:
     timed("rl", rl_on_the_card)
     timed("simulator", simulator, round_trip_us)
     log(f"[slice] kernel launches in phases 8-8d: {launch_counts()}")
+    timed("dryrun", dryrun_phase, launch["train"])
 
     print(json.dumps({"kernels": [flash, mlstm, ssm, int8]}), flush=True)
     print(json.dumps({"ok": True, "device": {

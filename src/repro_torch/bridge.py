@@ -10,6 +10,8 @@ its uint16 bits.
 `init_params` draws the port's own weights with the reference's
 distributions. torch cannot reproduce `jax.random`, so parity tests always
 carry JAX-initialized weights across with `params_from_numpy`.
+`param_shapes` is the port's `jax.eval_shape(model.init)`: the same tree
+as meta tensors, drawn from no generator.
 """
 from __future__ import annotations
 
@@ -86,6 +88,24 @@ def _init_layer(cfg: ModelConfig, generator: torch.Generator, kind: str,
     elif ffn == MOE:
         layer["ffn"] = moe_init(generator, cfg, lead)
     return layer
+
+
+class _MetaGenerator(torch.Generator):
+    """A generator whose draws land on `meta`: the init's shapes and
+    dtypes, no numbers."""
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("meta")
+
+
+def param_shapes(cfg: ModelConfig) -> Any:
+    """The params tree of `init_params` as meta tensors (shapes, dtypes and
+    nesting; no data, no device): the port's `jax.eval_shape(model.init)`.
+    `init_params` takes a generator on the device it draws on, and no
+    generator lives on `meta`: this draws the tree there through a CPU
+    generator that reports `meta` as its device."""
+    return init_params(cfg, _MetaGenerator())
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,

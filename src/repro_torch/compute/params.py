@@ -43,9 +43,9 @@ after the unpin — they are views over Python-held buffers (or
 zombie-parked shm segments), so a serving replica can keep using a
 superseded version until its next between-wave swap.
 
-The reference's `rules=` (a mesh `ShardingRules`, whose partition specs
-it records per leaf) is not taken: the port has no sharding rules, and
-each layout entry's partition-spec slot is None.
+`rules=` (a `parallel.sharding.ShardingRules`) records each leaf's
+partition-spec string in its layout entry, as the reference does; without
+rules the slot is None.
 """
 from __future__ import annotations
 
@@ -156,7 +156,8 @@ class ParamSet:
 
     @staticmethod
     def publish(name: str, params: Any, num_shards: int = 1,
-                meta: Optional[Dict] = None) -> "ParamSet":
+                rules: Any = None, meta: Optional[Dict] = None
+                ) -> "ParamSet":
         cluster = _cluster()
         leaves = _flatten(params)
         total = sum(leaf.nbytes for _, leaf in leaves)
@@ -170,9 +171,15 @@ class ParamSet:
         for path, leaf in leaves:
             if shard_fill[s] >= target and s < num_shards - 1:
                 s += 1
+            pspec = None
+            if rules is not None:
+                try:
+                    pspec = str(rules._param_spec(path, leaf.shape))
+                except Exception:
+                    pspec = None
             flat = np.ascontiguousarray(leaf).view(np.uint8).reshape(-1)
             layout.append((path, tuple(leaf.shape), str(leaf.dtype), s,
-                           shard_fill[s], leaf.nbytes, None))
+                           shard_fill[s], leaf.nbytes, pspec))
             shard_parts[s].append(flat)
             shard_fill[s] += leaf.nbytes
         bufs = [np.concatenate(parts) if parts else np.zeros(0, np.uint8)

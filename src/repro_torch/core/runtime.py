@@ -417,11 +417,12 @@ class FailureDetector:
     every `interval_s` and declares a node dead after `miss` consecutive
     missed beats, driving the existing `kill_node` + lineage-replay
     path automatically (the paper's R6 without a hand-written
-    `kill_node()` call). A missed beat is a scan that found no new beat,
-    and the beat must also be `miss * interval_s` old: a stall of the
-    whole interpreter (a long garbage-collection pass, a C call holding
-    the GIL) delays the beaters and the scan alike and counts as one
-    miss. (The reference judges wall time alone, so such a stall of
+    `kill_node()` call). A missed beat is an on-time scan (within two
+    intervals of the scan before) that found no new beat, and the beat
+    must also be `miss * interval_s` old: a stall of the whole
+    interpreter (a long garbage-collection pass, a C call holding the
+    GIL) delays the beaters and the scan alike, and a late scan is no
+    evidence. (The reference judges wall time alone, so such a stall of
     150 ms fail-stops live nodes.) The hung-task watchdog reads the per-node
     in-flight start-timestamp registries the workers maintain (two
     GIL-atomic dict ops per task) and kills a node holding any task past
@@ -444,6 +445,10 @@ class FailureDetector:
         self._start_lock = threading.Lock()
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
+        # the monitor's own state: per node the last beat it saw and the
+        # scans since that beat that found no newer one; its last scan
+        self._seen: Dict[Node, Tuple[float, int]] = {}
+        self._last_scan: Optional[float] = None
 
     # ------------------------------------------------------------ lifecycle
 
@@ -497,49 +502,61 @@ class FailureDetector:
     # ------------------------------------------------------------- monitor
 
     def _run(self) -> None:
-        c = self.cluster
-        # per node: the last beat this thread saw, and the scans since
-        # that beat that found no newer one
-        seen: Dict[Node, Tuple[float, int]] = {}
         while not self._stop.wait(self.interval):
-            now = time.perf_counter()
-            if self.enabled:
-                horizon = self.miss * self.interval
-                for node in list(c.nodes):
-                    if not node.alive:
-                        seen.pop(node, None)
-                        continue
-                    last = c.gcs.heartbeat(node.node_id)
-                    if last is None:
-                        continue
-                    prev, missed = seen.get(node, (None, 0))
-                    missed = 0 if last != prev else missed + 1
-                    seen[node] = (last, missed)
-                    if missed < self.miss or now - last <= horizon:
-                        continue
-                    # re-check identity: a concurrent restart_node may
-                    # have installed a fresh node under this id — its
-                    # first beat lands at construction, never kill it
-                    # for the old incarnation's staleness
-                    if c.nodes[node.node_id] is not node or not node.alive:
-                        continue
-                    c.gcs.log_event("detector_kill", f"node{node.node_id}",
-                                    "detector", missed_s=now - last)
-                    c.kill_node(node.node_id)
-            if self.hung_task_timeout_s:
-                for node in list(c.nodes):
-                    if not node.alive:
-                        continue
-                    hung = [tid for tid, t0 in list(node.inflight.items())
-                            if now - t0 > self.hung_task_timeout_s]
-                    if not hung:
-                        continue
-                    if c.nodes[node.node_id] is not node or not node.alive:
-                        continue
-                    c.gcs.log_event("watchdog_kill", f"node{node.node_id}",
-                                    "detector", tasks=hung)
-                    c.kill_node(node.node_id)
-            self._expire_deadlines(now)
+            self._tick(time.perf_counter())
+
+    def _tick(self, now: float) -> None:
+        """One scan at `now`: heartbeats, hung tasks, deadlines. A scan
+        that finds no newer beat is a miss only if this scan is on time,
+        within 2 x `interval` of the one before: a detector that was
+        itself held up (the GIL taken by a long C call, the process not
+        scheduled) has no evidence that the beaters were not held up as
+        well, even where it got the interpreter back before them."""
+        c = self.cluster
+        on_time = (self._last_scan is None
+                   or now - self._last_scan <= 2 * self.interval)
+        self._last_scan = now
+        if self.enabled:
+            horizon = self.miss * self.interval
+            seen = self._seen
+            for node in list(c.nodes):
+                if not node.alive:
+                    seen.pop(node, None)
+                    continue
+                last = c.gcs.heartbeat(node.node_id)
+                if last is None:
+                    continue
+                prev, missed = seen.get(node, (None, 0))
+                if last != prev:
+                    missed = 0
+                elif on_time:
+                    missed += 1
+                seen[node] = (last, missed)
+                if missed < self.miss or now - last <= horizon:
+                    continue
+                # re-check identity: a concurrent restart_node may
+                # have installed a fresh node under this id — its
+                # first beat lands at construction, never kill it
+                # for the old incarnation's staleness
+                if c.nodes[node.node_id] is not node or not node.alive:
+                    continue
+                c.gcs.log_event("detector_kill", f"node{node.node_id}",
+                                "detector", missed_s=now - last)
+                c.kill_node(node.node_id)
+        if self.hung_task_timeout_s:
+            for node in list(c.nodes):
+                if not node.alive:
+                    continue
+                hung = [tid for tid, t0 in list(node.inflight.items())
+                        if now - t0 > self.hung_task_timeout_s]
+                if not hung:
+                    continue
+                if c.nodes[node.node_id] is not node or not node.alive:
+                    continue
+                c.gcs.log_event("watchdog_kill", f"node{node.node_id}",
+                                "detector", tasks=hung)
+                c.kill_node(node.node_id)
+        self._expire_deadlines(now)
 
 
 class Cluster:

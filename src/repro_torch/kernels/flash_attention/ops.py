@@ -11,6 +11,12 @@ scale 1/sqrt(head_dim), and the output cropped back (`_padded`); one above
 256 raises. q, k and v share one head_dim: MLA pads its values to it.
 `flash_attention.launches` counts kernel launches.
 
+A `meta` tensor under the dry run's cost trace is a third device: the
+wrapper runs the card's checks (so the trace refuses what the card would),
+returns an empty output of the kernel's shape and dtype, and records one
+call with its `cost` in the active trace (`analysis.trace`). It launches
+nothing and counts no launch.
+
 The kernel is a forward only, as the Pallas kernel is. Where autograd needs
 a gradient on the card, `_FlashAttention` runs the kernel forward and gets
 dq, dk, dv by recomputing `attention_ref` under autograd in its backward.
@@ -25,7 +31,9 @@ import threading
 import torch
 import torch.nn.functional as F
 
+from repro_torch.analysis import trace
 from repro_torch.kernels import _build
+from repro_torch.kernels.cost import KernelCost, valid_pairs
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -121,6 +129,39 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out
 
 
+def cost(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+         causal: bool = True, window: int = 0,
+         v_head_dim: int = 0) -> KernelCost:
+    """One call's useful work: q.k and P.v over the (query, key) pairs the
+    mask lets through (2 flop a product each), q, k, v read and the output
+    written once. `v_head_dim` > 0 counts only that many of v's columns
+    (MLA's values, zero-padded to the head_dim of q and k)."""
+    b, h, s, hd = q.shape
+    hkv, t = k.shape[1], k.shape[2]
+    v_hd = v_head_dim or v.shape[-1]
+    pairs = valid_pairs(s, t, causal, window)
+    nbytes = q.element_size() * (q.numel() + k.numel() + b * hkv * t * v_hd
+                                 + b * h * s * v_hd)
+    return KernelCost(2 * b * h * (hd + v_hd) * pairs, nbytes)
+
+
+def _traced(t: torch.Tensor) -> bool:
+    """A `meta` tensor under the dry run's trace: the third device. Outside
+    a trace a meta tensor is one more tensor off the CPU (the tests stand
+    it in for the card) and goes to the launch."""
+    return t.device.type == "meta" and trace.active() is not None
+
+
+def _meta_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                 causal: bool, window: int) -> torch.Tensor:
+    """The kernel's output on `meta`, its call recorded in the trace."""
+    b, h, s, hd = q.shape
+    trace.record_kernel("flash_attention",
+                        cost(q, k, v, causal=causal, window=window))
+    return torch.empty((b, s, h, hd), dtype=q.dtype,
+                       device=q.device).transpose(1, 2)
+
+
 class _FlashAttention(torch.autograd.Function):
     """Forward by `forward_fn` (the kernel launch on the card); backward by
     recomputing `attention_ref` under autograd, as the reference
@@ -177,9 +218,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             and k.shape[-1] == v.shape[-1] == hd:
         return _padded(q, k, v, causal=causal, window=window)
     _check(q, k, v, window)
+    launch = _meta_launch if _traced(q) else _launch
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return _FlashAttention.apply(_launch, causal, window, q, k, v)
-    return _launch(q, k, v, causal=causal, window=window)
+        return _FlashAttention.apply(launch, causal, window, q, k, v)
+    return launch(q, k, v, causal=causal, window=window)
 
 
 flash_attention.launches = 0

@@ -7,6 +7,12 @@ from (M, dtype): M <= 16 the split-K GEMV, bf16 above the tensor-core GEMM,
 fp32 above the fp32 CUDA-core tiles. `int8_matmul.launches` counts
 launches.
 The kernel has no backward: the reference's serves inference only.
+
+A `meta` tensor under the dry run's cost trace is a third device: the card's
+checks, an empty output of the kernel's shape and dtype, and one call with
+its `cost` recorded in the active trace (`analysis.trace`); no launch.
+Outside a trace a meta tensor is one more tensor off the CPU and goes to
+the launch, as the tests that stand it in for the card rely on.
 """
 from __future__ import annotations
 
@@ -18,7 +24,9 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.analysis import trace
 from repro_torch.kernels import _build
+from repro_torch.kernels.cost import KernelCost
 from repro_torch.kernels.int8_matmul.ref import int8_matmul_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -187,12 +195,26 @@ def _launch(x, wq, scales):
     return out
 
 
+def cost(x, wq) -> KernelCost:
+    """One call's work: 2 M K N flop; x, wq and the fp32 scales read once,
+    the output written once."""
+    m, k = x.shape
+    n = wq.shape[1]
+    nbytes = (x.numel() * x.element_size() + wq.numel() + 4 * n
+              + m * n * x.element_size())
+    return KernelCost(2 * m * k * n, nbytes)
+
+
 def int8_matmul(x, wq, scales):
     """x: (M,K) fp32 or bf16; wq: (K,N) int8; scales: (N,) -> (M,N) in
     x.dtype: ((x.f32 @ wq.f32) * scales.f32).astype(x.dtype). Any M, N, K."""
     _check(x, wq, scales)
     if x.device.type == "cpu":
         return int8_matmul_ref(x, wq, scales)
+    if x.device.type == "meta" and trace.active() is not None:
+        trace.record_kernel("int8_matmul", cost(x, wq))
+        return torch.empty((x.shape[0], wq.shape[1]), dtype=x.dtype,
+                           device=x.device)
     return _launch(x, wq, scales)
 
 

@@ -13,6 +13,10 @@ The port does the same on the card: `_MLSTMScan`'s forward launches the
 kernel and saves its inputs; its backward recomputes the chunkwise form
 (`ref.mlstm_scan_ref`) under autograd and takes `torch.autograd.grad`. A
 backward kernel is later work.
+
+A `meta` tensor under the dry run's cost trace is a third device: the card's
+checks, empty outputs of the kernel's shapes and dtypes, and one call with
+its `cost` recorded in the active trace (`analysis.trace`); no launch.
 """
 from __future__ import annotations
 
@@ -24,7 +28,9 @@ from typing import Optional
 
 import torch
 
+from repro_torch.analysis import trace
 from repro_torch.kernels import _build
+from repro_torch.kernels.cost import KernelCost
 from repro_torch.kernels.mlstm_scan.ref import State, mlstm_scan_ref
 
 HEAD_DIMS = (32, 64, 256, 384)
@@ -144,6 +150,43 @@ def _launch(q, k, v, log_i, log_f, state: Optional[State], bc: int):
     return y, (c1, n1, m1)
 
 
+def cost(q: torch.Tensor, state: Optional[State] = None) -> KernelCost:
+    """One call's useful work, by the chunk of the bf16 kernels (CHUNK
+    rows): per (b, h) the in-chunk causal scores and their weighted sum (2
+    flop a product each over hd), plus q.C and the C update at 2 S hd^2
+    each. The kernels do more than this (every v-tile block recomputes its
+    chunk's scores, the scores' upper triangle is computed and masked, the
+    C update runs three bf16 parts), which is why it is the useful work.
+    Bytes: q, k, v and y, the gates, the state out and, if given, the
+    state in, each once."""
+    b, h, s, hd = q.shape
+    pairs = sum(n * (n + 1) // 2 for n in
+                [CHUNK] * (s // CHUNK) + ([s % CHUNK] if s % CHUNK else []))
+    flops = b * h * (4 * hd * pairs + 4 * s * hd * hd)
+    state_bytes = 4 * b * h * (hd * hd + hd + 1)
+    nbytes = (4 * q.numel() * q.element_size() + 2 * 4 * b * h * s
+              + state_bytes * (2 if state is not None else 1))
+    return KernelCost(flops, nbytes)
+
+
+def _traced(t: torch.Tensor) -> bool:
+    """A `meta` tensor under the dry run's trace: the third device. Outside
+    a trace a meta tensor is one more tensor off the CPU (the tests stand
+    it in for the card) and goes to the launch."""
+    return t.device.type == "meta" and trace.active() is not None
+
+
+def _meta_launch(q, k, v, log_i, log_f, state: Optional[State], bc: int):
+    """The kernels' outputs on `meta`, the call recorded in the trace."""
+    b, h, s, hd = q.shape
+    trace.record_kernel("mlstm_scan", cost(q, state))
+    dev, f32 = q.device, torch.float32
+    y = torch.empty((b, s, h, hd), dtype=q.dtype, device=dev).transpose(1, 2)
+    return y, (torch.empty((b, h, hd, hd), dtype=f32, device=dev),
+               torch.empty((b, h, hd), dtype=f32, device=dev),
+               torch.empty((b, h), dtype=f32, device=dev))
+
+
 class _MLSTMScan(torch.autograd.Function):
     """Forward by `forward_fn` (the kernel launch on the card); backward by
     recomputing the plain chunkwise form under autograd."""
@@ -189,10 +232,11 @@ def mlstm_scan(q, k, v, log_i, log_f, state: Optional[State] = None, *,
     if all(t.device.type == "cpu" for t in tensors):
         return mlstm_scan_ref(q, k, v, log_i, log_f, state, bc=bc)
     _check(q, k, v, log_i, log_f, state)
+    launch = _meta_launch if _traced(q) else _launch
     if not (torch.is_grad_enabled()
             and any(t.requires_grad for t in tensors)):
-        return _launch(q, k, v, log_i, log_f, state, bc)
-    y, c1, n1, m1 = _MLSTMScan.apply(_launch, bc, q, k, v, log_i, log_f,
+        return launch(q, k, v, log_i, log_f, state, bc)
+    y, c1, n1, m1 = _MLSTMScan.apply(launch, bc, q, k, v, log_i, log_f,
                                      *(state or (None, None, None)))
     return y, (c1, n1, m1)
 

@@ -8,6 +8,10 @@ On the card a call that needs a gradient goes through `_SSMScan`: the
 kernel launch is its forward, and its backward recomputes the plain version
 under autograd (a backward kernel is ROADMAP B4-bwd). A call that needs no
 gradient (serving, decode) launches bare.
+
+A `meta` tensor under the dry run's cost trace is a third device: the card's
+checks, empty outputs of the kernel's shapes and dtypes, and one call with
+its `cost` recorded in the active trace (`analysis.trace`); no launch.
 """
 from __future__ import annotations
 
@@ -19,7 +23,9 @@ from typing import Optional
 
 import torch
 
+from repro_torch.analysis import trace
 from repro_torch.kernels import _build
+from repro_torch.kernels.cost import KernelCost
 from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -114,6 +120,38 @@ def _launch(x, dt, b_t, c_t, a, d, h0: Optional[torch.Tensor]):
     return y, h1
 
 
+def cost(x, dt, b_t, c_t, a, d, h0: Optional[torch.Tensor] = None
+         ) -> KernelCost:
+    """One call's work: per state update dt*A, dt*B*x (2), the fma into h
+    (2) and the fma of C.h (2); per channel and step D*x and its add; one
+    exp an update (on the special function units). Bytes: every input and
+    y once, the state out and, if given, the state in."""
+    bsz, s, di = x.shape
+    ds = a.shape[1]
+    updates = bsz * s * di * ds
+    state_bytes = 4 * bsz * di * ds * (2 if h0 is not None else 1)
+    nbytes = (sum(t.numel() * t.element_size()
+                  for t in (x, dt, b_t, c_t, a, d))
+              + x.numel() * x.element_size() + state_bytes)
+    return KernelCost(6 * updates + 2 * bsz * s * di, nbytes, updates)
+
+
+def _traced(t: torch.Tensor) -> bool:
+    """A `meta` tensor under the dry run's trace: the third device. Outside
+    a trace a meta tensor is one more tensor off the CPU (the tests stand
+    it in for the card) and goes to the launch."""
+    return t.device.type == "meta" and trace.active() is not None
+
+
+def _meta_launch(x, dt, b_t, c_t, a, d, h0: Optional[torch.Tensor]):
+    """The kernel's outputs on `meta`, the call recorded in the trace."""
+    bsz, s, di = x.shape
+    trace.record_kernel("ssm_scan", cost(x, dt, b_t, c_t, a, d, h0))
+    return (torch.empty((bsz, s, di), dtype=x.dtype, device=x.device),
+            torch.empty((bsz, di, a.shape[1]), dtype=torch.float32,
+                        device=x.device))
+
+
 class _SSMScan(torch.autograd.Function):
     """Forward by `forward_fn` (the kernel launch on the card); backward by
     recomputing `ssm_scan_ref` under autograd, for every input that needs a
@@ -156,10 +194,11 @@ def ssm_scan(x, dt, b_t, c_t, a, d, h0: Optional[torch.Tensor] = None):
     if all(t.device.type == "cpu" for t in tensors):
         return ssm_scan_ref(x, dt, b_t, c_t, a, d, h0)
     _check(x, dt, b_t, c_t, a, d, h0)
+    launch = _meta_launch if _traced(x) else _launch
     if not (torch.is_grad_enabled()
             and any(t.requires_grad for t in tensors)):
-        return _launch(x, dt, b_t, c_t, a, d, h0)
-    return _SSMScan.apply(_launch, x, dt, b_t, c_t, a, d, h0)
+        return launch(x, dt, b_t, c_t, a, d, h0)
+    return _SSMScan.apply(launch, x, dt, b_t, c_t, a, d, h0)
 
 
 ssm_scan.launches = 0

@@ -12,6 +12,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.analysis import trace
+
 
 def ssm_scan_ref(x, dt, b_t, c_t, a, d, h0: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -27,10 +29,15 @@ def ssm_scan_ref(x, dt, b_t, c_t, a, d, h0: Optional[torch.Tensor] = None
     af, df = a.float(), d.float()
     h = (torch.zeros(bsz, di, ds, dtype=torch.float32, device=x.device)
          if h0 is None else h0.float())
-    ys = []
-    for t in range(s):
-        decay = torch.exp(dtf[:, t, :, None] * af)                   # (B,di,ds)
-        drive = dtf[:, t, :, None] * bf[:, t, None, :] * xf[:, t, :, None]
-        h = decay * h + drive
-        ys.append(torch.einsum("bds,bs->bd", h, cf[:, t]) + df * xf[:, t])
-    return torch.stack(ys, dim=1).to(x.dtype), h
+
+    def step(carry, dt_t, b_t_, x_t, c_t_, af, df):
+        decay = torch.exp(dt_t[:, :, None] * af)                    # (B,di,ds)
+        drive = dt_t[:, :, None] * b_t_[:, None, :] * x_t[:, :, None]
+        h = decay * carry[0] + drive
+        return (h,), torch.einsum("bds,bs->bd", h, c_t_) + df * x_t
+
+    # a Python loop over time; the dry run's trace folds it (one step
+    # counted s times)
+    (h,), ys = trace.scan(step, (h,), ((dtf, 1), (bf, 1), (xf, 1), (cf, 1)),
+                          s, consts=(af, df))
+    return ys.to(x.dtype), h

@@ -9,14 +9,16 @@
 The reference jit-compiles its train step under the sharding rules of its
 mesh; the port runs `make_train_step` eagerly at world size 1 (`--mesh
 host`), the card by default, the CPU only with `--device cpu`. `single` and
-`multi` are meshes over many devices (ROADMAP A18). The config's
+`multi` are the production plans over many devices: the loop drives one
+card and raises for them (ROADMAP A18); `repro_torch.launch.dryrun` traces
+a step under either plan without devices. The config's
 `remat_policy` and `train_microbatch` hold as the model and the step read
 them; `--smoke` takes the reduced config in fp32 without microbatches.
 """
 from __future__ import annotations
 
 import argparse
-from typing import Callable, List, Optional
+from typing import Any, Callable, List, Optional
 
 import torch
 
@@ -45,7 +47,8 @@ def launch_config(arch: str, smoke: bool) -> ModelConfig:
 def train(cfg: ModelConfig, *, steps: int, batch: int, seq_len: int,
           device: DeviceLike = None, ckpt_dir: str = "", log_every: int = 10,
           params=None, mesh: Optional[Mesh] = None,
-          on_step: Optional[Callable[[int, dict], None]] = None
+          on_step: Optional[Callable[[int, dict], None]] = None,
+          on_state: Optional[Callable[[Any, Any], None]] = None
           ) -> List[float]:
     """The launcher's loop on `mesh` (`make_host_mesh()` by default; the
     port drives one card): `Prefetcher` batches, `make_train_step`, AdamW
@@ -53,7 +56,9 @@ def train(cfg: ModelConfig, *, steps: int, batch: int, seq_len: int,
     and at the last, an async checkpoint every 50 steps. `params` (updated
     in place) default to `init_params` from a generator seeded 0 on the
     device. `on_step(step, metrics)`, if given, is called after each step
-    is queued, with the metrics still on the device. Returns every step's
+    is queued, with the metrics still on the device; `on_state(params,
+    opt_state)` once before the first step, with the state the loop holds.
+    Returns every step's
     loss, read from the device once at the end: only the log lines wait
     for the card inside the loop."""
     mesh = mesh or make_host_mesh()
@@ -66,6 +71,8 @@ def train(cfg: ModelConfig, *, steps: int, batch: int, seq_len: int,
         params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
     opt_state = adamw_init(params, cfg.opt_state_dtype)
     step_fn = make_train_step(model, AdamWConfig(state_dtype=cfg.opt_state_dtype))
+    if on_state is not None:
+        on_state(params, opt_state)
     ckpt = Checkpointer(ckpt_dir) if ckpt_dir else None
     pf = Prefetcher(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq_len,
                                global_batch=batch, input_mode=cfg.input_mode,
@@ -110,9 +117,15 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = launch_config(args.arch, args.smoke)
-    # many devices raise (ROADMAP A18)
-    mesh = (make_host_mesh() if args.mesh == "host"
-            else make_production_mesh(multi_pod=args.mesh == "multi"))
+    if args.mesh != "host":
+        plan = make_production_mesh(multi_pod=args.mesh == "multi")
+        raise NotImplementedError(
+            f"--mesh {args.mesh} plans {plan.size} devices {plan.shape}; "
+            "this loop drives one card (ROADMAP A18). For the plan's "
+            "memory, FLOPs and collectives per device run python -m "
+            f"repro_torch.launch.dryrun --arch {args.arch} --mesh "
+            f"{args.mesh}")
+    mesh = make_host_mesh()
     train(cfg, steps=args.steps, batch=args.batch, seq_len=args.seq_len,
           device=args.device, ckpt_dir=args.ckpt_dir,
           log_every=args.log_every, mesh=mesh)

@@ -98,7 +98,8 @@ def sdpa(q, k, v, q_pos, kv_pos, *, window: int = 0, causal: bool = True,
 
 def _self_attention(cfg: ModelConfig, q, k, v, *, window: int,
                     causal: bool) -> torch.Tensor:
-    """q (B,S,H,hd), k/v (B,S,Kv,hd) at positions 0..S-1 -> (B,S,H*hd).
+    """q (B,S,H,hd), k/v (B,S,Kv,hd) at positions 0..S-1 -> (B,S,H*hd)
+    (Kv = H where `_group_for_tp` expanded the KV heads).
     Goes through the flash attention wrapper: the Hopper kernel on the
     card, its plain version on the CPU."""
     B, S = q.shape[:2]
@@ -108,7 +109,8 @@ def _self_attention(cfg: ModelConfig, q, k, v, *, window: int,
                 "attn_logit_softcap != 0 has no Hopper kernel yet: no "
                 "config sets it")
         pos = torch.arange(S, device=q.device)
-        qg = q.reshape(B, S, cfg.num_kv_heads, cfg.q_per_kv, cfg.head_dim)
+        kv = k.shape[2]
+        qg = q.reshape(B, S, kv, cfg.num_heads // kv, cfg.head_dim)
         out = sdpa(qg, k, v, pos, pos, window=window, causal=causal,
                    softcap=cfg.attn_logit_softcap)
         return out.reshape(B, S, cfg.num_heads * cfg.head_dim)
@@ -132,11 +134,28 @@ def _qkv(params: Params, cfg: ModelConfig, x, positions):
     return q, k, v
 
 
+def _group_for_tp(q, k, v, cfg: ModelConfig, expand_kv: bool, shard_fn):
+    """Arrange heads for the sharded attention core. When the TP width
+    divides H but not Kv (e.g. Mistral-Large: 96 q heads, 8 kv heads,
+    16-way TP), the (Kv, G) grouping leaves nothing to shard; expanding KV
+    to full heads (G = 1) restores clean head sharding, and the kernel is
+    called with H key heads. Without `expand_kv` q, k, v come back as they
+    are."""
+    if expand_kv and cfg.q_per_kv > 1:
+        k = k.repeat_interleave(cfg.q_per_kv, dim=2)
+        v = v.repeat_interleave(cfg.q_per_kv, dim=2)
+        if shard_fn is not None:
+            q, k, v = (shard_fn(a, "bshd") for a in (q, k, v))
+    return q, k, v
+
+
 def attention_forward(params: Params, cfg: ModelConfig, x, *, window: int = 0,
-                      causal: bool = True) -> torch.Tensor:
+                      causal: bool = True, expand_kv: bool = False,
+                      shard_fn=None) -> torch.Tensor:
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)
     q, k, v = _qkv(params, cfg, x, positions)
+    q, k, v = _group_for_tp(q, k, v, cfg, expand_kv, shard_fn)
     out = _self_attention(cfg, q, k, v, window=window, causal=causal)
     return out @ params["w_o"]
 
@@ -158,13 +177,16 @@ def init_attn_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
 
 
 def attention_prefill(params: Params, cfg: ModelConfig, x, *, window: int = 0,
-                      max_seq: int = 0) -> Tuple[torch.Tensor, Params]:
-    """Full-sequence attention + build the decode cache."""
+                      max_seq: int = 0, expand_kv: bool = False,
+                      shard_fn=None) -> Tuple[torch.Tensor, Params]:
+    """Full-sequence attention + build the decode cache (of the Kv heads,
+    whatever `expand_kv` gives the kernel)."""
     B, S, _ = x.shape
     max_seq = max_seq or S
     positions = torch.arange(S, device=x.device)
     q, k, v = _qkv(params, cfg, x, positions)
-    out = _self_attention(cfg, q, k, v, window=window, causal=True)
+    qe, ke, ve = _group_for_tp(q, k, v, cfg, expand_kv, shard_fn)
+    out = _self_attention(cfg, qe, ke, ve, window=window, causal=True)
     out = out @ params["w_o"]
 
     cap = min(window, max_seq) if window > 0 else max_seq

@@ -23,7 +23,7 @@ reference's `lax.scan`. The decode cache is nested the same way (`first`,
 `groups`); an encoder-decoder's layer caches hold `cross_k`/`cross_v`.
 
 Public surface:
-    model = build_model(cfg)
+    model = build_model(cfg, rules=None)
     logits, aux = model.forward(params, batch)
     loss, aux = model.loss_fn(params, batch)
     logits, cache = model.prefill(params, batch, max_seq)   # builds the cache
@@ -44,6 +44,16 @@ activation; `"nothing"` keeps only the group's inputs and recomputes the
 rest in the backward; `"dots"` also keeps the outputs of the weight GEMMs
 (`save_dots`, JAX's `dots_with_no_batch_dims_saveable`). A kernel inside a
 recomputed group launches again in the backward, into fresh buffers.
+
+`rules` (a `parallel.sharding.ShardingRules`) are the reference's three
+hooks at its points: `_act` constrains the residual stream after each
+mixer, cross-attention and FFN, the embedded inputs and the logits
+(forward, loss and prefill; decode takes none), `_moe_shard` the MoE
+dispatch, and `_attn_tp` expands the KV heads to the query heads where the
+model axis divides H but not Kv (`attention._group_for_tp`). A constraint
+returns its tensor as it is: under the dry run's trace it records a
+layout change. At world size 1 the model axis is 1 and nothing expands;
+without rules the model is the card's.
 """
 from __future__ import annotations
 
@@ -156,9 +166,33 @@ class Model:
     # vocabularies at/above this size use the chunked loss
     CHUNKED_LOSS_VOCAB = 131_072
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, rules=None):
         check_supported(cfg)
         self.cfg = cfg
+        self.rules = rules
+
+    # -------------------------------------------------------------- shards
+
+    def _act(self, x, name="btd"):
+        if self.rules is not None:
+            return self.rules.constrain_act(x, name)
+        return x
+
+    def _moe_shard(self):
+        if self.rules is not None:
+            return self.rules.constrain_moe
+        return None
+
+    def _attn_tp(self):
+        """(expand_kv, shard_fn): expand KV to full heads when TP divides H
+        but not Kv (see attention._group_for_tp)."""
+        cfg = self.cfg
+        if self.rules is None:
+            return False, None
+        tp = self.rules.tp_size
+        expand = (cfg.num_heads % tp == 0 and cfg.num_kv_heads % tp != 0
+                  and cfg.q_per_kv > 1)
+        return expand, (lambda a, nm: self.rules.constrain_act(a, nm))
 
     def _layers(self, params: Params):
         """Yield (mixer kind, ffn kind, layer params, cache slot) for every
@@ -180,7 +214,8 @@ class Model:
         f_in = rmsnorm(lp["post_norm"], h, self.cfg.norm_eps)
         if kind == DENSE:
             return h + swiglu(lp["ffn"], f_in)
-        y, moe_aux = moe.moe_apply(lp["ffn"], self.cfg, f_in)
+        y, moe_aux = moe.moe_apply(lp["ffn"], self.cfg, f_in,
+                                   self._moe_shard())
         if aux is not None:
             for k in aux:
                 aux[k] = aux[k] + moe_aux[k]
@@ -204,8 +239,10 @@ class Model:
     def _mix(self, lp: Params, kind: str, x):
         cfg = self.cfg
         if kind in (ATTN, SWA):
+            expand, sf = self._attn_tp()
             return attn.attention_forward(lp["mixer"], cfg, x,
-                                          window=self._window(kind))
+                                          window=self._window(kind),
+                                          expand_kv=expand, shard_fn=sf)
         if kind == MLA:
             return attn.mla_forward(lp["mixer"], cfg, x)
         if kind == MAMBA:
@@ -239,11 +276,16 @@ class Model:
         there is one, FFN (a MoE layer adds its aux losses into `aux`)."""
         cfg = self.cfg
         mix_in = rmsnorm(lp["pre_norm"], h, cfg.norm_eps)
-        h = h + self._mix(lp, kind, mix_in)
+        h = self._act(h + self._mix(lp, kind, mix_in))
         if enc_out is not None and "cross" in lp:
-            h = self._cross(lp, h, attn.encode_cross_kv(lp["cross"], cfg,
-                                                        enc_out))
-        return self._ffn(lp, ffn, h, aux)
+            h = self._act(self._cross(lp, h, attn.encode_cross_kv(
+                lp["cross"], cfg, enc_out)))
+        return self._ffn_act(lp, ffn, h, aux)
+
+    def _ffn_act(self, lp: Params, kind: str, h, aux=None):
+        """`_ffn`, its output constrained where there is an FFN."""
+        out = self._ffn(lp, kind, h, aux)
+        return out if kind == NONE else self._act(out)
 
     def _cross(self, lp: Params, h, enc_kv):
         """h + cross-attention to the encoder's keys and values."""
@@ -256,13 +298,14 @@ class Model:
         layers with dense FFNs, then its final norm."""
         cfg = self.cfg
         enc = params["encoder"]
-        h = frames.to(params["frame_proj"].dtype) @ params["frame_proj"]
+        h = self._act(frames.to(params["frame_proj"].dtype)
+                      @ params["frame_proj"])
 
         def enc_layer(lp, h):
             mix_in = rmsnorm(lp["pre_norm"], h, cfg.norm_eps)
-            h = h + attn.attention_forward(lp["mixer"], cfg, mix_in,
-                                           causal=False)
-            return self._ffn(lp, DENSE, h)
+            h = self._act(h + attn.attention_forward(lp["mixer"], cfg,
+                                                     mix_in, causal=False))
+            return self._ffn_act(lp, DENSE, h)
 
         for e in range(cfg.encoder_layers):
             h = self._remat(functools.partial(
@@ -272,14 +315,16 @@ class Model:
     def _embed_inputs(self, params: Params, batch):
         """(decoder-input hidden states, encoder output or None)."""
         cfg = self.cfg
-        h = embed_tokens(params["embed"], batch["tokens"])
         if cfg.input_mode == "frames":
-            return h, self._encode(params, batch["frames"])
+            enc_out = self._encode(params, batch["frames"])
+            return self._act(embed_tokens(params["embed"],
+                                          batch["tokens"])), enc_out
+        h = embed_tokens(params["embed"], batch["tokens"])
         if cfg.input_mode == "tokens+image":
             img = batch["image_embeds"].to(params["img_proj"].dtype) \
                 @ params["img_proj"]
             h = torch.cat([img.to(h.dtype), h], dim=1)
-        return h, None
+        return self._act(h), None
 
     def _hidden(self, params: Params, batch):
         """Hidden states after the final norm, and the aux losses."""
@@ -306,7 +351,7 @@ class Model:
     def forward(self, params: Params, batch) -> Tuple[torch.Tensor, Dict]:
         """Full-sequence logits (B,S,V_padded) and the aux losses."""
         h, aux = self._hidden(params, batch)
-        return self._unembed(params, h), aux
+        return self._act(self._unembed(params, h), "logits"), aux
 
     def _labels_and_mask(self, batch, s: int):
         """Next-token labels and their validity mask at every position of
@@ -376,7 +421,7 @@ class Model:
             labels, mask = self._labels_and_mask(batch, s)
             loss = self._chunked_xent(params, h, labels, mask)
         else:
-            logits = self._unembed(params, h)
+            logits = self._act(self._unembed(params, h), "logits")
             if vp != cfg.vocab_size:
                 pad = torch.arange(vp, device=logits.device) >= cfg.vocab_size
                 logits = torch.where(pad, -1e30, logits.float())
@@ -434,9 +479,11 @@ class Model:
     def _mix_prefill(self, lp: Params, kind: str, x, max_seq: int):
         cfg = self.cfg
         if kind in (ATTN, SWA):
+            expand, sf = self._attn_tp()
             return attn.attention_prefill(lp["mixer"], cfg, x,
                                           window=self._window(kind),
-                                          max_seq=max_seq)
+                                          max_seq=max_seq, expand_kv=expand,
+                                          shard_fn=sf)
         if kind == MLA:
             return attn.mla_prefill(lp["mixer"], cfg, x, max_seq=max_seq)
         if kind == MAMBA:
@@ -461,14 +508,14 @@ class Model:
         for kind, ffn, lp, slot in self._layers(params):
             mix_in = rmsnorm(lp["pre_norm"], h, cfg.norm_eps)
             out, core = self._mix_prefill(lp, kind, mix_in, max_seq)
-            h = h + out
+            h = self._act(h + out)
             if enc_out is not None and "cross" in lp:
                 kv = attn.encode_cross_kv(lp["cross"], cfg, enc_out)
-                h = self._cross(lp, h, kv)
+                h = self._act(self._cross(lp, h, kv))
                 core = dict(core, cross_k=kv["k"][:, :max_seq],
                             cross_v=kv["v"][:, :max_seq])
             _store(cache, slot, core)
-            h = self._ffn(lp, ffn, h)
+            h = self._ffn_act(lp, ffn, h)
         h = rmsnorm(params["final_norm"], h[:, -1:], cfg.norm_eps)
         return self._unembed(params, h), cache
 
@@ -531,5 +578,5 @@ class Model:
         return {"tokens": spec((b, 1), i32)}
 
 
-def build_model(cfg: ModelConfig) -> Model:
-    return Model(cfg)
+def build_model(cfg: ModelConfig, rules=None) -> Model:
+    return Model(cfg, rules)

@@ -38,6 +38,8 @@ def _expert_normal(gen: torch.Generator, shape: Tuple[int, ...], scale: float,
     time: a whole stack of experts in fp32 would double the peak memory of
     an init on the card (26 GB for eight of mixtral's layers)."""
     out = torch.empty(shape, dtype=dtype, device=gen.device)
+    if out.device.type == "meta":          # shapes only: nothing to draw
+        return out
     for idx in itertools.product(*map(range, shape[:-2])):
         w = torch.randn(shape[-2:], generator=gen, device=gen.device,
                         dtype=torch.float32)
@@ -69,12 +71,21 @@ def _router(params: Params, mc: MoEConfig, x2d: torch.Tensor):
     top_p = top_p / torch.clamp_min(top_p.sum(-1, keepdim=True), 1e-9)
     # switch load-balance loss: E * sum_e f_e * P_e
     e = mc.num_experts
-    f_e = torch.bincount(top_i.reshape(-1), minlength=e).float()
+    f_e = _expert_counts(top_i, e).float()
     f_e = f_e / torch.clamp_min(f_e.sum(), 1.0)
     p_e = probs.mean(dim=0)
     lb_loss = e * torch.sum(f_e * p_e)
     z_loss = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
     return top_p, top_i, {"moe_lb_loss": lb_loss, "moe_z_loss": z_loss}
+
+
+def _expert_counts(idx: torch.Tensor, e: int) -> torch.Tensor:
+    """Assignments per expert, (E,) int64: `bincount` as a scatter-add of
+    ones, whose shape does not depend on the data (so a trace on `meta`
+    runs it)."""
+    flat = idx.reshape(-1)
+    return torch.zeros(e, dtype=torch.int64, device=idx.device).scatter_add_(
+        0, flat.long(), torch.ones_like(flat, dtype=torch.int64))
 
 
 def _swiglu_act(g: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
@@ -109,15 +120,18 @@ def capacity(mc: MoEConfig, n: int) -> int:
     return min(cap, n) if n >= 8 else cap
 
 
-def _dropping_moe(params: Params, mc: MoEConfig, x3d, gates, idx):
+def _dropping_moe(params: Params, mc: MoEConfig, x3d, gates, idx,
+                  shard_fn=None):
     """GShard dispatch with per-*group* expert capacity.
 
     x3d: (G, N, d) — G groups of N tokens. Capacity is per (group, expert),
     so the dispatch tensor is (G, N, E, C). Tokens past an expert's capacity
-    in their group are dropped (their output from this layer is 0)."""
+    in their group are dropped (their output from this layer is 0).
+    shard_fn(name, x) lets the model annotate intermediate shardings."""
     g_, n, d = x3d.shape
     e = mc.num_experts
     cap = capacity(mc, n)
+    sf = shard_fn or (lambda name, a: a)
     slots = torch.arange(cap, device=x3d.device)
 
     # position of each (token, rank) within its (group, expert) queue;
@@ -136,9 +150,10 @@ def _dropping_moe(params: Params, mc: MoEConfig, x3d, gates, idx):
         oh = (pos_r[..., None] == slots) & keep[..., None]
         dispatch = dispatch + oh.to(x3d.dtype)
         combine = combine + oh.float() * gates[..., r:r + 1, None]
-    h_in = torch.einsum("gnec,gnd->egcd", dispatch, x3d)
+    dispatch = sf("moe_dispatch", dispatch)
+    h_in = sf("moe_egcd", torch.einsum("gnec,gnd->egcd", dispatch, x3d))
     h_out = _expert_ffn(params, h_in.reshape(e, g_ * cap, d))
-    h_out = h_out.reshape(e, g_, cap, d)
+    h_out = sf("moe_egcd", h_out.reshape(e, g_, cap, d))
     # combine weights in activation dtype, as the reference does
     return torch.einsum("gnec,egcd->gnd", combine.to(x3d.dtype), h_out)
 
@@ -152,7 +167,13 @@ def _ragged_moe(params: Params, mc: MoEConfig, x2d, gates, idx):
     tok = torch.arange(t, device=x2d.device).repeat_interleave(mc.top_k)[order]
     w = gates.reshape(-1)[order]
     xs = x2d[tok]                                  # (T*k, d) sorted by expert
-    sizes = torch.bincount(flat_e, minlength=mc.num_experts).tolist()
+    if x2d.device.type == "meta":
+        # no data to count: a balanced split (any split of the T*k rows
+        # costs the same products)
+        q, r = divmod(t * mc.top_k, mc.num_experts)
+        sizes = [q + (ex < r) for ex in range(mc.num_experts)]
+    else:
+        sizes = _expert_counts(flat_e, mc.num_experts).tolist()
     ys = []
     for ex, rows in enumerate(torch.split(xs, sizes)):
         h = _swiglu_act(rows @ params["w_gate"][ex], rows @ params["w_up"][ex])
@@ -161,9 +182,10 @@ def _ragged_moe(params: Params, mc: MoEConfig, x2d, gates, idx):
     return torch.zeros_like(x2d).index_add(0, tok, y)
 
 
-def moe_apply(params: Params, cfg: ModelConfig, x: torch.Tensor
-              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """x: (B, S, d) -> (B, S, d), aux losses."""
+def moe_apply(params: Params, cfg: ModelConfig, x: torch.Tensor,
+              shard_fn=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """x: (B, S, d) -> (B, S, d), aux losses. `shard_fn` annotates the
+    dropping dispatch's layouts (the model's `_moe_shard`)."""
     mc = cfg.moe
     b, s, d = x.shape
     x2d = x.reshape(b * s, d)
@@ -179,7 +201,8 @@ def moe_apply(params: Params, cfg: ModelConfig, x: torch.Tensor
         else:
             g_, n = 1, b * s
         y = _dropping_moe(params, mc, x2d.reshape(g_, n, d),
-                          gates.reshape(g_, n, -1), idx.reshape(g_, n, -1))
+                          gates.reshape(g_, n, -1), idx.reshape(g_, n, -1),
+                          shard_fn)
         y = y.reshape(b * s, d)
     elif mc.dispatch == "ragged":
         y = _ragged_moe(params, mc, x2d, gates, idx)

@@ -22,6 +22,7 @@ from typing import Any, Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.analysis import trace
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.mlstm_scan import mlstm_scan
 from repro_torch.kernels.mlstm_scan.ref import mlstm_chunk as _mlstm_chunk  # noqa: F401
@@ -223,7 +224,7 @@ def _slstm_out(params, y, dtype):
 
 def slstm_mix(params: Params, cfg: ModelConfig, x, state=None, conv0=None):
     """x: (B,S,d). An eager loop over time (the memory mixing is
-    recurrent). Returns (out, (state, conv_tail))."""
+    recurrent; `analysis.trace.scan`). Returns (out, (state, conv_tail))."""
     xc, h, hd = _slstm_dims(cfg)
     b, s, d = x.shape
     if conv0 is not None:
@@ -238,11 +239,15 @@ def slstm_mix(params: Params, cfg: ModelConfig, x, state=None, conv0=None):
 
     # the input projection hoisted out of the loop: one (B*S,d)x(d,4d) GEMM
     pre_all = x.float() @ params["w_in"] + params["b"]
-    hs = []
-    for t in range(s):
-        state = _slstm_step(params, (h, hd), state, pre_all[:, t], conv[:, t])
-        hs.append(state[3])
-    out = _slstm_out(params, torch.stack(hs, dim=1), x.dtype)
+    def step(carry, pre_t, conv_t, r_rec):
+        carry = _slstm_step({"r_rec": r_rec}, (h, hd), carry, pre_t, conv_t)
+        return carry, carry[3]
+
+    # a Python loop over time; the dry run's trace folds it (one step
+    # counted s times)
+    state, hs = trace.scan(step, state, ((pre_all, 1), (conv, 1)), s,
+                           consts=(params["r_rec"],))
+    out = _slstm_out(params, hs, x.dtype)
     kk = xc.conv1d_kernel - 1
     conv_tail = (torch.cat([conv0, x], dim=1)[:, -kk:]
                  if conv0 is not None else x[:, -kk:])

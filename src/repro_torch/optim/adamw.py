@@ -17,6 +17,7 @@ from typing import Any, Dict, Tuple
 
 import torch
 
+from repro_torch.analysis import trace
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -50,10 +51,16 @@ CHUNK = 1 << 26
 
 def _chunks(*tensors):
     """Flat views of tensors of one shape, CHUNK elements at a time (the
-    tensors whole where one of them is not contiguous)."""
+    tensors whole where one of them is not contiguous). Under the dry run's
+    trace the equal chunks before the last are folded: one runs, counted
+    as many times as there are (`analysis.trace.steps`)."""
     if all(t.is_contiguous() for t in tensors):
-        return zip(*(t.view(-1).split(CHUNK) for t in tensors))
-    return [tensors]
+        chunks = list(zip(*(t.view(-1).split(CHUNK) for t in tensors)))
+    else:
+        chunks = [tensors]
+    for i in trace.steps(len(chunks) - 1):
+        yield chunks[i]
+    yield chunks[-1]
 
 
 def global_norm(tree) -> torch.Tensor:

@@ -1,3 +1,4 @@
-"""Gradient compression of the port (the reference's `repro.parallel`
-without its TPU-mesh sharding rules, which have no counterpart on one
-card)."""
+"""Parallelism of the port: the reference's sharding rules over its
+production meshes (`sharding`: partition specs of every param, optimizer
+state, cache and input leaf; the plans the dry run traces) and int8
+gradient compression (`compression`)."""

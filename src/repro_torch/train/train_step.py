@@ -12,6 +12,7 @@ from typing import Any, Callable, Dict, Tuple
 
 import torch
 
+from repro_torch.analysis import trace
 from repro_torch.models.model import Model
 from repro_torch.optim.adamw import AdamWConfig, adamw_update, cosine_schedule
 from repro_torch.tree import tree_leaves, tree_map
@@ -49,7 +50,8 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig,
                                                    device=p.device), params)
             loss = 0.0
             aux = dict.fromkeys(("xent", "moe_lb_loss", "moe_z_loss"), 0.0)
-            for i in range(n):
+            # one microbatch counted n times under the dry run's trace
+            for i in trace.steps(n):
                 mb = {k: v[i * micro:(i + 1) * micro] for k, v in batch.items()}
                 (mb_loss, mb_aux), g = value_and_grad(model, params, mb)
                 # cast before scaling, as the reference does

@@ -1,0 +1,167 @@
+"""The port's dry run (`repro_torch.launch.dryrun`) on the CPU: records of
+every kind on the host mesh and both production plans, the CLI and its
+cache, state bytes and kernel calls at world size 1 against the step the
+CPU runs, a full-width cell without a card, and the model under rules
+(nothing changes at world size 1; KV expanded for a model axis that divides
+H but not Kv gives the same logits)."""
+import json
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.bridge import init_params  # noqa: E402
+from repro_torch.configs import registry  # noqa: E402
+from repro_torch.configs.base import (DECODE_32K, PREFILL_32K,  # noqa: E402
+                                      ShapeConfig)
+from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.launch.mesh import (Mesh, make_host_mesh,  # noqa: E402
+                                     make_production_mesh)
+from repro_torch.models import attention, build_model  # noqa: E402
+from repro_torch.models import ssm, xlstm  # noqa: E402
+from repro_torch.optim.adamw import adamw_init  # noqa: E402
+from repro_torch.parallel.sharding import make_rules  # noqa: E402
+from repro_torch.tree import tree_leaves  # noqa: E402
+
+# the reference's record keys whose meaning carries over
+KEYS = ("n_params", "hlo_flops", "hlo_dot_flops", "hlo_bytes",
+        "collective_bytes_total", "collective_bytes_dcn",
+        "collective_by_kind", "unknown_trip_loops", "arg_bytes_per_dev",
+        "out_bytes_per_dev", "temp_bytes_per_dev", "alias_bytes_per_dev",
+        "hbm_per_dev_gb", "fits_80gb")
+SMOKE_SHAPES = (ShapeConfig("t", "train", 64, 4),
+                ShapeConfig("p", "prefill", 64, 2),
+                ShapeConfig("d", "decode", 64, 2))
+
+
+MESHES = {"host": make_host_mesh(), "single": make_production_mesh(),
+          "multi": make_production_mesh(multi_pod=True)}
+
+
+@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "xlstm-125m",
+                                  "deepseek-v2-236b", "seamless-m4t-medium"])
+def test_records_of_every_kind_and_mesh(arch):
+    cfg = registry.get_smoke_config(arch)
+    for shape in SMOKE_SHAPES:
+        for mk, mesh in MESHES.items():
+            rec = dryrun.trace_cell(cfg, shape, mesh)
+            assert all(k in rec for k in KEYS)
+            assert "fits_16gb" not in rec and "xla_flops" not in rec
+            assert rec["unknown_trip_loops"] == 0
+            assert rec["hlo_dot_flops"] > 0 and rec["fits_80gb"]
+            if mk == "host":
+                assert rec["collective_bytes_total"] == 0
+                assert rec["divisor"] == 1
+            else:
+                assert rec["collective_by_kind"]["all-gather"] > 0
+                # the 16-wide model axis leaves an 8-card node
+                assert rec["collective_bytes_off_node"] > 0
+            if mk == "multi" and shape.kind == "train" \
+                    and not cfg.fsdp_over_pod:
+                # params replicated over `pod`: their gradients' all-reduce
+                assert rec["collective_bytes_dcn"] > 0
+            if shape.kind == "train":
+                assert rec["alias_bytes_per_dev"] == \
+                    rec["state_bytes_per_dev"]
+    assert not torch.cuda.is_initialized()
+
+
+def test_state_bytes_and_kernel_calls_at_world_size_one(monkeypatch):
+    """The host mesh: the state's bytes are those of the params and AdamW
+    state the launcher builds, exactly; each kernel's calls in the traced
+    step are the calls the same step makes on the CPU (counted by wrapping
+    the wrappers the model calls)."""
+    for arch in ("jamba-1.5-large-398b", "xlstm-125m", "stablelm-1.6b"):
+        cfg = registry.get_smoke_config(arch).scaled(train_microbatch=0)
+        shape = ShapeConfig("t", "train", 32, 2)
+        rec = dryrun.trace_cell(cfg, shape, make_host_mesh())
+        params = init_params(cfg, torch.Generator().manual_seed(0))
+        opt = adamw_init(params, cfg.opt_state_dtype)
+        held = sum(t.numel() * t.element_size()
+                   for t in tree_leaves(params) + tree_leaves(opt))
+        assert rec["state_bytes"] == rec["state_bytes_per_dev"] == held
+        calls = {}
+
+        def counting(name, fn):
+            def wrapped(*a, **k):
+                calls[name] = calls.get(name, 0) + 1
+                return fn(*a, **k)
+            return wrapped
+
+        with monkeypatch.context() as m:
+            for mod, name in ((attention, "flash_attention"),
+                              (xlstm, "mlstm_scan"), (ssm, "ssm_scan")):
+                m.setattr(mod, name, counting(name, getattr(mod, name)))
+            from repro_torch.launch.train import train
+            train(cfg, steps=1, batch=2, seq_len=32, device="cpu",
+                  params=params, log_every=1)
+        assert {k: v["calls"] for k, v in rec["kernel_calls"].items()} == \
+            calls, arch
+
+
+def test_cli_writes_one_record_a_cell_and_skips_cached(tmp_path, monkeypatch,
+                                                       capsys):
+    monkeypatch.setattr(dryrun, "RESULTS_DIR", tmp_path)
+    argv = ["--arch", "stablelm-1.6b", "--shape", "decode_32k", "--mesh",
+            "both"]
+    assert dryrun.main(argv) == 0
+    files = sorted(p.name for p in tmp_path.iterdir())
+    assert files == ["stablelm-1.6b__decode_32k__multi__baseline.json",
+                     "stablelm-1.6b__decode_32k__single__baseline.json"]
+    rec = json.loads((tmp_path / files[1]).read_text())
+    assert rec["ok"] and rec["devices"] == 256
+    assert rec["n_params"] == 1_644_267_520
+    assert dryrun.main(argv) == 0
+    assert "[skip]" in capsys.readouterr().out
+    assert dryrun.main(argv + ["--force", "--tag", "x"]) == 0
+    assert len(list(tmp_path.iterdir())) == 4
+    capsys.readouterr()
+    assert dryrun.main(["--table"]) == 0
+    row = next(line for line in capsys.readouterr().out.splitlines()
+               if line.startswith("| stablelm-1.6b |"))
+    cells = row.strip("| ").split(" | ")
+    assert cells[1:3] == ["-", "-"] and cells[4] == "-"
+    assert f"{rec['hbm_per_dev_gb']:.3g} / " in cells[3]
+
+
+def test_full_width_cell_without_a_card():
+    """gemma3-12b decode_32k on the single-pod plan: 128 sequences over
+    16 data shards, a 32k cache, no device."""
+    rec = dryrun.run_cell("gemma3-12b", DECODE_32K, "single")
+    assert rec["ok"], rec.get("traceback")
+    assert rec["batch_per_device"] == 8 and rec["divisor"] == 16
+    assert rec["n_params"] == 11_765_395_200
+    assert not rec["cuda_initialized"] and not torch.cuda.is_initialized()
+    assert 0 < rec["hbm_per_dev_gb"] < 80
+
+
+def test_a_failed_cell_is_recorded_with_its_error():
+    """A shape the card's kernel refuses is refused by the trace too."""
+    rec = dryrun.run_cell("stablelm-1.6b", PREFILL_32K, "single",
+                          opt_overrides={"head_dim": 320})
+    assert not rec["ok"] and "head_dim 320" in rec["error"]
+    assert "traceback" in rec and rec["total_s"] >= 0
+
+
+def _logits(cfg, rules, params, tokens):
+    with torch.no_grad():
+        return build_model(cfg, rules).forward(params, {"tokens": tokens})[0]
+
+
+def test_model_under_rules():
+    """World size 1: the same logits bit for bit as without rules. A model
+    axis of 4 over mixtral smoke's 4 query heads and 2 KV heads expands KV
+    to 4 heads (`_group_for_tp`): the same logits to fp32 rounding."""
+    cfg = registry.get_smoke_config("mixtral-8x22b").scaled(
+        param_dtype="float32")
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 16)))
+    plain = _logits(cfg, None, params, tokens)
+    host = make_rules(make_host_mesh(), cfg, SMOKE_SHAPES[1])
+    assert torch.equal(_logits(cfg, host, params, tokens), plain)
+    tp4 = make_rules(Mesh((1, 4), ("data", "model")), cfg, SMOKE_SHAPES[1])
+    assert build_model(cfg, tp4)._attn_tp()[0]
+    torch.testing.assert_close(_logits(cfg, tp4, params, tokens), plain,
+                               rtol=1e-5, atol=1e-5)

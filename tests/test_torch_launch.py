@@ -99,18 +99,22 @@ def test_train_runs_on_the_card_unless_asked(monkeypatch):
 
 @pytest.mark.parametrize("which", ["single", "multi"])
 def test_mesh_over_many_devices_raises(which):
-    with pytest.raises(NotImplementedError, match="A18"):
+    with pytest.raises(NotImplementedError,
+                       match="A18.*repro_torch.launch.dryrun"):
         launch_train.main(["--arch", "xlstm-125m", "--smoke", "--mesh",
                            which, "--device", "cpu"])
 
 
 def test_host_mesh_is_world_size_one():
     m = mesh.make_host_mesh()
-    assert (m.size, m.shape, m.axis_names) == (1, (1, 1), ("data", "model"))
+    assert (m.size, m.shape, m.axis_names) == (
+        1, {"data": 1, "model": 1}, ("data", "model"))
     with pytest.raises(ValueError):
         mesh.make_host_mesh(model=2)
-    with pytest.raises(NotImplementedError, match="A18"):
-        mesh.make_production_mesh(multi_pod=True)
+    # the production meshes are plans (the dry run's), not devices
+    plan = mesh.make_production_mesh(multi_pod=True)
+    assert (plan.size, plan.shape) == (
+        512, {"pod": 2, "data": 16, "model": 16})
     # the loop drives the one device of its mesh
     with pytest.raises(ValueError, match="A18"):
         launch_train.train(launch_train.launch_config("xlstm-125m", True),

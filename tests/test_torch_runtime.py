@@ -243,6 +243,40 @@ def _hold_the_interpreter(at_least_s: float) -> float:
         n *= 2
 
 
+def test_detector_counts_no_miss_from_a_late_scan():
+    """The port only: the interleaving that failed under load, forced with
+    an injected clock. Between the many C calls of a stall the detector
+    may take the interpreter back before any beater, three times: each of
+    those scans is late (more than two intervals after the one before), so
+    it finds no new beat and is no evidence. Counted as misses, as they
+    were, they reached `miss` with the last beat long past the horizon and
+    killed all three live nodes at the third. A node whose beats really
+    stop is still killed at the third on-time scan."""
+    from repro_torch import core
+    c = core.init(num_nodes=3, workers_per_node=1)   # no detector thread
+    try:
+        det = c.detector
+        det.enabled = True
+        iv = det.interval
+        for node in c.nodes:
+            c.gcs.beat(node.node_id, 0.0)
+        det._tick(0.0)
+        for t in (0.45, 0.9, 1.35):          # late scans, no beat between
+            det._tick(t)
+        assert all(n.alive for n in c.nodes)
+        t = 1.35
+        for i in range(3):                   # node 1's beats have stopped
+            t += iv
+            for live in (0, 2):
+                c.gcs.beat(live, t)
+            det._tick(t)
+            assert c.nodes[1].alive == (i < 2)
+        assert c.nodes[0].alive and c.nodes[2].alive
+    finally:
+        core.shutdown()
+    _drain_threads()
+
+
 def test_detector_outlasts_a_stall_of_the_interpreter():
     """The port only: a stall of the whole interpreter delays every beater
     and the detector alike and counts as one missed scan, so no live node
