@@ -213,6 +213,28 @@ Phases, each of which raises (and so exits non-zero) on any failure:
               serving ledger balances, the streaming scenario recovers.
               Phases 8-8d run no kernel of the port; their launches are
               logged.
+  9. dryrun   the dry run (`repro_torch.launch.dryrun.trace_cell`) at world
+              size 1 of every config phase 5c trained, held to its steps
+              (state bytes and kernel calls a step exact; predicted peak and
+              the FLOPs share of peak printed), and `python -m
+              repro_torch.launch.dryrun` on four full-width cells of the
+              single-pod plan, none of which may initialize CUDA.
+  10. sharded the sharded training step (`launch.train.train` over a
+              process group, the reference's ShardingRules executing):
+              stablelm-1.6b cut to 6 of its 24 layers at full width over a
+              (2, 2) mesh, batch 2 x 2048, and phi3-medium-14b cut to 2
+              layers at full width
+              over (1, 4), batch 1 x 2048 (KV heads expanded), 1 warm-up + 2
+              steps each, as gloo ranks spawned on this card (their
+              collectives through host memory: no measure of the plan's
+              speed). Each rank held to the one-card step from the same
+              weights and batches (losses to 1e-3, its block of every
+              updated leaf to 1e-3 of the leaf's largest entry), flash
+              launched on its local heads (16, or 10) as often as the remat
+              implies, its bytes a step by kind equal to the dry run's at
+              the same mesh; backend, ranks, cards, each rank's peak memory
+              and step ms printed. With 2 cards or more, stablelm also over
+              nccl, one rank a card.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Without a card it exits 1.
 """
@@ -882,6 +904,15 @@ def _launch_flash_shapes() -> list:
              ("deepseek smoke serve", launch_config("deepseek-v2-236b", True),
               8, 32)]
     out = []
+    # a rank's heads in phase 10: its rows of the batch, H / model query
+    # heads, its own KV heads or those expanded to its query heads
+    for label, arch, layers, (data, model), b, s, heads in SHARDED_TRAIN:
+        cfg = get_config(arch)
+        hkv = heads if cfg.num_kv_heads % model else \
+            cfg.num_kv_heads // model
+        out.append((f"{arch} rank of {(data, model)} (phase 10)",
+                    getattr(torch, cfg.param_dtype), b // data, heads, hkv,
+                    s, s, cfg.head_dim, cfg.head_dim, True, 0))
     for what, cfg, b, s in runs:
         dt = getattr(torch, cfg.param_dtype)
         h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -3298,6 +3329,433 @@ def dryrun_phase(trained: dict) -> dict:
     return out
 
 
+# ----------------------------------------------------------------- phase 10
+
+# The sharded training step: (label, arch, depth cut or None, mesh shape,
+# global batch, seq_len, the flash heads a rank runs). Widths are never cut.
+# stablelm is cut from 24 layers to 6 for the phase's 90 s: whole, its four
+# gloo ranks on one H100 took 13.7-16.0 s a step, and the phase 138.6 s
+# (PERF.md, section 5).
+SHARDED_TRAIN = (
+    ("stablelm-1.6b cut to 6 layers", "stablelm-1.6b", 6, (2, 2), 2, 2048,
+     16),
+    ("phi3-medium-14b cut to 2 layers, KV heads expanded", "phi3-medium-14b",
+     2, (1, 4), 1, 2048, 10),
+)
+# 1 warm-up step, then the timed ones, on both sides
+SHARDED_STEPS = 3
+# the sharded step against the one-card step, bf16: the loss to 1e-3 of
+# its value, each updated leaf to 1e-3 of its largest entry (sums over
+# ranks and a rank's columns round in another order)
+SHARDED_LOSS_RTOL = 1e-3
+SHARDED_LEAF_TOL = 1e-3
+# Over 3 steps from step 0 the warm-up's learning rate (0, then 3e-6 and
+# 6e-6) leaves the bf16 weights within about an ulp of where they began,
+# so the leaves above hold the forward only. The backward, the gradients'
+# sync over ranks and the clip are held by each step's gradient norm and
+# by AdamW's first moment `m` (the clipped gradients' running mean, fp32).
+# In bf16 these cannot be held to 1e-3: tensor parallelism rounds each
+# rank's partial product to bf16 before the sum, which the one-card
+# product rounds once (on the card: `m` within 0.9% of each leaf's largest
+# entry, norms up to 5.3e-3 apart). The embedding table's gradient is
+# further off on both sides: the lookup's backward (`table[tokens]`) sums
+# a frequent token's rows in bf16, and the whole batch and the data ranks'
+# rows summed apart differ by about 5% of its largest entry
+# (`_embed_grad_rounding` measures it each run). A gradient that misses
+# its sync, or a norm summed on one rank only, is off by 55% or more
+# (PERF.md, section 6, the planted faults).
+SHARDED_NORM_RTOL = 2e-2
+SHARDED_MOMENT_TOL = 5e-2
+SHARDED_TABLE_MOMENT_TOL = 0.25
+# the leaf whose gradient the lookup accumulates in bf16
+EMBED_TABLE = "embed/table"
+SHARDED_TIMEOUT_S = 300
+SHARDED_DIR = ROOT / "build" / "chip_smoke_sharded"
+
+
+def _sharded_config(arch: str, layers):
+    from repro_torch.configs.registry import get_config
+    cfg = get_config(arch)
+    return cfg.scaled(num_layers=layers) if layers else cfg
+
+
+def _sharded_rank(rank: int, world: int, backend: str, case: int,
+                  mesh_shape: tuple, work: str) -> None:
+    """One rank of phase 10: the launcher's loop (`launch.train.train`) on
+    the case's mesh over `backend` from the seeded weights, its blocks
+    held to the one-card step's (`ref.pt`), its flash calls, bytes,
+    memory and step ms written to `rank<r>.json`. Ranks over gloo share
+    the cards (host memory carries their collectives); over nccl each has
+    its own."""
+    import torch.distributed as dist
+    from datetime import timedelta
+    from repro_torch.bridge import init_params
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.train import train
+    from repro_torch.models import attention
+    from repro_torch.parallel.collectives import Comm
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.parallel.sharding import _block, leaf_specs, make_rules
+    label, arch, layers, _, batch, seq_len, heads = SHARDED_TRAIN[case]
+    work = Path(work)
+    torch.cuda.set_device(rank % torch.cuda.device_count())
+    dist.init_process_group(backend, init_method=f"file://{work}/rdv",
+                            rank=rank, world_size=world,
+                            timeout=timedelta(seconds=SHARDED_TIMEOUT_S))
+    # started beside the one-card step: train once it has finished
+    deadline = time.monotonic() + SHARDED_TIMEOUT_S
+    while not (work / "go").exists():
+        if time.monotonic() > deadline:
+            raise TimeoutError("the one-card step did not finish")
+        time.sleep(0.05)
+    cfg = _sharded_config(arch, layers)
+    mesh = Mesh(mesh_shape, ("data", "model"))
+    comm = Comm(mesh)
+    wrapper, seen = attention.flash_attention, []
+
+    def flash(q, k, v, **kw):      # the heads of each call, then the kernel
+        seen.append((q.shape[1], k.shape[1]))
+        return wrapper(q, k, v, **kw)
+    attention.flash_attention = flash
+    wrapper.launches = 0
+    ends, per_step, held, norms = [], [], {}, []
+
+    def on_step(step, metrics):
+        ends.append(torch.cuda.Event(enable_timing=True))
+        ends[-1].record()
+        norms.append(metrics["grad_norm"])
+        per_step.append(comm.stats.snapshot())
+        comm.stats.reset()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses = train(cfg, steps=SHARDED_STEPS, batch=batch, seq_len=seq_len,
+                   params=init_params(cfg, torch.Generator(
+                       device="cuda").manual_seed(SEED + 40 + case)),
+                   mesh=mesh, comm=comm, log_every=SHARDED_STEPS,
+                   on_step=on_step,
+                   on_state=lambda p, o: held.update(params=p, m=o["m"]))
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    # this rank's block of each updated leaf and of AdamW's first moment
+    # against the one-card step's
+    ref = torch.load(work / "ref.pt", mmap=True, weights_only=True)
+    scales = json.loads((work / "ref_max.json").read_text())
+    rules = make_rules(mesh, cfg, ShapeConfig("10", "train", seq_len, batch),
+                       comm)
+    worst = {"params": (0.0, ""), "m": (0.0, ""), "m_table": (0.0, "")}
+    for part in ("params", "m"):
+        paths = _paths(held[part])
+        for (block, spec), path, whole in zip(
+                leaf_specs(held[part], rules.param_specs()), paths,
+                _ref_leaves(ref[part], paths)):
+            want = whole[_block(spec, comm.coords, mesh, whole.shape)]
+            err = float((block.float() - want.to(block.device).float())
+                        .abs().max()) / (scales[part][path] or 1.0)
+            key = "m_table" if part == "m" and path == EMBED_TABLE else part
+            worst[key] = max(worst[key], (err, path))
+    step_ms = [a.elapsed_time(b) for a, b in zip(ends, ends[1:])]
+    (work / f"rank{rank}.json").write_text(json.dumps({
+        "rank": rank, "card": torch.cuda.current_device(),
+        "backend": dist.get_backend(), "losses": losses,
+        "grad_norms": [float(n) for n in norms],
+        "worst_leaf": worst["params"], "worst_m": worst["m"],
+        "worst_m_table": worst["m_table"],
+        "flash_launches": wrapper.launches,
+        "flash_heads": sorted(set(seen)), "flash_calls": len(seen),
+        "bytes": per_step, "step_ms": step_ms, "wall_s": wall_s,
+        "max_memory_allocated": torch.cuda.max_memory_allocated()}))
+    dist.destroy_process_group()
+
+
+def _paths(tree, prefix=""):
+    """The leaf paths of a tree, in `tree_leaves` order."""
+    if isinstance(tree, dict):
+        return [p for k, v in tree.items() for p in _paths(v, f"{prefix}{k}/")]
+    if isinstance(tree, (tuple, list)):
+        return [p for i, v in enumerate(tree)
+                for p in _paths(v, f"{prefix}{i}/")]
+    return [prefix[:-1]]
+
+
+def _ref_leaves(ref, paths):
+    for path in paths:
+        node = ref
+        for key in path.split("/"):
+            node = node[int(key)] if isinstance(node, (tuple, list)) \
+                else node[key]
+        yield node
+
+
+def _sharded_reference(case: int, work: Path) -> dict:
+    """The one-card step (world size 1, `launch.train.train` without
+    rules) from the same seeded weights and batches: its losses, gradient
+    norms and step ms; its updated params and AdamW first moment saved to
+    `ref.pt` for the ranks (with each leaf's largest entry), then
+    freed."""
+    from repro_torch.launch.train import train
+    from repro_torch.tree import tree_map
+    label, arch, layers, mesh_shape, batch, seq_len, heads = \
+        SHARDED_TRAIN[case]
+    cfg = _sharded_config(arch, layers)
+    torch.cuda.reset_peak_memory_stats()
+    params, n_params = _init_full(cfg, SEED + 40 + case)
+    ends, norms, held = [], [], {}
+
+    def on_step(step, metrics):
+        ends.append(torch.cuda.Event(enable_timing=True))
+        ends[-1].record()
+        norms.append(metrics["grad_norm"])
+    reset_launch_counts()
+    losses = train(cfg, steps=SHARDED_STEPS, batch=batch, seq_len=seq_len,
+                   params=params, log_every=SHARDED_STEPS, on_step=on_step,
+                   on_state=lambda p, o: held.update(m=o["m"]))
+    launches = launch_counts()
+    want = {k: n * SHARDED_STEPS for k, n in _train_launches(cfg).items()}
+    if launches != want:
+        raise AssertionError(f"{label} on one card: launches {launches}, "
+                             f"want {want}")
+    step_ms = [a.elapsed_time(b) for a, b in zip(ends, ends[1:])]
+    both = {"params": params, "m": held.pop("m")}
+    torch.save(tree_map(lambda t: t.cpu(), both), work / "ref.pt")
+    (work / "ref_max.json").write_text(json.dumps({
+        part: {path: float(t.float().abs().max())
+               for path, t in zip(_paths(tree), _tree_leaves(tree))}
+        for part, tree in both.items()}))
+    (work / "go").touch()
+    out = {"losses": losses, "grad_norms": [float(n) for n in norms],
+           "step_ms": step_ms, "params": n_params,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "flash_launches": launches["flash_attention"]}
+    del params, both
+    release_memory()
+    return out
+
+
+def _tree_leaves(tree):
+    from repro_torch.tree import tree_leaves
+    return tree_leaves(tree)
+
+
+def _embed_grad_rounding(cfg, ranks: int, batch: int, seq_len: int) -> dict:
+    """The embedding table's gradient at the case's first batch as the
+    lookup's backward (`table[tokens]`) sums it in bf16 on the card, from
+    seeded bf16 upstream gradients: the whole batch at once (the one-card
+    step) and each of `ranks` data ranks' rows apart, summed; each against
+    the float64 sum, and the two against each other, as shares of the
+    float64 sum's largest entry."""
+    from repro_torch.data.pipeline import DataConfig, batch_for_step
+    v, d = cfg.vocab_size, cfg.d_model
+    tokens = torch.from_numpy(batch_for_step(DataConfig(
+        vocab_size=v, seq_len=seq_len, global_batch=batch), 0)["tokens"]
+    ).long().cuda()
+    dy = torch.randn(batch, seq_len, d, device="cuda", generator=torch.
+                     Generator(device="cuda").manual_seed(SEED + 45)
+                     ).to(torch.bfloat16)
+
+    def grad(t, g):
+        table = torch.zeros(v, d, dtype=torch.bfloat16, device="cuda",
+                            requires_grad=True)
+        table[t].backward(g)
+        return table.grad.double()
+    truth = torch.zeros(v, d, dtype=torch.float64, device="cuda")
+    truth.index_add_(0, tokens.flatten(), dy.reshape(-1, d).double())
+    whole = grad(tokens, dy)
+    parts = sum(grad(t, g) for t, g in zip(tokens.chunk(ranks),
+                                            dy.chunk(ranks)))
+    top = float(truth.abs().max())
+    out = {"top_token_hits": int(torch.bincount(tokens.flatten()).max()),
+           "whole": float((whole - truth).abs().max()) / top,
+           "ranks": float((parts - truth).abs().max()) / top,
+           "whole_vs_ranks": float((whole - parts).abs().max()) / top}
+    del truth, whole, parts
+    release_memory()
+    return out
+
+
+def _start_ranks(case: int, mesh_shape: tuple, backend: str,
+                 work: Path) -> list:
+    """Starts the case's ranks (spawn), each on card `rank % count`; they
+    train once `work/go` exists."""
+    import torch.multiprocessing as tmp
+    for f in work.glob("rank*.json"):
+        f.unlink()
+    (work / "rdv").unlink(missing_ok=True)
+    ctx = tmp.get_context("spawn")
+    world = math.prod(mesh_shape)
+    procs = [ctx.Process(target=_sharded_rank, args=(
+        r, world, backend, case, mesh_shape, str(work)))
+        for r in range(world)]
+    for p in procs:
+        p.start()
+    return procs
+
+
+def _stop(procs: list) -> None:
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+        p.join()
+
+
+def _join_ranks(case: int, procs: list, backend: str, work: Path) -> list:
+    """The ranks' results. A rank that fails, or outlasts the timeout,
+    fails the phase, and the others are stopped at once; every rank has
+    ended before this returns."""
+    deadline = time.monotonic() + SHARDED_TIMEOUT_S
+    try:
+        while time.monotonic() < deadline and any(p.is_alive()
+                                                  for p in procs):
+            if any(p.exitcode not in (None, 0) for p in procs):
+                break
+            time.sleep(0.1)
+    finally:
+        _stop(procs)
+    bad = [(r, p.exitcode) for r, p in enumerate(procs) if p.exitcode != 0]
+    if bad:
+        raise AssertionError(f"phase 10 {SHARDED_TRAIN[case][0]} over "
+                             f"{backend}: ranks (rank, exit code) {bad}")
+    return [json.loads((work / f"rank{r}.json").read_text())
+            for r in range(len(procs))]
+
+
+def _check_sharded(case: int, ref: dict, ranks: list, mesh_shape: tuple,
+                   backend: str) -> dict:
+    """Each rank against the one-card step: the losses to
+    SHARDED_LOSS_RTOL, each step's gradient norm to SHARDED_NORM_RTOL, its
+    blocks of every updated leaf to SHARDED_LEAF_TOL and of AdamW's first
+    moment to SHARDED_MOMENT_TOL of the leaf's largest entry (the
+    embedding table's to SHARDED_TABLE_MOMENT_TOL), flash on its
+    local heads as many times as the remat implies; its bytes a step by
+    kind equal to the dry run's at the same mesh and shape. Logs what
+    every rank showed, then raises with every check that failed."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import Mesh
+    label, arch, layers, _, batch, seq_len, heads = SHARDED_TRAIN[case]
+    cfg = _sharded_config(arch, layers)
+    mesh = Mesh(mesh_shape, ("data", "model"))
+    world = mesh.size
+    plan = dryrun.trace_cell(cfg, ShapeConfig("10", "train", seq_len, batch),
+                             mesh)["collective_by_kind"]
+    calls = _train_launches(cfg)["flash_attention"] * SHARDED_STEPS
+    cards = sorted({r["card"] for r in ranks})
+    failed = []
+
+    def rel(got, want):
+        return max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    for r in ranks:
+        what = f"phase 10 {label} over {backend}, rank {r['rank']}"
+        r["loss_rel"] = rel(r["losses"], ref["losses"])
+        r["norm_rel"] = rel(r["grad_norms"], ref["grad_norms"])
+        if r["loss_rel"] > SHARDED_LOSS_RTOL:
+            failed.append(f"{what}: losses {r['losses']}, one card "
+                          f"{ref['losses']}")
+        if r["norm_rel"] > SHARDED_NORM_RTOL:
+            failed.append(f"{what}: gradient norms {r['grad_norms']}, one "
+                          f"card {ref['grad_norms']}")
+        for key, tol in (("worst_leaf", SHARDED_LEAF_TOL),
+                         ("worst_m", SHARDED_MOMENT_TOL),
+                         ("worst_m_table", SHARDED_TABLE_MOMENT_TOL)):
+            if r[key][0] > tol:
+                failed.append(f"{what}: {key} {r[key][1]} off by "
+                              f"{r[key][0]} of its largest entry (> {tol})")
+        if r["flash_launches"] != calls or r["flash_calls"] != calls or \
+                r["flash_heads"] != [[heads, heads]]:
+            failed.append(f"{what}: flash launched {r['flash_launches']} "
+                          f"times on (q, k) heads {r['flash_heads']}, want "
+                          f"{calls} on {heads}")
+        for step in r["bytes"]:
+            if step.keys() != plan.keys() or any(
+                    not math.isclose(step[k], v, rel_tol=1e-9)
+                    for k, v in plan.items()):
+                failed.append(f"{what}: bytes a step {step}, the dry run's "
+                              f"{plan}")
+    log(f"[sharded] {label}: gradient norms a step, rank 0 "
+        f"{ranks[0]['grad_norms']}, one card {ref['grad_norms']}; worst "
+        f"over ranks: loss {max(r['loss_rel'] for r in ranks)}, norm "
+        f"{max(r['norm_rel'] for r in ranks)} of the one card's; AdamW m "
+        f"{max(r['worst_m'] for r in ranks)}, the embedding table's "
+        f"{max(r['worst_m_table'] for r in ranks)} of its largest entry")
+    log(f"[sharded] {label}: {backend}, {world} ranks on {len(cards)} of "
+        f"{torch.cuda.device_count()} card(s) ({world // len(cards)} a "
+        f"card), mesh {mesh.shape}, global batch {batch} x {seq_len}, "
+        f"{SHARDED_STEPS} steps: losses {ranks[0]['losses']}, one card "
+        f"{ref['losses']}; worst leaf {max(r['worst_leaf'] for r in ranks)} "
+        f"of its largest entry; flash {calls} launches a rank on "
+        f"{heads} local heads ({ref['flash_launches']} on one card)")
+    for r in ranks:
+        log(f"[sharded]   rank {r['rank']} card {r['card']}: "
+            f"max_memory_allocated {r['max_memory_allocated']} bytes; step "
+            f"ms (CUDA events between step ends) {r['step_ms']}; train() "
+            f"{r['wall_s']:.1f} s")
+    log(f"[sharded]   bytes a step a rank by kind (ring model), each rank: "
+        f"{ranks[0]['bytes'][-1]}; the dry run at this mesh and shape: "
+        f"{plan}; the one-card step's ms {ref['step_ms']}, peak "
+        f"{ref['max_memory_allocated']} bytes")
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return {"backend": backend, "ranks": world, "cards": len(cards),
+            "mesh": mesh.shape, "losses": ranks[0]["losses"],
+            "one_card_losses": ref["losses"],
+            "grad_norms": ranks[0]["grad_norms"],
+            "one_card_grad_norms": ref["grad_norms"],
+            "worst_norm_rel": max(r["norm_rel"] for r in ranks),
+            "worst_m": max(r["worst_m"] for r in ranks),
+            "worst_m_table": max(r["worst_m_table"] for r in ranks),
+            "one_card_step_ms": ref["step_ms"],
+            "one_card_max_memory": ref["max_memory_allocated"],
+            "worst_leaf": max(r["worst_leaf"] for r in ranks),
+            "flash_launches": sum(r["flash_launches"] for r in ranks),
+            "one_card_flash_launches": ref["flash_launches"],
+            "bytes_by_kind": ranks[0]["bytes"][-1], "dry_run_bytes": plan,
+            "step_ms": {r["rank"]: r["step_ms"] for r in ranks},
+            "max_memory_allocated": {r["rank"]: r["max_memory_allocated"]
+                                     for r in ranks}}
+
+
+def sharded_phase() -> dict:
+    """Phase 10: each SHARDED_TRAIN case over its mesh of gloo ranks on
+    this machine's cards (phase 1 built the kernels: the ranks load them),
+    held to the one-card step; where there are 2 cards or more, (a) also
+    over nccl, one rank a card."""
+    out = {}
+    count = torch.cuda.device_count()
+    for case, (label, arch, layers, mesh_shape, batch, seq_len, heads) in \
+            enumerate(SHARDED_TRAIN):
+        work = SHARDED_DIR / str(case)
+        shutil.rmtree(work, ignore_errors=True)
+        work.mkdir(parents=True)
+        t0 = time.perf_counter()
+        procs = _start_ranks(case, mesh_shape, "gloo", work)
+        try:
+            ref = _sharded_reference(case, work)
+        except BaseException:
+            _stop(procs)
+            raise
+        ranks = _join_ranks(case, procs, "gloo", work)
+        out[label] = _check_sharded(case, ref, ranks, mesh_shape, "gloo")
+        if mesh_shape[0] > 1:
+            out[label]["embed_grad_rounding"] = r = _embed_grad_rounding(
+                _sharded_config(arch, layers), mesh_shape[0], batch, seq_len)
+            log(f"[sharded] {label}: the embedding table's bf16 gradient "
+                f"(top token {r['top_token_hits']} times), shares of its "
+                f"largest entry: the whole batch {r['whole']} and the "
+                f"{mesh_shape[0]} data ranks' rows summed {r['ranks']} from "
+                f"the float64 sum, {r['whole_vs_ranks']} apart")
+        log(f"[time] sharded {label}: {time.perf_counter() - t0:.1f} s")
+        if case == 0 and count >= 2:
+            nccl = ((2, 2) if count >= 4 else (1, 2))
+            ranks = _join_ranks(case, _start_ranks(case, nccl, "nccl", work),
+                                "nccl", work)
+            out[f"{label} nccl"] = _check_sharded(case, ref, ranks, nccl,
+                                                  "nccl")
+        elif case == 0:
+            log(f"[sharded] nccl: {count} card on this machine; one rank a "
+                "card needs 2 or more, not run")
+        shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
 # ------------------------------------------------------------------ phase 6
 
 # stablelm-1.6b's MLP up-projection: d_model 2048 -> d_ff 5632.
@@ -4334,6 +4792,16 @@ def main() -> int:
     timed("simulator", simulator, round_trip_us)
     log(f"[slice] kernel launches in phases 8-8d: {launch_counts()}")
     timed("dryrun", dryrun_phase, launch["train"])
+    release_memory()
+    sharded = timed("sharded", sharded_phase)
+    for label, r in sharded.items():
+        flash["launches_by_path"][
+            f"sharded train {label}, {r['backend']} {r['ranks']} ranks "
+            "(phase 10)"] = r["flash_launches"]
+        flash["launches_by_path"][
+            f"one-card step of {label} (phase 10)"] = \
+            r["one_card_flash_launches"]
+    flash["launches"] = sum(flash["launches_by_path"].values())
 
     print(json.dumps({"kernels": [flash, mlstm, ssm, int8]}), flush=True)
     print(json.dumps({"ok": True, "device": {

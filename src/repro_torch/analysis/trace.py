@@ -31,12 +31,14 @@ recomputation's included, and counts:
                  byte means the same thing in both records:
                  - a parameter leaf sharded over the FSDP axes is
                    all-gathered over them at each use by a compute op of
-                   a train or prefill step (casts, copies and in-place
-                   updates are the optimizer's and gather nothing); a
-                   decode step gathers only the embedding table, whole,
-                   for its lookup (its products keep their weights in
-                   place and move the one token's activations, which are
-                   not counted), as XLA plans the reference's decode;
+                   a train or prefill step, the backward's included
+                   (ZeRO-3 gathers again for it); the optimizer's reads
+                   (`not_a_use`) and casts, copies and in-place updates
+                   gather nothing; a decode step gathers only the
+                   embedding table, whole, for its lookup (its products
+                   keep their weights in place and move the one token's
+                   activations, which are not counted), as XLA plans the
+                   reference's decode;
                  - at each residual-stream constraint (`constrain_act`,
                    "btd"), the partial sums a row-parallel product leaves
                    over `model` are all-reduced, or under Megatron-SP
@@ -48,11 +50,28 @@ recomputation's included, and counts:
                  - at each "moe_egcd" constraint, the experts' inputs and
                    outputs cross between token and expert layouts: an
                    all-to-all over `model`;
+                 - at each "kv" constraint (KV heads the model axis does
+                   not divide, before `_group_for_tp` expands them), the
+                   keys or values are all-gathered over `model`;
+                 - a constraint's tensor that takes a gradient records,
+                   when its backward runs, the collectives that carry the
+                   gradient back: all-gather for reduce-scatter and the
+                   reverse, all-reduce for all-reduce, all-to-all for
+                   all-to-all;
                  - `Trace.gradient_sync` adds a training step's gradient
                    reduce-scatter over the FSDP axes and all-reduce over
-                   the batch axes a leaf is replicated on.
-                 These are estimates of the collectives XLA would plan; the
-                 rest of XLA's choices (its own resharding) are not seen.
+                   the batch axes a leaf is replicated on (and over
+                   `model` for a leaf `model` does not shard when the
+                   residual stream splits its sequence there), the loss's
+                   all-reduce a microbatch and the gradient norm's a step.
+                 These are the plan's model, estimates of the collectives
+                 XLA would plan (its own resharding is not seen). A step
+                 that executing rules run (`launch.dryrun.executes`) is
+                 traced instead as a rank runs it: its collectives are its
+                 own, each recorded by a `parallel.collectives.PlanComm`,
+                 and its ZeRO-3 products (`gathered_mm`, one op) count as
+                 dots, their gathers recorded. Without a remat the two
+                 agree by kind (tests/test_torch_distributed.py).
 
 An eager trace unrolls every Python loop, so `unknown_trip_loops` is 0. A
 loop of many identical steps may instead be folded: `scan` (a recurrence:
@@ -88,6 +107,9 @@ _NO_BYTES = {aten.empty.memory_format, aten.empty_strided.default,
 # ops that read a parameter without computing with it: the optimizer's
 _NOT_A_USE = {aten._to_copy.default, aten.copy_.default, aten.clone.default}
 _LOOKUPS = {aten.index.Tensor}           # `table[tokens]`
+# ZeRO-3's product with a sharded weight (`parallel.collectives`): one op
+# that gathers the weight and multiplies by it
+_GATHERED_MM = "repro_torch::gathered_mm"
 
 _STACK: List["Trace"] = []
 
@@ -227,6 +249,7 @@ class Trace(TorchDispatchMode):
         self._args = {_key(t) for t in _tensors(args)}
         self._fold_new: Optional[List[int]] = None
         self._params: Dict[int, Tuple[Any, str]] = {}   # storage -> spec, name
+        self._uses_off = 0       # inside `not_a_use`
         self._shapes = set()
         if params is not None:
             from repro_torch.parallel.sharding import (_map_with_path,
@@ -322,8 +345,16 @@ class Trace(TorchDispatchMode):
         s = self._scale
         res = self.res
         res.ops += 1
-        if func in _DOTS:
-            f = self._dot_flops(func, args)
+        gathered = func._schema.name == _GATHERED_MM
+        if gathered:
+            from repro_torch.parallel.collectives import _comm_of
+            x, w, dim, key = args
+            comm, axes = _comm_of(key)
+            if comm.backend == "plan":   # a plan's gather, recorded
+                comm.all_gather(w, dim, axes)
+        if func in _DOTS or gathered:
+            f = 2.0 * ins[0].numel() * outs[0].shape[-1] if gathered \
+                else self._dot_flops(func, args)
             res.flops += f * s
             res.dot_flops += f * s
         elif func not in _NO_FLOPS and (torch.Tag.pointwise in func.tags
@@ -334,7 +365,7 @@ class Trace(TorchDispatchMode):
             res.hbm_bytes += nb * s
             if nb * s >= 1e9:
                 self._top(nb * s, func, outs)
-        if self._params and func not in _NOT_A_USE \
+        if self._params and not self._uses_off and func not in _NOT_A_USE \
                 and not func._schema.is_mutable:
             for t in ins:
                 info = self._params.get(_key(t))
@@ -406,32 +437,47 @@ class Trace(TorchDispatchMode):
         self._collective("all-gather", axes, full / n_fsdp, full,
                          "fsdp param")
 
-    def constrain(self, rules, x: torch.Tensor, name: str, spec) -> None:
+    def constrain(self, rules, x: torch.Tensor, name: str, spec):
         """A `constrain_act` / `constrain_moe` point (see the module
-        docstring). Bytes are per device: the trace runs a batch shard, so
-        a tensor's bytes over its spec's non-batch axes."""
+        docstring): its collectives recorded, and `x` returned, wrapped
+        (`_Transposed`) where it takes a gradient, so that the backward
+        records the collectives that carry the gradient back. Bytes are per
+        device: the trace runs a batch shard, so a tensor's bytes over its
+        spec's non-batch axes."""
         if self.rules is None or rules.tp_size <= 1:
-            return
+            return x
         from repro_torch.parallel.sharding import _axis_size, _flat_axes
         bat = set(rules.batch_axes)
         other = tuple(a for axes in spec for a in _flat_axes(axes)
                       if a not in bat)
         per_dev = _nbytes(x) / _axis_size(rules.mesh, other)
+        full = _nbytes(x)
         tp = rules.tp
+        fwd: List[Tuple] = []
+        bwd: List[Tuple] = []
         if name == "btd":
-            full = _nbytes(x)
             if tp in other:        # Megatron-SP: reduce-scatter, re-gather
-                self._collective("reduce-scatter", tp, full, per_dev,
-                                 "sp residual")
-                self._collective("all-gather", tp, per_dev, full,
-                                 "sp residual")
+                fwd = [("reduce-scatter", tp, full, per_dev, "sp residual"),
+                       ("all-gather", tp, per_dev, full, "sp residual")]
+                bwd = [("reduce-scatter", tp, full, per_dev, "sp residual"),
+                       ("all-gather", tp, per_dev, full, "sp residual")]
             else:
-                self._collective("all-reduce", tp, full, full, "residual")
+                fwd = bwd = [("all-reduce", tp, full, full, "residual")]
         elif name == "logits" and rules.shape.kind != "decode":
-            self._collective("all-to-all", tp, per_dev, per_dev, "logits")
+            fwd = bwd = [("all-to-all", tp, per_dev, per_dev, "logits")]
         elif name == "moe_egcd":
-            self._collective("all-to-all", tp, per_dev, per_dev,
-                             "moe dispatch")
+            fwd = bwd = [("all-to-all", tp, per_dev, per_dev,
+                          "moe dispatch")]
+        elif name == "kv":
+            n = _axis_size(rules.mesh, tp)
+            fwd = [("all-gather", tp, full / n, full, "kv heads")]
+            bwd = [("reduce-scatter", tp, full, full / n, "kv heads")]
+        for rec in fwd:
+            self._collective(*rec)
+        if bwd and x.requires_grad and torch.is_grad_enabled():
+            return _Transposed.apply(self, [(*r, self._scale) for r in bwd],
+                                     x)
+        return x
 
     def gradient_sync(self, params, times: float = 1.0) -> None:
         """A training step's gradient collectives, `times` a step (one a
@@ -446,6 +492,9 @@ class Trace(TorchDispatchMode):
                                                    tree_leaves_specs)
         from repro_torch.tree import tree_leaves
         rules = self.rules
+        sp = rules.tp in _flat_axes(rules._act_spec(
+            "btd", (rules.shape.global_batch, rules.shape.seq_len,
+                    rules.cfg.d_model))[1])
         specs = tree_leaves_specs(rules.param_shardings(params))
         for t, spec in zip(tree_leaves(params), specs):
             axes, n_fsdp, n_all = self._split(spec)
@@ -454,10 +503,17 @@ class Trace(TorchDispatchMode):
                 self._collective("reduce-scatter", axes, local,
                                  local / n_fsdp, "grad", times)
             used = {a for a_ in spec for a in _flat_axes(a_)}
-            rep = tuple(a for a in rules.batch_axes if a not in used)
+            rep = [a for a in rules.batch_axes if a not in used]
+            if sp and rules.tp not in used:
+                rep.append(rules.tp)
+            rep = tuple(a for a in rules.mesh.axis_names if a in rep)
             if _axis_size(rules.mesh, rep) > 1:
                 self._collective("all-reduce", rep, local / n_fsdp,
                                  local / n_fsdp, "grad", times)
+        # the loss's sum over every device a microbatch, the norm's a step
+        every = tuple(rules.mesh.axis_names)
+        self._collective("all-reduce", every, 4, 4, "loss", times)
+        self._collective("all-reduce", every, 4, 4, "grad norm", 1.0)
 
     # ------------------------------------------------------------- kernels
 
@@ -470,6 +526,38 @@ class Trace(TorchDispatchMode):
         k.exps += cost.exps * s
         self.res.flops += cost.flops * s
         self.res.hbm_bytes += cost.bytes * s
+
+
+@contextlib.contextmanager
+def not_a_use():
+    """Reads of a parameter inside (the optimizer's) gather nothing in the
+    active trace."""
+    tr = active()
+    if tr is None:
+        yield
+        return
+    tr._uses_off += 1
+    try:
+        yield
+    finally:
+        tr._uses_off -= 1
+
+
+class _Transposed(torch.autograd.Function):
+    """`x` as it is; its backward records `recs`, the collectives that
+    carry a constrained tensor's gradient back, each with the count of
+    the forward that made it."""
+
+    @staticmethod
+    def forward(ctx, tr, recs, x):
+        ctx.tr, ctx.recs = tr, recs
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        for rec in ctx.recs:
+            ctx.tr._collective(*rec)
+        return None, None, g
 
 
 def record_kernel(name: str, cost) -> None:

@@ -20,7 +20,11 @@ the dtype its manifest names.
 The saved arrays are whole host arrays. At world size 1 there is no
 sharding to restore under: `restore(..., device=)` places every leaf on one
 device, and `restore_into` copies into existing tensors, so a trainer does
-not hold its state twice. Async mode snapshots to host in `save` (the
+not hold its state twice. A sharded run (`Checkpointer(..., comm=)`, every
+rank calling `save` with the tree's partition specs) gathers each leaf
+from the ranks' blocks in turn to rank 0 (`parallel.sharding.gather_leaf`),
+which writes the same files as a run at world size 1; restoring into shards is
+not done yet (ROADMAP A18). Async mode snapshots to host in `save` (the
 caller may update the tensors in place once it returns) and writes in a
 background thread. `timings` records each save's bytes, snapshot and write
 seconds and each restore's bytes and seconds.
@@ -92,22 +96,46 @@ def _tensor(arr: np.ndarray, dtype: str) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
+class _Sharded:
+    """A rank's block of a leaf and the leaf's partition spec."""
+
+    def __init__(self, block, spec):
+        self.block, self.spec = block, spec
+
+
 class Checkpointer:
-    def __init__(self, directory: str, keep: int = 3):
+    def __init__(self, directory: str, keep: int = 3, comm=None):
         self.dir = Path(directory)
         self.dir.mkdir(parents=True, exist_ok=True)
         self.keep = keep
+        self.comm = comm      # a `parallel.collectives.Comm`: a sharded run
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
         self.timings: List[Dict[str, Any]] = []
 
     # ---------------------------------------------------------------- save
 
-    def save(self, step: int, tree: Any, blocking: bool = True) -> None:
+    def save(self, step: int, tree: Any, blocking: bool = True,
+             specs: Any = None) -> None:
+        """Snapshot `tree` to the host and write it (in a background
+        thread unless `blocking`). In a sharded run every rank calls it
+        with `specs`, the partition specs of `tree`'s leaves; rank 0
+        writes."""
         self.wait()  # one in-flight save at a time
         # host snapshot (the device->host copy happens here)
         t0 = time.perf_counter()
-        flat = {k: _snapshot(v) for k, v in _flatten(tree)}
+        if self.comm is None:
+            flat = {k: _snapshot(v) for k, v in _flatten(tree)}
+        else:
+            from repro_torch.parallel.sharding import gather_leaf
+            from repro_torch.tree import tree_map
+            flat = {}
+            for k, leaf in _flatten(tree_map(_Sharded, tree, specs)):
+                whole = gather_leaf(leaf.block, leaf.spec, self.comm, dst=0)
+                if whole is not None:
+                    flat[k] = _snapshot(whole)
+            if self.comm.rank != 0:
+                return
         snapshot_s = time.perf_counter() - t0
 
         def _write():

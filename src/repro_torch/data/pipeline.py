@@ -6,7 +6,8 @@ Produces Zipf-distributed token streams (a reasonable LM-token surrogate)
 seeded per (epoch, step, shard) so any batch is reproducible — which is
 what lineage replay needs: a `load_batch` task re-executed after a failure
 must return identical data. The prefetcher overlaps host data generation
-with device compute (double buffering).
+with device compute (double buffering). A sharded run draws the same
+global batch on every rank and each rank takes its rows (`shard_rows`).
 """
 from __future__ import annotations
 
@@ -50,6 +51,16 @@ def batch_for_step(cfg: DataConfig, step: int) -> Dict[str, np.ndarray]:
         out["image_embeds"] = rng.standard_normal(
             (b, p, cfg.d_model)).astype(np.float32)
     return out
+
+
+def shard_rows(x, index: int, count: int):
+    """Block `index` of `count` equal blocks of rows of `x` (a numpy array
+    or a tensor): a data rank's rows of the global batch that every rank
+    draws, as the sharding rules' `input_shardings` split it."""
+    b = x.shape[0]
+    if b % count:
+        raise ValueError(f"batch {b} does not split into {count} blocks")
+    return x[index * b // count:(index + 1) * b // count]
 
 
 class Prefetcher:

@@ -31,11 +31,17 @@ What a record holds, per device of the plan:
     evenly). `trace_flops` keeps the undivided count.
   * collectives: the plan's, by `analysis.trace` (FSDP gathers at each
     use, the residual stream's partial sums, vocab- and expert-parallel
-    all-to-alls, the gradients' reduce-scatter and all-reduce), with the
-    ring model's bytes; `collective_bytes_dcn` the groups over the `pod`
-    axis alone (as the reference counts DCN), `collective_bytes_off_node`
-    the groups that leave an 8-card NVLink node (an HGX H100 board; the
-    16-wide model axis spans two).
+    all-to-alls, gathered KV heads, each of these again for the gradient
+    in the backward, the gradients' reduce-scatter and all-reduce, the
+    loss's and the norm's sums), with the ring model's bytes. A train step
+    that `launch.train` executes over a process group (`executes`: the
+    dense decoders) is traced as rank 0 runs it instead, on its blocks and
+    rows, with its own collectives (`collectives.PlanComm`;
+    `collectives_from` says which): its FLOPs, bytes and peak are then a
+    device's own (`divisor` 1). `collective_bytes_dcn` the groups over
+    the `pod` axis alone (as the reference counts DCN),
+    `collective_bytes_off_node` the groups that leave an 8-card NVLink node
+    (an HGX H100 board; the 16-wide model axis spans two).
   * kernel_calls: each kernel's calls in the step (a device makes as many
     as its batch shard), with its `cost` totals over the same divisor.
   * fits_80gb: arg + out + temp - alias under the H100's 80 GB.
@@ -66,8 +72,10 @@ from repro_torch.configs.registry import ARCH_IDS, all_cells, get_config
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import build_model
 from repro_torch.optim.adamw import AdamWConfig, adamw_init
+from repro_torch.parallel.collectives import PlanComm
 from repro_torch.parallel.sharding import (_axis_size, bytes_per_device,
-                                           make_rules, shard_bytes)
+                                           check_executable, make_rules,
+                                           shard_bytes, shard_tree)
 from repro_torch.train.train_step import make_train_step
 from repro_torch.tree import tree_leaves
 
@@ -97,10 +105,26 @@ def n_params(cfg: ModelConfig) -> int:
     return sum(t.numel() for t in tree_leaves(param_shapes(cfg)))
 
 
+def executes(rules) -> bool:
+    """Whether the rules' step is one that `launch.train` executes over a
+    process group (a train step over more than one device of a config
+    `sharding.check_executable` passes)."""
+    if rules.shape.kind != "train" or rules.mesh.size == 1:
+        return False
+    try:
+        check_executable(rules)
+    except (NotImplementedError, ValueError):
+        return False
+    return True
+
+
 def trace_cell(cfg: ModelConfig, shape: ShapeConfig, mesh) -> dict:
     """Traces one cell's step on `meta` at the per-device batch under the
     rules of `mesh`; returns the record's figures (no timing, no error
-    handling)."""
+    handling). A step the rules execute (`executes`) is traced as rank 0
+    runs it, on its blocks and rows, its collectives those of a `PlanComm`;
+    any other, the whole batch shard under the plan's model of its
+    collectives."""
     rules = make_rules(mesh, cfg, shape)
     model = build_model(cfg, rules)
     specs = model.input_specs(shape)
@@ -117,22 +141,37 @@ def trace_cell(cfg: ModelConfig, shape: ShapeConfig, mesh) -> dict:
     per_device = (divisor, param_bytes / param_dev)
     in_dev = sum(shard_bytes(v, in_specs[k], mesh) for k, v in specs.items())
     batch = _meta_batch(specs, b_dev)
-    rec = {"batch_per_device": b_dev, "divisor": divisor}
+    executed = executes(rules)
+    rec = {"batch_per_device": b_dev,
+           "collectives_from": "executed step" if executed else "plan"}
     if shape.kind == "train":
         micro = cfg.train_microbatch
         micro_dev = max(1, micro // split) if micro else 0
-        model = build_model(cfg.scaled(train_microbatch=micro_dev), rules)
         opt = adamw_init(params, cfg.opt_state_dtype)
         o_specs = rules.opt_shardings(opt)
         state_dev = param_dev + bytes_per_device(opt, o_specs, mesh)
-        step = make_train_step(model, AdamWConfig(
-            state_dtype=cfg.opt_state_dtype))
         n_micro = b_dev // micro_dev if micro_dev and micro_dev < b_dev \
             else 1
-        with Trace(rules, params=params, args=(params, opt, batch),
-                   per_device=per_device) as tr:
-            out = step(params, opt, batch)
-        tr.gradient_sync(params, times=n_micro)
+        if executed:        # rank 0's step: its work is its own
+            comm = PlanComm(mesh)
+            rules = make_rules(mesh, cfg, shape, comm)
+            local = shard_tree(params, p_specs, mesh, comm.coords)
+            local_opt = adamw_init(local, cfg.opt_state_dtype)
+            step = make_train_step(build_model(cfg.scaled(
+                train_microbatch=micro_dev), rules), AdamWConfig(
+                    state_dtype=cfg.opt_state_dtype))
+            divisor = 1
+            with Trace(rules, args=(local, local_opt, batch)) as tr:
+                out = step(local, local_opt, batch)
+            comm.close()
+        else:
+            model = build_model(cfg.scaled(train_microbatch=micro_dev), rules)
+            step = make_train_step(model, AdamWConfig(
+                state_dtype=cfg.opt_state_dtype))
+            with Trace(rules, params=params, args=(params, opt, batch),
+                       per_device=per_device) as tr:
+                out = step(params, opt, batch)
+            tr.gradient_sync(params, times=n_micro)
         arg_dev, alias_dev = state_dev + in_dev, state_dev
         out_dev = state_dev + _tree_bytes(out[2])
         rec.update(microbatches=n_micro, state_bytes_per_dev=state_dev,
@@ -160,6 +199,7 @@ def trace_cell(cfg: ModelConfig, shape: ShapeConfig, mesh) -> dict:
         alias_dev = cache_dev
         out_dev = cache_dev + _tree_bytes(logits)
     res = tr.res
+    rec["divisor"] = divisor
     temp_dev = res.peak_bytes_per_device
     n_pods = mesh.shape.get("pod", 1)
     rec.update(

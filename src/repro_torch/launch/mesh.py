@@ -1,12 +1,15 @@
 """Meshes of the port's launchers, and the card's constants for a roofline.
 The port of `repro.launch.mesh`.
 
-A mesh here is a plan: axis names and sizes, no devices. The reference's
+A mesh here is axis names and sizes, no devices. The reference's
 production meshes (a pod of 16 x 16 chips, and two pods with a `pod` axis
 outside) are plans of the same shape, which `launch.dryrun` traces the
-port's programs under; nothing of `torch.distributed` is started. The host
-mesh is world size 1 over ("data", "model"): the one card a launcher's loop
-drives. A loop over many cards is ROADMAP A18.
+port's programs under without starting anything of `torch.distributed`.
+A mesh whose size is the process group's world size executes: the
+launcher lays the ranks out on it (`parallel.collectives.Comm`, rank
+numbers row-major over its axes). The host mesh is the reference's "mesh
+over whatever devices exist": (world // model, model) over the ranks of
+the process group, (1, 1) without one.
 """
 from __future__ import annotations
 
@@ -40,12 +43,22 @@ def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
     return Mesh((16, 16), ("data", "model"))
 
 
+def world_size() -> int:
+    """The ranks of the process group; 1 without one."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return 1
+
+
 def make_host_mesh(model: int = 1) -> Mesh:
-    """The one device this process drives: world size 1."""
-    if model != 1:
-        raise ValueError(f"a model axis of {model} needs {model} devices; "
-                         "the host mesh has one (ROADMAP A18)")
-    return Mesh((1, 1), ("data", "model"))
+    """(world // model, model) over ("data", "model"): every rank of the
+    process group, or this one process without one."""
+    n = world_size()
+    if n % model:
+        raise ValueError(f"a model axis of {model} does not divide a world "
+                         f"of {n} rank{'s' if n > 1 else ''}")
+    return Mesh((n // model, model), ("data", "model"))
 
 
 # NVIDIA H100 SXM constants for the roofline (per card), under the

@@ -19,7 +19,9 @@ outside its kernel: `naive_sdpa` over the GQA and cross caches, MLA's
 absorbed einsums over the latent cache. Caches for sliding-window layers
 are ring buffers of size `window` with per-slot absolute positions;
 `slot_pos == -1` marks a free slot. The reference's `blockwise_sdpa` has no
-counterpart: full-sequence attention takes the kernel instead.
+counterpart: full-sequence attention takes the kernel instead. Under
+executing sharding rules (`attention_forward(..., tp=)`) the same body
+computes a rank's own heads, and flash runs on those.
 """
 from __future__ import annotations
 
@@ -31,8 +33,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.models.layers import (apply_rope, dense_init, l2norm,
-                                       rmsnorm, torch_dtype)
+from repro_torch.models.layers import (Local, apply_rope, dense_init,
+                                       l2norm, rmsnorm, torch_dtype)
 
 Params = Dict[str, Any]
 NEG_INF = -1e30
@@ -99,10 +101,11 @@ def sdpa(q, k, v, q_pos, kv_pos, *, window: int = 0, causal: bool = True,
 def _self_attention(cfg: ModelConfig, q, k, v, *, window: int,
                     causal: bool) -> torch.Tensor:
     """q (B,S,H,hd), k/v (B,S,Kv,hd) at positions 0..S-1 -> (B,S,H*hd)
-    (Kv = H where `_group_for_tp` expanded the KV heads).
+    (Kv = H where `_group_for_tp` expanded the KV heads; H and Kv a rank's
+    under executing sharding rules).
     Goes through the flash attention wrapper: the Hopper kernel on the
     card, its plain version on the CPU."""
-    B, S = q.shape[:2]
+    B, S, H = q.shape[:3]
     if cfg.attn_logit_softcap:
         if q.is_cuda:
             raise NotImplementedError(
@@ -110,23 +113,26 @@ def _self_attention(cfg: ModelConfig, q, k, v, *, window: int,
                 "config sets it")
         pos = torch.arange(S, device=q.device)
         kv = k.shape[2]
-        qg = q.reshape(B, S, kv, cfg.num_heads // kv, cfg.head_dim)
+        qg = q.reshape(B, S, kv, H // kv, cfg.head_dim)
         out = sdpa(qg, k, v, pos, pos, window=window, causal=causal,
                    softcap=cfg.attn_logit_softcap)
-        return out.reshape(B, S, cfg.num_heads * cfg.head_dim)
+        return out.reshape(B, S, H * cfg.head_dim)
     out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                           v.transpose(1, 2), causal=causal, window=window)
-    return out.transpose(1, 2).reshape(B, S, cfg.num_heads * cfg.head_dim)
+    return out.transpose(1, 2).reshape(B, S, H * cfg.head_dim)
 
 
 # ============================================================ GQA forward
 
-def _qkv(params: Params, cfg: ModelConfig, x, positions):
+def _qkv(params: Params, cfg: ModelConfig, x, positions, tp=None):
+    """q, k, v as heads, normed and rotated; `tp` (`Local` by default)
+    gives a rank its query heads and the KV heads they read."""
     B, S, _ = x.shape
-    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = (x @ params["w_q"]).reshape(B, S, h, hd)
-    k = (x @ params["w_k"]).reshape(B, S, kv, hd)
-    v = (x @ params["w_v"]).reshape(B, S, kv, hd)
+    tp = Local(cfg.head_dim) if tp is None else tp
+    h = cfg.num_heads // tp.tp_size
+    q = tp.linear(x, params["w_q"], "w_q").reshape(B, S, h, cfg.head_dim)
+    k = tp.kv_heads(tp.linear(x, params["w_k"], "w_k"), h)
+    v = tp.kv_heads(tp.linear(x, params["w_v"], "w_v"), h)
     if cfg.qk_norm:
         q, k = l2norm(q), l2norm(k)
     q = apply_rope(q, positions, cfg.rope_theta, cfg.partial_rotary_factor)
@@ -142,6 +148,8 @@ def _group_for_tp(q, k, v, cfg: ModelConfig, expand_kv: bool, shard_fn):
     called with H key heads. Without `expand_kv` q, k, v come back as they
     are."""
     if expand_kv and cfg.q_per_kv > 1:
+        if shard_fn is not None:   # every KV head on each rank first
+            k, v = shard_fn(k, "kv"), shard_fn(v, "kv")
         k = k.repeat_interleave(cfg.q_per_kv, dim=2)
         v = v.repeat_interleave(cfg.q_per_kv, dim=2)
         if shard_fn is not None:
@@ -151,13 +159,23 @@ def _group_for_tp(q, k, v, cfg: ModelConfig, expand_kv: bool, shard_fn):
 
 def attention_forward(params: Params, cfg: ModelConfig, x, *, window: int = 0,
                       causal: bool = True, expand_kv: bool = False,
-                      shard_fn=None) -> torch.Tensor:
+                      shard_fn=None, tp=None) -> torch.Tensor:
+    """Self-attention over the whole sequence. `tp` places it: all heads
+    (`Local`, the default), or under executing `ShardingRules` a rank's:
+    the residual stream in (`tp.enter`), the rank's columns of w_q, w_k,
+    w_v (each gathered over its FSDP axes), its KV heads or, where the
+    model axis does not divide them, those its query heads read
+    (`tp.kv_heads`), flash on the local heads, the rank's rows of w_o, the
+    partial sums out (`tp.exit`). `expand_kv` and `shard_fn` are the dry
+    run's plan of the same (`_group_for_tp`)."""
+    tp = Local(cfg.head_dim) if tp is None else tp
+    x = tp.enter(x)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)
-    q, k, v = _qkv(params, cfg, x, positions)
+    q, k, v = _qkv(params, cfg, x, positions, tp)
     q, k, v = _group_for_tp(q, k, v, cfg, expand_kv, shard_fn)
     out = _self_attention(cfg, q, k, v, window=window, causal=causal)
-    return out @ params["w_o"]
+    return tp.exit(tp.linear(out, params["w_o"], "w_o"))
 
 
 # ============================================================ decode caches

@@ -110,12 +110,46 @@ def swiglu_init(gen: torch.Generator, d_model: int, d_ff: int, dtype,
     }
 
 
-def swiglu(params: Params, x: torch.Tensor) -> torch.Tensor:
-    """silu in fp32, cast back before the up-product."""
-    g = x @ params["w_gate"]
-    u = x @ params["w_up"]
+class Local:
+    """The tensor-parallel hooks of a layer that holds all its heads and
+    columns, as executing `ShardingRules` (`parallel.sharding`) give a
+    rank's layer its part: the residual stream in (`enter`) and the sums
+    out (`exit`) as they are, a product with the whole weight (`linear`),
+    the keys' or values' columns as their heads (`kv_heads`)."""
+    tp_size = 1
+
+    def __init__(self, head_dim: int = 0):
+        self.head_dim = head_dim
+
+    @staticmethod
+    def enter(x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    @staticmethod
+    def exit(y: torch.Tensor) -> torch.Tensor:
+        return y
+
+    @staticmethod
+    def linear(x: torch.Tensor, w: torch.Tensor, name: str) -> torch.Tensor:
+        return x @ w
+
+    def kv_heads(self, t: torch.Tensor, heads: int) -> torch.Tensor:
+        return t.reshape(*t.shape[:-1], -1, self.head_dim)
+
+
+LOCAL = Local()
+
+
+def swiglu(params: Params, x: torch.Tensor, tp=LOCAL) -> torch.Tensor:
+    """silu in fp32, cast back before the up-product. `tp` places it:
+    whole (`Local`), or a rank's part under executing `ShardingRules`: the
+    residual stream in, the rank's `d_ff` columns of the gate and up
+    products and rows of the down product, its partial sums out."""
+    x = tp.enter(x)
+    g = tp.linear(x, params["w_gate"], "w_gate")
+    u = tp.linear(x, params["w_up"], "w_up")
     h = F.silu(g.float()).to(x.dtype) * u
-    return h @ params["w_down"]
+    return tp.exit(tp.linear(h, params["w_down"], "w_down"))
 
 
 # ---------------------------------------------------------------- embeddings

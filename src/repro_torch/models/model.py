@@ -54,6 +54,18 @@ model axis divides H but not Kv (`attention._group_for_tp`). A constraint
 returns its tensor as it is: under the dry run's trace it records a
 layout change. At world size 1 the model axis is 1 and nothing expands;
 without rules the model is the card's.
+
+Executing rules (`ShardingRules` with a `comm`, over a process group) make
+`loss_fn` rank-local for the dense decoders (`sharding.check_executable`):
+params are the rank's blocks, the batch its rows; the embedding is
+vocab-parallel, each layer's attention and FFN compute the rank's heads
+and `d_ff` columns on the residual stream the rules move (`enter`,
+`exit`), and the loss is taken on the rank's positions of the
+sequence-parallel logits and summed over every rank. Forward, prefill and
+decode stay world-size-1 paths. The remat's recompute stops, as at world
+size 1, once it has remade what the backward needs: the reduce-scatter
+or all-reduce of a group's output does not run again (its last product,
+`gathered_mm`, does: a custom op saves its inputs after it runs).
 """
 from __future__ import annotations
 
@@ -70,8 +82,10 @@ from repro_torch.configs.base import (ATTN, DENSE, MAMBA, MLA, MLSTM, MOE,
                                       ShapeConfig)
 from repro_torch.models import attention as attn
 from repro_torch.models import moe, ssm, xlstm
-from repro_torch.models.layers import (embed_tokens, rmsnorm, softmax_xent,
-                                       swiglu, torch_dtype, unembed)
+from repro_torch.models.layers import (LOCAL, embed_tokens, rmsnorm,
+                                       softmax_xent, swiglu, torch_dtype,
+                                       unembed)
+from repro_torch.parallel.collectives import GATHERED_MM
 
 Params = Dict[str, Any]
 MIXERS = (ATTN, SWA, MLA, MAMBA, SLSTM, MLSTM)
@@ -124,8 +138,9 @@ def save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
     `einsum("btd,df->btf")` becomes); attention's and the experts' products
     are `bmm`s of a batch above 1. So the batch size decides, not the op's
     name. Allocations (`torch.empty`, the buffers a kernel writes) are
-    never kept."""
-    if op in (_aten.mm.default, _aten.addmm.default) or (
+    never kept. A sharded weight's product (`collectives.gathered_mm`) is
+    kept too, so its recompute gathers nothing."""
+    if op in (_aten.mm.default, _aten.addmm.default, GATHERED_MM) or (
             op is _aten.bmm.default and args[0].shape[0] == 1):
         return CheckpointPolicy.MUST_SAVE
     return CheckpointPolicy.PREFER_RECOMPUTE
@@ -170,6 +185,8 @@ class Model:
         check_supported(cfg)
         self.cfg = cfg
         self.rules = rules
+        # executing rules: this rank's part of the step
+        self.tp = rules if rules is not None and rules.executing else None
 
     # -------------------------------------------------------------- shards
 
@@ -187,7 +204,7 @@ class Model:
         """(expand_kv, shard_fn): expand KV to full heads when TP divides H
         but not Kv (see attention._group_for_tp)."""
         cfg = self.cfg
-        if self.rules is None:
+        if self.rules is None or self.tp is not None:   # a rank's heads
             return False, None
         tp = self.rules.tp_size
         expand = (cfg.num_heads % tp == 0 and cfg.num_kv_heads % tp != 0
@@ -213,7 +230,8 @@ class Model:
             return h
         f_in = rmsnorm(lp["post_norm"], h, self.cfg.norm_eps)
         if kind == DENSE:
-            return h + swiglu(lp["ffn"], f_in)
+            return h + swiglu(lp["ffn"], f_in,
+                              LOCAL if self.tp is None else self.tp)
         y, moe_aux = moe.moe_apply(lp["ffn"], self.cfg, f_in,
                                    self._moe_shard())
         if aux is not None:
@@ -242,7 +260,8 @@ class Model:
             expand, sf = self._attn_tp()
             return attn.attention_forward(lp["mixer"], cfg, x,
                                           window=self._window(kind),
-                                          expand_kv=expand, shard_fn=sf)
+                                          expand_kv=expand, shard_fn=sf,
+                                          tp=self.tp)
         if kind == MLA:
             return attn.mla_forward(lp["mixer"], cfg, x)
         if kind == MAMBA:
@@ -319,6 +338,9 @@ class Model:
             enc_out = self._encode(params, batch["frames"])
             return self._act(embed_tokens(params["embed"],
                                           batch["tokens"])), enc_out
+        if self.tp is not None:
+            return self.tp.embed(params["embed"]["table"],
+                                 batch["tokens"]), None
         h = embed_tokens(params["embed"], batch["tokens"])
         if cfg.input_mode == "tokens+image":
             img = batch["image_embeds"].to(params["img_proj"].dtype) \
@@ -348,8 +370,15 @@ class Model:
                     h, aux["moe_lb_loss"], aux["moe_z_loss"])
         return rmsnorm(params["final_norm"], h, cfg.norm_eps), aux
 
+    def _world_size_one(self, what: str) -> None:
+        if self.tp is not None:
+            raise NotImplementedError(
+                f"{what} under executing sharding rules: the executed plan "
+                "covers the training step (ROADMAP A18)")
+
     def forward(self, params: Params, batch) -> Tuple[torch.Tensor, Dict]:
         """Full-sequence logits (B,S,V_padded) and the aux losses."""
+        self._world_size_one("forward")
         h, aux = self._hidden(params, batch)
         return self._act(self._unembed(params, h), "logits"), aux
 
@@ -417,7 +446,9 @@ class Model:
         vp = padded_vocab(cfg)
         h, aux = self._hidden(params, batch)
         s = h.shape[1]
-        if vp >= self.CHUNKED_LOSS_VOCAB and s > 1024:
+        if self.tp is not None:
+            loss = self._local_xent(params, h, batch["tokens"])
+        elif vp >= self.CHUNKED_LOSS_VOCAB and s > 1024:
             labels, mask = self._labels_and_mask(batch, s)
             loss = self._chunked_xent(params, h, labels, mask)
         else:
@@ -435,6 +466,33 @@ class Model:
                                     logit_softcap=cfg.logit_softcap)
         total = loss + 0.01 * aux["moe_lb_loss"] + 1e-3 * aux["moe_z_loss"]
         return total, dict(aux, xent=loss)
+
+    def _local_xent(self, params: Params, h, tokens):
+        """`loss_fn`'s cross-entropy under executing rules: the final
+        hidden states into the LM head's vocab columns (`tp.enter`,
+        `tp.linear`), the logits to this rank's positions over the whole
+        padded vocabulary (`tp.to_seq`), the pad columns -1e30 and the
+        softcap as `softmax_xent` takes them, the summed loss of the
+        positions that predict a token (all but the last) reduced over
+        every rank and divided by the global count."""
+        cfg, tp = self.cfg, self.tp
+        logits = tp.to_seq(tp.linear(tp.enter(h), params["lm_head"],
+                                     "lm_head"))
+        lf = logits.float()
+        vp = padded_vocab(cfg)
+        if vp != cfg.vocab_size:
+            pad = torch.arange(vp, device=lf.device) >= cfg.vocab_size
+            lf = torch.where(pad, -1e30, lf)
+        if cfg.logit_softcap:
+            lf = torch.tanh(lf / cfg.logit_softcap) * cfg.logit_softcap
+        b, s = tokens.shape
+        first = tp.seq_start(lf.shape[1])
+        pos = torch.arange(first, first + lf.shape[1], device=lf.device)
+        labels = tokens[:, torch.clamp(pos + 1, max=s - 1)]
+        lse = torch.logsumexp(lf, dim=-1)
+        gold = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+        total = torch.sum((lse - gold) * (pos < s - 1))
+        return tp.reduce_loss(total, b * tp.batch_split()[1] * (s - 1))
 
     # ------------------------------------------------------------- caches
 
@@ -502,6 +560,7 @@ class Model:
         encoder's first `max_seq` keys and values, zero slots after them
         where it is shorter, as the reference's does."""
         cfg = self.cfg
+        self._world_size_one("prefill")
         h, enc_out = self._embed_inputs(params, batch)
         max_seq = max_seq or h.shape[1]
         cache = self.init_cache(h.shape[0], max_seq, h.device, h.dtype)
@@ -525,6 +584,7 @@ class Model:
         """tokens: (B,1) int; pos: position of the new token -> (logits
         (B,1,V_padded), cache). The cache is updated in place."""
         cfg = self.cfg
+        self._world_size_one("decode_step")
         h = embed_tokens(params["embed"], tokens)
         for kind, ffn, lp, slot in self._layers(params):
             mix_in = rmsnorm(lp["pre_norm"], h, cfg.norm_eps)

@@ -69,12 +69,15 @@ def global_norm(tree) -> torch.Tensor:
 
 
 @torch.no_grad()
-def adamw_update(cfg: AdamWConfig, grads, opt_state, params, lr_scale=1.0
+def adamw_update(cfg: AdamWConfig, grads, opt_state, params, lr_scale=1.0,
+                 grad_norm=None
                  ) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
     """One step. Updates `params` and the moments of `opt_state` in place;
     returns (params, opt_state, {"grad_norm"}). The grads are clipped as
-    the reference's `clip_by_global_norm` clips them, a chunk at a time."""
-    gnorm = global_norm(grads)
+    the reference's `clip_by_global_norm` clips them, a chunk at a time,
+    by `grad_norm` where it is given (a sharded step's norm over every
+    rank), else by `global_norm(grads)`."""
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     scale = torch.clamp_max(cfg.grad_clip / torch.clamp_min(gnorm, 1e-9), 1.0)
     step = opt_state["step"] + 1
     sf = step.float()
@@ -82,21 +85,23 @@ def adamw_update(cfg: AdamWConfig, grads, opt_state, params, lr_scale=1.0
     bc2 = 1.0 - torch.pow(cfg.b2, sf)
     lr = cfg.lr * lr_scale
     sd = getattr(torch, cfg.state_dtype)
-    for leaf in zip(tree_leaves(grads), tree_leaves(opt_state["m"]),
-                    tree_leaves(opt_state["v"]), tree_leaves(params)):
-        for g, m, v, p in _chunks(*leaf):
-            # the clipped grad in the grad's dtype, as the reference clips
-            gf = (g.float() * scale).to(g.dtype).float()
-            mf = cfg.b1 * m.float() + (1 - cfg.b1) * gf
-            vf = cfg.b2 * v.float() + (1 - cfg.b2) * gf * gf
-            mh = mf / bc1
-            vh = vf / bc2
-            pf = p.float()
-            pf = pf - lr * (mh / (torch.sqrt(vh) + cfg.eps)
-                            + cfg.weight_decay * pf)
-            p.copy_(pf)
-            m.copy_(mf.to(sd))
-            v.copy_(vf.to(sd))
+    with trace.not_a_use():   # reading a param here gathers nothing
+        for leaf in zip(tree_leaves(grads), tree_leaves(opt_state["m"]),
+                        tree_leaves(opt_state["v"]), tree_leaves(params)):
+            for g, m, v, p in _chunks(*leaf):
+                # the clipped grad in the grad's dtype, as the reference
+                # clips
+                gf = (g.float() * scale).to(g.dtype).float()
+                mf = cfg.b1 * m.float() + (1 - cfg.b1) * gf
+                vf = cfg.b2 * v.float() + (1 - cfg.b2) * gf * gf
+                mh = mf / bc1
+                vh = vf / bc2
+                pf = p.float()
+                pf = pf - lr * (mh / (torch.sqrt(vh) + cfg.eps)
+                                + cfg.weight_decay * pf)
+                p.copy_(pf)
+                m.copy_(mf.to(sd))
+                v.copy_(vf.to(sd))
     return params, dict(opt_state, step=step), {"grad_norm": gnorm}
 
 

@@ -21,9 +21,37 @@ invalid. A mesh is any object with `shape` (axis name -> size) and
 stand-in. A spec is the port's own `PartitionSpec`, whose `str` is the
 reference's.
 
-`constrain_act` and `constrain_moe` return their tensor unchanged. Under
-the dry run's trace (`repro_torch.analysis.trace`) they also record the
-collective that moves the tensor to the constrained layout.
+Planning mode (no `comm`): `constrain_act` and `constrain_moe` return their
+tensor unchanged; under the dry run's trace (`repro_torch.analysis.trace`)
+they also record the collectives that move the tensor to the constrained
+layout, and its gradient back.
+
+Executing mode (`make_rules(..., comm=Comm(mesh))` over a process group):
+the model runs rank-local (`models.model`, `models.attention`,
+`models.layers`) and moves tensors through this object as the specs say:
+  * the residual stream is `btd`'s layout: under Megatron-SP (the config's
+    `sequence_parallel`, S divisible by the model axis) its sequence is
+    split over `model`, all-gathered before a column-parallel product
+    (`enter`) and reduce-scattered after a row-parallel one (`exit`);
+    without SP it is whole, and `exit` all-reduces the partial sums;
+  * every weight is all-gathered over the FSDP axes of its spec at each
+    use (`linear`, ZeRO-3's `collectives.gathered_mm`), its gradient
+    reduce-scattered back to the shard;
+  * the embedding is vocab-parallel (`embed`: a masked lookup in the rank's
+    rows of the table, then `exit`); the LM head's vocab-parallel logits
+    go to the sequence-parallel `logits` layout by an all-to-all
+    (`to_seq`), where each rank takes the loss of its positions;
+  * KV heads the model axis does not divide (`_group_for_tp`'s expand
+    case) are all-gathered, and the rank takes those its query heads read
+    (`kv_heads`);
+  * after a microbatch's backward a gradient is all-reduced over the batch
+    axes its spec leaves replicated, and over `model` too for a leaf
+    `model` does not shard while SP splits the tokens that reach it
+    (`sync_grads`); the global norm counts each element once
+    (`global_norm`).
+`constrain_act` returns its tensor as it is: the layout is already the
+spec's. `shard_tree` cuts a rank's blocks out of whole leaves and
+`gather_tree` puts them back together.
 """
 from __future__ import annotations
 
@@ -32,8 +60,12 @@ import re
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
 
-from repro_torch.configs.base import ModelConfig, ShapeConfig
-from repro_torch.tree import tree_leaves
+import torch
+
+from repro_torch.configs.base import (ATTN, DENSE, MAMBA, MLA, MLSTM, MOE,
+                                      SLSTM, SWA, ModelConfig, ShapeConfig)
+from repro_torch.parallel import collectives as c
+from repro_torch.tree import tree_leaves, tree_map
 
 
 class PartitionSpec(tuple):
@@ -157,6 +189,7 @@ class ShardingRules:
     mesh: Any
     cfg: ModelConfig
     shape: ShapeConfig
+    comm: Any = None      # a `collectives.Comm` over `mesh`: executing mode
 
     def __post_init__(self):
         names = self.mesh.axis_names
@@ -171,6 +204,9 @@ class ShardingRules:
         # long-context decode with batch=1: shard sequence instead of batch
         self.seq_shard = (self.shape.kind == "decode"
                           and self.shape.global_batch == 1)
+        self._specs = self._by_name = None
+        if self.comm is not None:
+            check_executable(self)
 
     # ----------------------------------------------------------- parameters
 
@@ -233,10 +269,15 @@ class ShardingRules:
         return self.mesh.shape[self.tp]
 
     def constrain_act(self, x, name: str = "btd"):
+        if self.executing:
+            return x
         if name == "bshd":   # (B, S, H, hd) attention heads over `model`
             spec = _fit(self.mesh,
                         ((None if self.seq_shard else self.batch_axes),
                          None, self.tp, None), x.shape)
+        elif name == "kv":   # (B, S, Kv, hd) KV heads whole on each rank
+            spec = _fit(self.mesh, (self.batch_axes, None, None, None),
+                        x.shape)
         else:
             spec = self._act_spec(name, x.shape)
         return _constrain(self, x, name, spec)
@@ -260,6 +301,9 @@ class ShardingRules:
         return _fit(self.mesh, (bat, self.tp, None), shape)
 
     def constrain_moe(self, name: str, x):
+        if self.executing:
+            raise NotImplementedError(_unsupported(self.cfg, self.mesh,
+                                                   MOE_ITEM))
         mesh, tp, bat = self.mesh, self.tp, self.batch_axes
         if name == "moe_dispatch":               # (G, N, E, C)
             g = x.shape[0]
@@ -337,14 +381,184 @@ class ShardingRules:
     def scalar_sharding(self) -> PartitionSpec:
         return P()
 
+    # ------------------------------------------------------------ execution
+
+    @property
+    def executing(self) -> bool:
+        return self.comm is not None
+
+    @property
+    def sequence_parallel(self) -> bool:
+        """Whether the residual stream of this step splits its sequence
+        over `model` (`btd`'s spec at the step's global shape)."""
+        spec = self._act_spec("btd", (self.shape.global_batch,
+                                      self.shape.seq_len, self.cfg.d_model))
+        return self.tp in _flat_axes(spec[1])
+
+    def param_specs(self):
+        """The spec of every leaf of the config's params (from the whole
+        leaves' shapes), in the params' structure."""
+        if self._specs is None:
+            from repro_torch.bridge import param_shapes
+            self._specs = self.param_shardings(param_shapes(self.cfg))
+        return self._specs
+
+    def state_specs(self, opt_state) -> Dict[str, Any]:
+        """The specs of an AdamW state: moments as the params, the step
+        replicated."""
+        specs = self.param_specs()
+        return {k: (P() if k == "step" else specs) for k in opt_state}
+
+    def _leaf_spec(self, name: str) -> PartitionSpec:
+        """The spec of one layer's leaf `name` (a stacked leaf without its
+        leading layer axis)."""
+        if self._by_name is None:
+            out = {}
+
+            def one(path, spec):
+                stacked = bool(re.search(r"(groups|encoder/layers)", path))
+                out.setdefault(path.rsplit("/", 1)[-1],
+                               P(*spec[1:]) if stacked else spec)
+                return spec
+            _map_specs(one, self.param_specs())
+            self._by_name = out
+        return self._by_name[name]
+
+    def _fsdp_dim(self, name: str) -> Tuple[int, Tuple[str, ...]]:
+        """(the dimension of leaf `name` its spec shards over FSDP axes,
+        those axes); (-1, ()) where there is none."""
+        fsdp = set(_flat_axes(self.fsdp))
+        for i, axes in enumerate(self._leaf_spec(name)):
+            got = tuple(a for a in _flat_axes(axes) if a in fsdp)
+            if got:
+                return i, got
+        return -1, ()
+
+    def enter(self, x):
+        """The residual stream into a column-parallel product: under SP
+        all-gathered along the sequence (its backward reduce-scatters);
+        else as it is, its gradient all-reduced over `model`."""
+        if self.sequence_parallel:
+            return c.all_gather(self.comm, x, 1, self.tp)
+        return c.all_reduce_backward(self.comm, x, self.tp)
+
+    def exit(self, y):
+        """A row-parallel product's partial sums back to the residual
+        stream: under SP reduce-scattered along the sequence, else
+        all-reduced over `model`."""
+        if self.sequence_parallel:
+            return c.reduce_scatter(self.comm, y, 1, self.tp)
+        return c.all_reduce(self.comm, y, self.tp)
+
+    def linear(self, x, w, name: str):
+        """`x @ w` for this rank's block `w` of leaf `name`: the block
+        gathered over the FSDP axes of its spec (ZeRO-3), still split over
+        `model` where the spec says."""
+        dim, axes = self._fsdp_dim(name)
+        return c.gathered_mm(self.comm, x, w, dim, axes)
+
+    def embed(self, table, tokens):
+        """The vocab-parallel lookup: this rank's rows of the table
+        (gathered over its FSDP axes), the tokens outside them zero, the
+        partial sums over `model` reduced by `exit`."""
+        dim, axes = self._fsdp_dim("table")
+        full = c.all_gather(self.comm, table, dim, axes) \
+            if dim >= 0 else table
+        n = full.shape[0]
+        idx = tokens - self.comm.index(self.tp) * n
+        valid = (idx >= 0) & (idx < n)
+        h = full[idx.clamp(0, n - 1)] * valid[..., None].to(full.dtype)
+        return self.exit(h)
+
+    def to_seq(self, logits):
+        """Vocab-parallel logits (B, S, V/M) to the `logits` layout
+        (B, S/M, V): an all-to-all over `model`."""
+        return c.all_to_all(self.comm, logits, 1, 2, self.tp)
+
+    def seq_start(self, s_local: int) -> int:
+        """The first position of this rank's block of the sequence in the
+        `logits` layout."""
+        return self.comm.index(self.tp) * s_local
+
+    def kv_heads(self, t, heads_local: int):
+        """This rank's keys or values (B, S, cols) as heads (B, S, kv, hd)
+        for its `heads_local` query heads: its own KV heads where `model`
+        divides them; else (`_group_for_tp`'s expand case, a column block
+        cutting through a head) every KV head all-gathered over `model`
+        and the ones its query heads read taken, one a query head."""
+        cfg = self.cfg
+        b, s = t.shape[:2]
+        if cfg.num_kv_heads % self.tp_size == 0:
+            return t.reshape(b, s, cfg.num_kv_heads // self.tp_size,
+                             cfg.head_dim)
+        full = c.all_gather(self.comm, t, 2, self.tp).reshape(
+            b, s, cfg.num_kv_heads, cfg.head_dim)
+        first = self.comm.index(self.tp) * heads_local
+        idx = torch.arange(first, first + heads_local,
+                           device=t.device) // cfg.q_per_kv
+        return full.index_select(2, idx)
+
+    def reduce_loss(self, total, count: int):
+        """A sum every rank holds a part of, over every rank, over
+        `count`: the loss's mean (its backward passes the gradient
+        through)."""
+        return c.all_reduce(self.comm, total, self.mesh.axis_names) / count
+
+    def batch_split(self) -> Tuple[int, int]:
+        """(this rank's block, the number of blocks) of the global batch,
+        as `input_shardings` splits its rows."""
+        spec = self.input_shardings({"tokens": torch.empty(
+            (self.shape.global_batch, self.shape.seq_len),
+            device="meta")})["tokens"]
+        axes = _flat_axes(spec[0])
+        return (self.comm.index(axes) if axes else 0,
+                _axis_size(self.mesh, axes))
+
+    def local_batch(self, batch: Dict[str, Any]) -> Dict[str, Any]:
+        """This rank's rows of a global batch (numpy arrays or tensors)."""
+        from repro_torch.data.pipeline import shard_rows
+        i, n = self.batch_split()
+        return {k: shard_rows(v, i, n) for k, v in batch.items()}
+
+    def _sync_axes(self, spec) -> Tuple[str, ...]:
+        used = {a for axes in spec for a in _flat_axes(axes)}
+        rep = [a for a in self.batch_axes if a not in used]
+        if self.sequence_parallel and self.tp not in used:
+            rep.append(self.tp)
+        return tuple(a for a in self.mesh.axis_names if a in rep)
+
+    def sync_grads(self, grads):
+        """A microbatch's gradients, each all-reduced over the axes its
+        leaf is replicated on while its parts differ: the batch axes the
+        spec leaves replicated, and `model` for a leaf it does not shard
+        under SP (a norm's scale sees only its rank's positions). The FSDP
+        reduce-scatters ran in the backward."""
+        return tree_map(lambda g, spec: self.comm.all_reduce(
+            g, self._sync_axes(spec)), grads, self.param_specs())
+
+    def global_norm(self, grads):
+        """The gradients' global norm over every rank, each element
+        counted once: a leaf's squares count on the ranks at coordinate 0
+        of every axis its spec does not shard."""
+        from repro_torch.optim.adamw import _chunks
+        total = torch.zeros((), dtype=torch.float32,
+                            device=tree_leaves(grads)[0].device)
+        for g, spec in leaf_specs(grads, self.param_specs()):
+            used = {a for axes in spec for a in _flat_axes(axes)}
+            if not any(self.comm.coords[a] for a in self.mesh.axis_names
+                       if a not in used):
+                total = total + sum(torch.sum(torch.square(part.float()))
+                                    for (part,) in _chunks(g))
+        return torch.sqrt(self.comm.all_reduce(total, self.mesh.axis_names))
+
 
 def _constrain(rules: ShardingRules, x, name: str, spec: PartitionSpec):
-    """x as it is; under an active cost trace, the layout change recorded
-    (`analysis.trace.Trace.constrain`)."""
+    """x as it is; under an active cost trace, the layout change and its
+    gradient's recorded (`analysis.trace.Trace.constrain`)."""
     from repro_torch.analysis import trace   # the trace imports the rules
     active: Optional[Any] = trace.active()
     if active is not None:
-        active.constrain(rules, x, name, spec)
+        return active.constrain(rules, x, name, spec)
     return x
 
 
@@ -352,5 +566,138 @@ def bat_or_none(bat, dim):
     return bat if dim > 1 else None
 
 
-def make_rules(mesh, cfg: ModelConfig, shape: ShapeConfig) -> ShardingRules:
-    return ShardingRules(mesh, cfg, shape)
+def leaf_specs(tree, specs) -> list:
+    """(leaf, spec) of every leaf of `tree`, paired by key with `specs` (a
+    spec tree of the same nesting, whatever the order of its dicts)."""
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items() for x in leaf_specs(v, specs[k])]
+    if isinstance(tree, (tuple, list)):
+        return [x for v, sp in zip(tree, specs) for x in leaf_specs(v, sp)]
+    return [(tree, specs)]
+
+
+def _map_specs(fn, specs, path=()):
+    """`fn("a/b/0/w", spec)` over a spec tree (a spec is a leaf)."""
+    if isinstance(specs, PartitionSpec):
+        return fn("/".join(path), specs)
+    if isinstance(specs, dict):
+        return {k: _map_specs(fn, v, path + (str(k),))
+                for k, v in specs.items()}
+    return type(specs)(_map_specs(fn, v, path + (str(i),))
+                       for i, v in enumerate(specs))
+
+
+# What executing the plan does not cover yet, each under its ROADMAP item
+MOE_ITEM = "MoE with expert parallelism (the constrain_moe all-to-alls)"
+RECURRENT_ITEM = "Mamba and xLSTM under tensor parallelism"
+MLA_ITEM = "MLA"
+MODAL_ITEM = "the encoder-decoder and image inputs"
+CHUNKED_ITEM = ("gemma3's chunked loss under vocab TP, with its tied "
+                "embeddings and sliding-window layers")
+COMPRESSION_ITEM = "int8 gradient compression on shards"
+DENSE_ITEM = "layers other than GQA/MHA attention with a dense FFN"
+
+
+def _unsupported(cfg: ModelConfig, mesh, item: str) -> str:
+    return (f"{cfg.name} over a mesh of {mesh.size} ranks {mesh.shape}: "
+            f"{item} is not executed yet (ROADMAP A18, executing the plan)")
+
+
+def check_executable(rules: ShardingRules) -> None:
+    """Raise `NotImplementedError`, naming its ROADMAP item, for a config
+    or step the executing rules do not run: anything but dense decoders of
+    GQA/MHA attention and SwiGLU FFNs on tokens under the chunked-loss
+    vocabulary; and `ValueError` for a step whose shapes the mesh does not
+    split evenly."""
+    from repro_torch.models.model import Model, padded_vocab
+    cfg, mesh = rules.cfg, rules.mesh
+    kinds = set(cfg.pattern) | set(cfg.ffn_pattern)
+    for hit, item in ((cfg.moe is not None or MOE in kinds, MOE_ITEM),
+                      (bool(kinds & {MAMBA, MLSTM, SLSTM}), RECURRENT_ITEM),
+                      (MLA in kinds, MLA_ITEM),
+                      (cfg.encoder_layers > 0 or cfg.input_mode != "tokens",
+                       MODAL_ITEM),
+                      (padded_vocab(cfg) >= Model.CHUNKED_LOSS_VOCAB
+                       or cfg.tie_embeddings or SWA in kinds, CHUNKED_ITEM),
+                      (kinds != {ATTN, DENSE} or cfg.first_k_dense
+                       or cfg.tie_embeddings or cfg.attn_logit_softcap,
+                       DENSE_ITEM)):
+        if hit:
+            raise NotImplementedError(_unsupported(cfg, mesh, item))
+    if rules.shape.kind != "train":
+        raise NotImplementedError(_unsupported(
+            cfg, mesh, f"a {rules.shape.kind} step"))
+    m = rules.tp_size
+    b, s = rules.shape.global_batch, rules.shape.seq_len
+    problems = []
+    if cfg.num_heads % m:
+        problems.append(f"{cfg.num_heads} heads over model={m}")
+    if m > 1 and s % m:
+        problems.append(f"sequence {s} over model={m}")
+    if b % _axis_size(mesh, rules.batch_axes):
+        problems.append(f"batch {b} over {rules.batch_axes}")
+    for name in ("w_q", "w_k", "w_v", "w_o", "w_gate", "w_up", "w_down",
+                 "table", "lm_head"):
+        if m > 1 and rules.tp not in _flat_axes(rules._leaf_spec(name)):
+            problems.append(f"{name} not split over model")
+    if problems:
+        raise ValueError(f"{cfg.name} on {mesh.shape}: "
+                         + "; ".join(problems))
+
+
+def _block(spec, coords, mesh, shape) -> Tuple[slice, ...]:
+    """The index of the block at `coords` of a `shape` leaf under `spec`."""
+    out = []
+    for dim, axes in zip(shape, tuple(spec) + (None,) * (len(shape)
+                                                         - len(spec))):
+        axes = _flat_axes(axes)
+        n = _axis_size(mesh, axes)
+        i = c.axes_index(mesh, coords, axes)
+        out.append(slice(i * dim // n, (i + 1) * dim // n))
+    return tuple(out)
+
+
+def shard_tree(tree, specs, mesh, coords: Dict[str, int]):
+    """The block of every whole leaf of `tree` that the device at `coords`
+    holds under `specs` (a tree of one nesting, paired by key): contiguous
+    copies."""
+    return tree_map(lambda t, spec: t[_block(spec, coords, mesh, t.shape)]
+                    .contiguous().clone(), tree, specs)
+
+
+def gather_leaf(t, spec, comm, dst: Optional[int] = None):
+    """The whole leaf from every rank's block `t` under `spec`: on every
+    rank (all-gathered over the process group where the spec shards it),
+    or with `dst` on rank `dst` alone (gathered there; None on the other
+    ranks, which hold no more than their block)."""
+    mesh = comm.mesh
+    whole = list(t.shape)
+    for i, axes in enumerate(spec):
+        whole[i] *= _axis_size(mesh, axes)
+    if tuple(whole) == tuple(t.shape):
+        return t if dst is None or comm.rank == dst else None
+    if dst is None:
+        blocks = list(comm.all_gather(t.contiguous().reshape(1, -1), 0,
+                                      mesh.axis_names))
+    else:
+        blocks = comm.gather(t, dst)
+        if blocks is None:
+            return None
+    out = blocks[0].new_empty(whole)
+    for r in range(comm.world):
+        out[_block(spec, c.rank_coords(mesh, r), mesh, whole)] = \
+            blocks[r].view(t.shape)
+    return out
+
+
+def gather_tree(tree, specs, comm):
+    """Whole leaves from every rank's blocks (`shard_tree`'s inverse), on
+    every rank."""
+    return tree_map(lambda t, spec: gather_leaf(t, spec, comm), tree, specs)
+
+
+def make_rules(mesh, cfg: ModelConfig, shape: ShapeConfig,
+               comm=None) -> ShardingRules:
+    """The rules of `mesh`: a plan, or with `comm` (a `collectives.Comm`
+    over the same mesh) the executing rules of this rank."""
+    return ShardingRules(mesh, cfg, shape, comm)

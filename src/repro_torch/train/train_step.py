@@ -4,7 +4,14 @@
 The returned step takes (params, opt_state, batch) and returns (params,
 opt_state, metrics). Gradients come from autograd; params and moments are
 updated in place (`optim.adamw`). The reference pins accumulated gradients
-to the parameter shardings; at world size 1 there is nothing to pin.
+to the parameter shardings; at world size 1 there is nothing to pin. Under
+executing sharding rules (`model.rules.comm`) the step is one rank's: its
+param and moment blocks, its rows of the batch; each weight's gradient was
+reduce-scattered over its FSDP axes in the backward, each microbatch's
+gradients are then all-reduced over the axes their leaves are replicated
+on (`ShardingRules.sync_grads`, once a microbatch, as the reference pins
+each microbatch's), and the clip takes the norm over every rank
+(`ShardingRules.global_norm`).
 """
 from __future__ import annotations
 
@@ -37,6 +44,16 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig,
     `opt_state_dtype` (activation memory scales with the microbatch, not
     the global batch)."""
     micro = model.cfg.train_microbatch
+    tp = model.tp
+    if tp is not None and grad_compression is not None:
+        from repro_torch.parallel.sharding import (COMPRESSION_ITEM,
+                                                   _unsupported)
+        raise NotImplementedError(_unsupported(model.cfg, tp.mesh,
+                                               COMPRESSION_ITEM))
+
+    def grads_of(params, batch):
+        out, g = value_and_grad(model, params, batch)
+        return out, (g if tp is None else tp.sync_grads(g))
 
     def train_step(params, opt_state, batch):
         gb = tree_leaves(batch)[0].shape[0]
@@ -53,19 +70,20 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig,
             # one microbatch counted n times under the dry run's trace
             for i in trace.steps(n):
                 mb = {k: v[i * micro:(i + 1) * micro] for k, v in batch.items()}
-                (mb_loss, mb_aux), g = value_and_grad(model, params, mb)
+                (mb_loss, mb_aux), g = grads_of(params, mb)
                 # cast before scaling, as the reference does
                 grads = tree_map(lambda a, b: a + b.to(acc_dt) / n, grads, g)
                 loss = loss + mb_loss / n
                 aux = {k: aux[k] + mb_aux[k] / n for k in aux}
             grads = tree_map(lambda g, p: g.to(p.dtype), grads, params)
         else:
-            (loss, aux), grads = value_and_grad(model, params, batch)
+            (loss, aux), grads = grads_of(params, batch)
         if grad_compression is not None:
             grads = grad_compression(grads)
         lr_scale = cosine_schedule(opt_state["step"])
         params, opt_state, opt_metrics = adamw_update(
-            opt_cfg, grads, opt_state, params, lr_scale)
+            opt_cfg, grads, opt_state, params, lr_scale,
+            None if tp is None else tp.global_norm(grads))
         metrics = {"loss": loss, "xent": aux.get("xent", loss),
                    "moe_lb_loss": aux.get("moe_lb_loss", torch.zeros(())),
                    **opt_metrics}

@@ -1,0 +1,334 @@
+"""The port's sharded train step over many ranks, on the CPU over gloo:
+`launch.train.train` on a mesh of 4 ranks (`parallel.collectives.Comm`, the
+reference's `ShardingRules` executing) against the port's single-process
+step from the same weights and batches; each rank's collective bytes a step
+against the dry run's (`launch.dryrun.trace_cell`) for the same mesh and
+shape; the dry run's model of the plan against its trace of the executed
+step where no remat recomputes; a sharded run's checkpoint against a
+single-process run's files, gathered to rank 0, and every Comm closed;
+`python -m torch.distributed.run` on the launcher; the arches the executed
+plan does not cover yet.
+
+The ranks are this file run as a script, one process each, with one CPU
+thread, meeting through a `file://` rendezvous under the test's tmp_path
+(no port); each writes its results for the tests to read. Every process
+has a timeout and is killed at its end."""
+import json
+import os
+import subprocess
+import sys
+from datetime import timedelta
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parents[1]
+WORLD, STEPS, BATCH, SEQ_LEN = 4, 2, 4, 32
+# AdamW's default clip; the smoke steps' gradient norms are 11-13, so it
+# scales every update
+CLIP = 1.0
+# fp32 throughout: sums over ranks and a rank's columns round in another
+# order than the one-process step's (1e-7 seen), carried through two AdamW
+# updates
+LOSS_RTOL = 1e-5
+LEAF_TOL = 1e-4
+RANK_TIMEOUT_S = 180
+# case -> (arch, mesh shape, axis names, config overrides)
+CASES = {
+    "fsdp (4, 1)": ("stablelm-1.6b", (4, 1), ("data", "model"), {}),
+    "tp (1, 4), KV heads expanded": ("phi3-medium-14b", (1, 4),
+                                     ("data", "model"), {}),
+    "pod (2, 1, 2)": ("stablelm-1.6b", (2, 1, 2), ("pod", "data", "model"),
+                      {}),
+    "microbatch 2 (2, 2)": ("stablelm-1.6b", (2, 2), ("data", "model"),
+                            {"train_microbatch": 2}),
+    "no sequence parallel (2, 2)": ("stablelm-1.6b", (2, 2),
+                                    ("data", "model"),
+                                    {"sequence_parallel": False}),
+    "dots remat, fsdp and tp (2, 2)": ("phi3-medium-14b", (2, 2),
+                                       ("data", "model"), {}),
+}
+CKPT_CASE = ("stablelm-1.6b", (2, 2), ("data", "model"))
+# every arch outside the slice, and the item its error names
+UNSUPPORTED = {
+    "xlstm-125m": "Mamba and xLSTM under tensor parallelism",
+    "jamba-1.5-large-398b": "MoE with expert parallelism",
+    "mixtral-8x22b": "MoE with expert parallelism",
+    "deepseek-v2-236b": "MoE with expert parallelism",
+    "gemma3-12b": "gemma3's chunked loss under vocab TP",
+    "seamless-m4t-medium": "the encoder-decoder and image inputs",
+    "internvl2-2b": "the encoder-decoder and image inputs",
+}
+
+
+def _config(arch, over):
+    from repro_torch.launch.train import launch_config
+    return launch_config(arch, True).scaled(**over)
+
+
+def _init(cfg):
+    from repro_torch.bridge import init_params
+    return init_params(cfg, torch.Generator().manual_seed(0))
+
+
+def _saved(ckpt, state, specs=None):
+    """`state` saved at step STEPS (AdamW returns a new step counter each
+    step: `on_state` held the first)."""
+    ckpt.save(STEPS, {"params": state["params"],
+                      "opt": dict(state["opt"], step=torch.tensor(
+                          STEPS, dtype=torch.int32))}, specs=specs)
+
+
+# ----------------------------------------------------------------- a rank
+
+def _rank(rank: int, work: Path) -> None:
+    import torch.distributed as dist
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.train import train
+    from repro_torch.parallel import collectives
+    from repro_torch.parallel.collectives import Comm
+    from repro_torch.parallel.sharding import gather_tree, make_rules
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{work}/rdv",
+                            rank=rank, world_size=WORLD,
+                            timeout=timedelta(seconds=RANK_TIMEOUT_S))
+    shape = ShapeConfig("test", "train", SEQ_LEN, BATCH)
+
+    def run(cfg, mesh, ckpt_dir=None):
+        comm = Comm(mesh)
+        held, per_step = {}, []
+
+        def on_step(step, metrics):
+            per_step.append(comm.stats.snapshot())
+            comm.stats.reset()
+        losses = train(cfg, steps=STEPS, batch=BATCH, seq_len=SEQ_LEN,
+                       device="cpu", params=_init(cfg), mesh=mesh, comm=comm,
+                       log_every=STEPS, on_step=on_step,
+                       on_state=lambda p, o: held.update(params=p, opt=o))
+        rules = make_rules(mesh, cfg, shape, comm)
+        saved = None
+        if ckpt_dir:
+            comm.stats.reset()
+            _saved(Checkpointer(ckpt_dir, comm=comm), held, specs={
+                "params": rules.param_specs(),
+                "opt": rules.state_specs(held["opt"])})
+            saved = comm.stats.snapshot()
+        state = {"params": gather_tree(held["params"], rules.param_specs(),
+                                       comm),
+                 "opt": gather_tree(held["opt"],
+                                    rules.state_specs(held["opt"]), comm)}
+        comm.close()
+        return {"losses": losses, "bytes": per_step, "saved": saved,
+                "state": state if rank == 0 else None}
+
+    out = {}
+    for name, (arch, mesh_shape, axes, over) in CASES.items():
+        out[name] = run(_config(arch, over), Mesh(mesh_shape, axes))
+    arch, mesh_shape, axes = CKPT_CASE
+    out["checkpoint"] = run(_config(arch, {}), Mesh(mesh_shape, axes),
+                            ckpt_dir=str(work / "ckpt_sharded"))
+    raised = {}
+    for arch in UNSUPPORTED:
+        try:
+            train(_config(arch, {}), steps=1, batch=BATCH, seq_len=SEQ_LEN,
+                  device="cpu", mesh=Mesh((WORLD, 1), ("data", "model")))
+            raised[arch] = None
+        except NotImplementedError as e:
+            raised[arch] = str(e)
+    out["unsupported"] = raised
+    out["registry"] = len(collectives._GROUPS)
+    torch.save(out, work / f"rank{rank}.pt")
+    dist.destroy_process_group()
+
+
+def _spawn_ranks(work: Path) -> list:
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "OMP_NUM_THREADS": "1"}
+    procs = [subprocess.Popen([sys.executable, __file__, str(r), str(work)],
+                              env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(WORLD)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=RANK_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, p in enumerate(procs):
+        assert p.returncode == 0, f"rank {r} rc {p.returncode}:\n{logs[r]}"
+    return [torch.load(work / f"rank{r}.pt", weights_only=False)
+            for r in range(WORLD)]
+
+
+@pytest.fixture(scope="module")
+def work(tmp_path_factory):
+    return tmp_path_factory.mktemp("ranks")
+
+
+@pytest.fixture(scope="module")
+def ranks(work):
+    """The 4 ranks' results of every case, from one launch."""
+    return _spawn_ranks(work)
+
+
+def _single(arch, over):
+    """(losses, grad norms, final state) of the port's single-process
+    step, from the same weights and batches."""
+    from repro_torch.launch.train import train
+    cfg = _config(arch, over)
+    held, norms = {}, []
+    losses = train(cfg, steps=STEPS, batch=BATCH, seq_len=SEQ_LEN,
+                   device="cpu", params=_init(cfg), log_every=STEPS,
+                   on_step=lambda s, m: norms.append(float(m["grad_norm"])),
+                   on_state=lambda p, o: held.update(params=p, opt=o))
+    return losses, norms, held
+
+
+def _leaves_close(got, want):
+    from repro_torch.tree import tree_leaves
+    for g, w in zip(tree_leaves(got), tree_leaves(want)):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        scale = float(w.float().abs().max()) or 1.0
+        assert float((g.float() - w.float()).abs().max()) <= LEAF_TOL * scale
+
+
+# ------------------------------------------------------------------ tests
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_sharded_step_equals_the_single_process_step(ranks, case):
+    arch, _, _, over = CASES[case]
+    want, norms, held = _single(arch, over)
+    assert min(norms) > CLIP            # the clip bites on every step
+    for r in ranks:
+        np.testing.assert_allclose(r[case]["losses"], want, rtol=LOSS_RTOL)
+    _leaves_close(ranks[0][case]["state"]["params"], held["params"])
+    _leaves_close(ranks[0][case]["state"]["opt"]["m"], held["opt"]["m"])
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_collective_bytes_equal_the_dry_run(ranks, case):
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.dryrun import trace_cell
+    from repro_torch.launch.mesh import Mesh
+    arch, mesh_shape, axes, over = CASES[case]
+    want = trace_cell(_config(arch, over),
+                      ShapeConfig("test", "train", SEQ_LEN, BATCH),
+                      Mesh(mesh_shape, axes))["collective_by_kind"]
+    assert want                          # the plan moves something
+    for r in ranks:
+        for step in r[case]["bytes"]:
+            assert step.keys() == want.keys()
+            for kind, n in want.items():
+                assert step[kind] == pytest.approx(n, rel=1e-12), kind
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_without_remat_the_plan_model_is_the_executed_step(case,
+                                                           monkeypatch):
+    """The dry run traces a step the rules execute as rank 0 runs it
+    (`collectives.PlanComm`); its model of the plan, which the arches the
+    rules do not execute yet take, moves the same bytes by kind wherever no
+    remat recomputes (with one, the recompute's early stop ends at other
+    points: see ROADMAP C)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import Mesh
+    arch, mesh_shape, axes, over = CASES[case]
+    cfg = _config(arch, dict(over, remat_policy="full"))
+    shape = ShapeConfig("test", "train", SEQ_LEN, BATCH)
+    executed = dryrun.trace_cell(cfg, shape, Mesh(mesh_shape, axes))
+    monkeypatch.setattr(dryrun, "executes", lambda rules: False)
+    plan = dryrun.trace_cell(cfg, shape, Mesh(mesh_shape, axes))
+    assert (executed["collectives_from"], plan["collectives_from"]) == \
+        ("executed step", "plan")
+    assert executed["collective_by_kind"] == plan["collective_by_kind"]
+
+
+def test_sharded_checkpoint_is_the_single_process_layout(ranks, work,
+                                                          tmp_path):
+    """The files, keys, shapes and dtypes of a single-process run's
+    checkpoint; the values the sharded run's gathered leaves, bit for
+    bit."""
+    from repro_torch.bridge import params_to_numpy
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.checkpoint.checkpointer import _flatten
+    _saved(Checkpointer(str(tmp_path / "one")), _single(CKPT_CASE[0], {})[2])
+    sharded, one = work / "ckpt_sharded", tmp_path / "one"
+    assert sorted(os.listdir(sharded)) == sorted(os.listdir(one)) \
+        == [f"step_{STEPS}"]
+    sharded, one = sharded / f"step_{STEPS}", one / f"step_{STEPS}"
+    assert sorted(os.listdir(sharded)) == sorted(os.listdir(one))
+    assert json.loads((sharded / "manifest.json").read_text()) == \
+        json.loads((one / "manifest.json").read_text())
+    arrays = np.load(sharded / "arrays.npz")
+    flat = dict(_flatten(params_to_numpy(ranks[0]["checkpoint"]["state"])))
+    flat["opt/step"] = np.array(STEPS, dtype=np.int32)
+    assert sorted(arrays.files) == sorted(flat)
+    for key, arr in flat.items():
+        assert np.array_equal(arrays[key], arr), key
+
+
+def test_checkpoint_gathers_to_rank_zero_and_comms_close(ranks):
+    """A sharded save gathers each leaf to the rank that writes it (no
+    all-gather: the other ranks hold no whole leaf), and every Comm a rank
+    made, its own or the launcher's, has left `gathered_mm`'s registry."""
+    for r in ranks:
+        assert set(r["checkpoint"]["saved"]) == {"gather"}, r["checkpoint"]
+        assert r["registry"] == 0
+
+
+@pytest.mark.parametrize("arch", list(UNSUPPORTED))
+def test_unsupported_arch_raises_over_many_ranks(ranks, arch):
+    for r in ranks:
+        msg = r["unsupported"][arch]
+        assert msg is not None and "ROADMAP A18" in msg \
+            and UNSUPPORTED[arch] in msg, msg
+
+
+def test_world_size_one_builds_no_rules(monkeypatch):
+    """Without a process group the launcher is the one-card path: host
+    mesh (1, 1), the model without rules."""
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import train as launch_train
+    built = []
+    real = launch_train.build_model
+    monkeypatch.setattr(launch_train, "build_model",
+                        lambda cfg, rules=None: built.append(rules)
+                        or real(cfg, rules))
+    assert mesh_lib.make_host_mesh().shape == {"data": 1, "model": 1}
+    launch_train.train(_config("stablelm-1.6b", {}), steps=1, batch=2,
+                       seq_len=16, device="cpu")
+    assert built == [None]
+
+
+def test_torch_distributed_run_prints_the_single_process_losses():
+    from repro_torch.launch.train import launch_config, train
+    want = train(launch_config("stablelm-1.6b", True), steps=STEPS,
+                 batch=BATCH, seq_len=SEQ_LEN, device="cpu", log_every=STEPS)
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "OMP_NUM_THREADS": "1"}
+    out = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2", "-m", "repro_torch.launch.train",
+         "--arch", "stablelm-1.6b", "--smoke", "--steps", str(STEPS),
+         "--batch", str(BATCH), "--seq-len", str(SEQ_LEN), "--device",
+         "cpu"], env=env, capture_output=True, text=True,
+        timeout=RANK_TIMEOUT_S)
+    assert out.returncode == 0, out.stdout + out.stderr
+    lines = [ln for ln in out.stdout.splitlines() if ln.startswith("losses")]
+    assert len(lines) == 1, out.stdout           # rank 0 prints
+    np.testing.assert_allclose(json.loads(lines[0].split(" ", 1)[1]), want,
+                               rtol=LOSS_RTOL)
+
+
+if __name__ == "__main__":
+    _rank(int(sys.argv[1]), Path(sys.argv[2]))

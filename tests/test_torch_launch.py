@@ -99,24 +99,32 @@ def test_train_runs_on_the_card_unless_asked(monkeypatch):
 
 @pytest.mark.parametrize("which", ["single", "multi"])
 def test_mesh_over_many_devices_raises(which):
-    with pytest.raises(NotImplementedError,
-                       match="A18.*repro_torch.launch.dryrun"):
+    """A production plan runs only over a process group of its size: at
+    world size 1 the launcher names the plan's ranks against the world's,
+    and the dry run that traces the plan without devices."""
+    ranks = {"single": 256, "multi": 512}[which]
+    with pytest.raises(ValueError, match=f"plans {ranks} ranks.*has 1 rank\\."
+                       ".*repro_torch.launch.dryrun"):
         launch_train.main(["--arch", "xlstm-125m", "--smoke", "--mesh",
                            which, "--device", "cpu"])
 
 
 def test_host_mesh_is_world_size_one():
+    """Without a process group the host mesh is this one process; a model
+    axis or a mesh of more devices than the world raises."""
     m = mesh.make_host_mesh()
     assert (m.size, m.shape, m.axis_names) == (
         1, {"data": 1, "model": 1}, ("data", "model"))
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="model axis of 2 does not divide "
+                       "a world of 1 rank"):
         mesh.make_host_mesh(model=2)
     # the production meshes are plans (the dry run's), not devices
     plan = mesh.make_production_mesh(multi_pod=True)
     assert (plan.size, plan.shape) == (
         512, {"pod": 2, "data": 16, "model": 16})
-    # the loop drives the one device of its mesh
-    with pytest.raises(ValueError, match="A18"):
+    # the loop runs on the ranks of its process group: here one
+    with pytest.raises(ValueError, match="2 devices; the process group has "
+                       "1 rank"):
         launch_train.train(launch_train.launch_config("xlstm-125m", True),
                            steps=1, batch=2, seq_len=8, device="cpu",
                            mesh=mesh.Mesh((2, 1), ("data", "model")))
