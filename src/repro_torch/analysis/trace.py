@@ -47,12 +47,24 @@ recomputation's included, and counts:
                  - at the "logits" constraint of a train or prefill step,
                    vocab-parallel logits become sequence-parallel: an
                    all-to-all over `model`;
-                 - at each "moe_egcd" constraint, the experts' inputs and
-                   outputs cross between token and expert layouts: an
-                   all-to-all over `model`;
+                 - at each "moe_egcd" constraint nothing: a MoE layer
+                   takes its tokens whole along the sequence and leaves
+                   its partial sums as a dense FFN does (the "btd"
+                   constraints around it), as the executed layer does
+                   (`models.moe`); at its "moe_aux" point of a training
+                   step, one all-reduce over every device of its aux
+                   losses' sums;
                  - at each "kv" constraint (KV heads the model axis does
                    not divide, before `_group_for_tp` expands them), the
                    keys or values are all-gathered over `model`;
+                 - a Mamba mixer as the executed one runs on a block of
+                   channels (`models.ssm`): at "mamba_xz" its in_proj
+                   columns all-gathered over `model`, at "mamba_xdb" its
+                   x_proj partial sums all-reduced there (each again for
+                   the gradient), and its `x_proj` and `dt_proj`
+                   (`sharding.WHOLE`) gathered whole at a forward use,
+                   their gradients reduce-scattered back in
+                   `gradient_sync` in place of the FSDP reduce-scatter;
                  - a constraint's tensor that takes a gradient records,
                    when its backward runs, the collectives that carry the
                    gradient back: all-gather for reduce-scatter and the
@@ -62,7 +74,8 @@ recomputation's included, and counts:
                    reduce-scatter over the FSDP axes and all-reduce over
                    the batch axes a leaf is replicated on (and over
                    `model` for a leaf `model` does not shard when the
-                   residual stream splits its sequence there), the loss's
+                   residual stream splits its sequence there, and for
+                   the router whatever the layout), the loss's
                    all-reduce a microbatch and the gradient norm's a step.
                  These are the plan's model, estimates of the collectives
                  XLA would plan (its own resharding is not seen). A step
@@ -249,6 +262,7 @@ class Trace(TorchDispatchMode):
         self._args = {_key(t) for t in _tensors(args)}
         self._fold_new: Optional[List[int]] = None
         self._params: Dict[int, Tuple[Any, str]] = {}   # storage -> spec, name
+        self._aliases = set()    # storages of parameters' layout copies
         self._uses_off = 0       # inside `not_a_use`
         self._shapes = set()
         if params is not None:
@@ -324,6 +338,9 @@ class Trace(TorchDispatchMode):
         entry[0] -= 1
         if entry[0] == 0:
             del self._live[k]
+            if k in self._aliases:      # its storage may be reused
+                self._aliases.discard(k)
+                del self._params[k]
             self._cur -= entry[1]
             if entry[2]:
                 self._cur_shaped -= entry[1]
@@ -371,6 +388,14 @@ class Trace(TorchDispatchMode):
                 info = self._params.get(_key(t))
                 if info is not None:
                     self._gather(func, t, *info)
+        elif func is aten.clone.default and self._params \
+                and not self._uses_off:
+            # a layout copy of a parameter for a product (an einsum's
+            # permuted weight) is that parameter where it is used
+            info = self._params.get(_key(ins[0]))
+            if info is not None:
+                self._params[_key(outs[0])] = info
+                self._aliases.add(_key(outs[0]))
         return out
 
     @staticmethod
@@ -418,8 +443,35 @@ class Trace(TorchDispatchMode):
         return gather, _axis_size(self.rules.mesh, gather), \
             _axis_size(self.rules.mesh, tuple(used))
 
+    def _whole(self, t: torch.Tensor, spec, backward: bool) -> None:
+        """A leaf the executed step gathers whole (`sharding.WHOLE`): at a
+        forward use, all-gathered along each dimension its spec splits, the
+        last first; in the backward (`backward`), its gradient
+        reduce-scattered back in the reverse order."""
+        from repro_torch.parallel.sharding import _axis_size
+        spec = tuple(spec)[-t.dim():]
+        dims = [(d, spec[d]) for d in reversed(range(t.dim()))
+                if spec[d] is not None]
+        cur = _nbytes(t) / math.prod(_axis_size(self.rules.mesh, a)
+                                     for _, a in dims)
+        recs = []
+        for _, axes in dims:
+            n = _axis_size(self.rules.mesh, axes)
+            recs.append(("all-gather", axes, cur, cur * n))
+            cur *= n
+        if backward:
+            recs = [("reduce-scatter", a, o, i) for _, a, i, o in
+                    reversed(recs)]
+        for op, axes, in_b, out_b in recs:
+            self._collective(op, axes, in_b, out_b, "whole param")
+
     def _gather(self, func, t: torch.Tensor, spec, name: str) -> None:
         if self.rules is None:
+            return
+        from repro_torch.parallel.sharding import WHOLE
+        if name in WHOLE and self.rules.shape.kind != "decode":
+            if torch._C._current_autograd_node() is None:   # not a backward
+                self._whole(t, spec, backward=False)
             return
         axes, n_fsdp, n_all = self._split(spec)
         if n_fsdp <= 1:
@@ -444,7 +496,14 @@ class Trace(TorchDispatchMode):
         records the collectives that carry the gradient back. Bytes are per
         device: the trace runs a batch shard, so a tensor's bytes over its
         spec's non-batch axes."""
-        if self.rules is None or rules.tp_size <= 1:
+        if self.rules is None:
+            return x
+        if name == "moe_aux":
+            every = tuple(rules.mesh.axis_names)
+            self._collective("all-reduce", every, _nbytes(x), _nbytes(x),
+                             "moe aux")
+            return x
+        if rules.tp_size <= 1:
             return x
         from repro_torch.parallel.sharding import _axis_size, _flat_axes
         bat = set(rules.batch_axes)
@@ -465,13 +524,16 @@ class Trace(TorchDispatchMode):
                 fwd = bwd = [("all-reduce", tp, full, full, "residual")]
         elif name == "logits" and rules.shape.kind != "decode":
             fwd = bwd = [("all-to-all", tp, per_dev, per_dev, "logits")]
-        elif name == "moe_egcd":
-            fwd = bwd = [("all-to-all", tp, per_dev, per_dev,
-                          "moe dispatch")]
         elif name == "kv":
             n = _axis_size(rules.mesh, tp)
             fwd = [("all-gather", tp, full / n, full, "kv heads")]
             bwd = [("reduce-scatter", tp, full, full / n, "kv heads")]
+        elif name == "mamba_xz":
+            n = _axis_size(rules.mesh, tp)
+            fwd = [("all-gather", tp, full / n, full, "mamba x, z")]
+            bwd = [("reduce-scatter", tp, full, full / n, "mamba x, z")]
+        elif name == "mamba_xdb":
+            fwd = bwd = [("all-reduce", tp, full, full, "mamba x_proj")]
         for rec in fwd:
             self._collective(*rec)
         if bwd and x.requires_grad and torch.is_grad_enabled():
@@ -488,7 +550,10 @@ class Trace(TorchDispatchMode):
         replicated."""
         if self.rules is None:
             return
-        from repro_torch.parallel.sharding import (_axis_size, _flat_axes,
+        from repro_torch.parallel.sharding import (_PARTIAL_OVER_MODEL,
+                                                   WHOLE, _axis_size,
+                                                   _flat_axes,
+                                                   _map_with_path,
                                                    tree_leaves_specs)
         from repro_torch.tree import tree_leaves
         rules = self.rules
@@ -496,15 +561,23 @@ class Trace(TorchDispatchMode):
             "btd", (rules.shape.global_batch, rules.shape.seq_len,
                     rules.cfg.d_model))[1])
         specs = tree_leaves_specs(rules.param_shardings(params))
-        for t, spec in zip(tree_leaves(params), specs):
+        names = tree_leaves(_map_with_path(
+            lambda path, _: path.rsplit("/", 1)[-1], params))
+        for t, spec, name in zip(tree_leaves(params), specs, names):
             axes, n_fsdp, n_all = self._split(spec)
             local = _nbytes(t) * n_fsdp / n_all
-            if n_fsdp > 1:
+            if name in WHOLE:
+                layers = t.shape[0] if len(spec) > 1 and spec[0] is None \
+                    and t.dim() == len(spec) and t.dim() > 2 else 1
+                with self.scaled(times * layers):
+                    self._whole(t[0] if layers > 1 else t, spec,
+                                backward=True)
+            elif n_fsdp > 1:
                 self._collective("reduce-scatter", axes, local,
                                  local / n_fsdp, "grad", times)
             used = {a for a_ in spec for a in _flat_axes(a_)}
             rep = [a for a in rules.batch_axes if a not in used]
-            if sp and rules.tp not in used:
+            if (sp or name in _PARTIAL_OVER_MODEL) and rules.tp not in used:
                 rep.append(rules.tp)
             rep = tuple(a for a in rules.mesh.axis_names if a in rep)
             if _axis_size(rules.mesh, rep) > 1:

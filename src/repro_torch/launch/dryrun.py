@@ -30,12 +30,14 @@ What a record holds, per device of the plan:
     plan the model axis is taken to split every op of a batch shard
     evenly). `trace_flops` keeps the undivided count.
   * collectives: the plan's, by `analysis.trace` (FSDP gathers at each
-    use, the residual stream's partial sums, vocab- and expert-parallel
-    all-to-alls, gathered KV heads, each of these again for the gradient
-    in the backward, the gradients' reduce-scatter and all-reduce, the
+    use, the residual stream's partial sums, the vocab-parallel logits'
+    all-to-all, gathered KV heads, a Mamba mixer's gathers and sums over
+    `model`, each of these again for the gradient in the backward, a MoE
+    layer's aux sums, the gradients' reduce-scatter and all-reduce, the
     loss's and the norm's sums), with the ring model's bytes. A train step
     that `launch.train` executes over a process group (`executes`: the
-    dense decoders) is traced as rank 0 runs it instead, on its blocks and
+    configs `sharding.check_executable` passes: the dense decoders,
+    mixtral and jamba) is traced as rank 0 runs it instead, on its blocks and
     rows, with its own collectives (`collectives.PlanComm`;
     `collectives_from` says which): its FLOPs, bytes and peak are then a
     device's own (`divisor` 1). `collective_bytes_dcn` the groups over

@@ -20,7 +20,8 @@ over `parallel.collectives.Comm`): one rank a card over `nccl` at
 `--mesh host` is the reference's pure FSDP mesh (world, 1); `single` and
 `multi` are the production plans and run when the world has their 256 or
 512 ranks (`repro_torch.launch.dryrun` traces a step under either plan
-without devices). Over more than one rank the dense decoders run
+without devices). Over more than one rank the dense decoders, mixtral
+(MoE, sliding window) and jamba (Mamba, MoE, no sequence parallelism) run
 (`sharding.check_executable`); every other arch raises naming its ROADMAP
 item. The config's `remat_policy` and `train_microbatch` hold as the model
 and the step read them; `--smoke` takes the reduced config in fp32

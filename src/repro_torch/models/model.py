@@ -56,11 +56,14 @@ layout change. At world size 1 the model axis is 1 and nothing expands;
 without rules the model is the card's.
 
 Executing rules (`ShardingRules` with a `comm`, over a process group) make
-`loss_fn` rank-local for the dense decoders (`sharding.check_executable`):
+`loss_fn` rank-local for the configs `sharding.check_executable` passes:
 params are the rank's blocks, the batch its rows; the embedding is
-vocab-parallel, each layer's attention and FFN compute the rank's heads
-and `d_ff` columns on the residual stream the rules move (`enter`,
-`exit`), and the loss is taken on the rank's positions of the
+vocab-parallel, each layer's attention (global or windowed), Mamba mixer
+and FFN (SwiGLU or MoE) compute the rank's heads, `d_inner` channels,
+`d_ff` columns or experts on the residual stream the rules move (`enter`,
+`exit`), each layer seeing the rules at its path in the params
+(`ShardingRules.at`); a MoE layer's aux losses are already the global
+batch's; and the loss is taken on the rank's positions of the
 sequence-parallel logits and summed over every rank. Forward, prefill and
 decode stay world-size-1 paths. The remat's recompute stops, as at world
 size 1, once it has remade what the backward needs: the reduce-scatter
@@ -139,9 +142,13 @@ def save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
     are `bmm`s of a batch above 1. So the batch size decides, not the op's
     name. Allocations (`torch.empty`, the buffers a kernel writes) are
     never kept. A sharded weight's product (`collectives.gathered_mm`) is
-    kept too, so its recompute gathers nothing."""
-    if op in (_aten.mm.default, _aten.addmm.default, GATHERED_MM) or (
-            op is _aten.bmm.default and args[0].shape[0] == 1):
+    kept too, so its recompute gathers nothing, unless it is a batch of
+    products above 1 (a rank's experts), which is recomputed and gathers
+    its weights again."""
+    if op in (_aten.mm.default, _aten.addmm.default) or (
+            op is _aten.bmm.default and args[0].shape[0] == 1) or (
+            op is GATHERED_MM and (args[1].dim() == 2
+                                   or args[1].shape[0] == 1)):
         return CheckpointPolicy.MUST_SAVE
     return CheckpointPolicy.PREFER_RECOMPUTE
 
@@ -200,6 +207,13 @@ class Model:
             return self.rules.constrain_moe
         return None
 
+    def _shard_act(self):
+        """`constrain_act` as a mixer's `shard_fn(x, name)`; None without
+        rules."""
+        if self.rules is None:
+            return None
+        return self.rules.constrain_act
+
     def _attn_tp(self):
         """(expand_kv, shard_fn): expand KV to full heads when TP divides H
         but not Kv (see attention._group_for_tp)."""
@@ -210,6 +224,12 @@ class Model:
         expand = (cfg.num_heads % tp == 0 and cfg.num_kv_heads % tp != 0
                   and cfg.q_per_kv > 1)
         return expand, (lambda a, nm: self.rules.constrain_act(a, nm))
+
+    def _tp_at(self, where):
+        """The executing rules as the layer at `where` ("groups/1",
+        "first/0") sees them; None without them."""
+        return None if self.tp is None or where is None \
+            else self.tp.at(where)
 
     def _layers(self, params: Params):
         """Yield (mixer kind, ffn kind, layer params, cache slot) for every
@@ -223,17 +243,23 @@ class Model:
                 yield (kind, cfg.ffn_pattern[i], _layer(params["groups"][i], g),
                        ("groups", i, g))
 
-    def _ffn(self, lp: Params, kind: str, h, aux=None):
+    def _ffn(self, lp: Params, kind: str, h, aux=None, tp=None):
         """h + the layer's FFN; a MoE layer adds its aux losses into `aux`
-        (in place) where one is given."""
+        (in place) where one is given. `tp`: the executing rules at this
+        layer (`_tp_at`)."""
         if kind == NONE:
             return h
         f_in = rmsnorm(lp["post_norm"], h, self.cfg.norm_eps)
+        tp = None if tp is None else tp.at("ffn")
         if kind == DENSE:
-            return h + swiglu(lp["ffn"], f_in,
-                              LOCAL if self.tp is None else self.tp)
+            return h + swiglu(lp["ffn"], f_in, LOCAL if tp is None else tp)
         y, moe_aux = moe.moe_apply(lp["ffn"], self.cfg, f_in,
-                                   self._moe_shard())
+                                   self._moe_shard(), tp)
+        if tp is None and self.rules is not None and aux is not None \
+                and torch.is_grad_enabled():
+            # the plan of the executed layer's one all-reduce of its sums
+            self.rules.constrain_moe("moe_aux", torch.empty(
+                2 * self.cfg.moe.num_experts + 1, device=h.device))
         if aux is not None:
             for k in aux:
                 aux[k] = aux[k] + moe_aux[k]
@@ -254,18 +280,22 @@ class Model:
     def _window(self, kind: str) -> int:
         return self.cfg.window_size if kind == SWA else 0
 
-    def _mix(self, lp: Params, kind: str, x):
+    def _mix(self, lp: Params, kind: str, x, tp=None):
         cfg = self.cfg
+        tp = None if tp is None else tp.at("mixer")
         if kind in (ATTN, SWA):
             expand, sf = self._attn_tp()
             return attn.attention_forward(lp["mixer"], cfg, x,
                                           window=self._window(kind),
                                           expand_kv=expand, shard_fn=sf,
-                                          tp=self.tp)
+                                          tp=tp)
         if kind == MLA:
             return attn.mla_forward(lp["mixer"], cfg, x)
         if kind == MAMBA:
-            return ssm.mamba_mix(lp["mixer"], cfg, x)[0]
+            if tp is not None:
+                return ssm.mamba_mix_rank(lp["mixer"], cfg, x, tp)
+            return ssm.mamba_mix(lp["mixer"], cfg, x,
+                                 shard_fn=self._shard_act())[0]
         if kind == MLSTM:
             return xlstm.mlstm_mix(lp["mixer"], cfg, x)[0]
         return xlstm.slstm_mix(lp["mixer"], cfg, x)[0]
@@ -290,20 +320,22 @@ class Model:
         return run
 
     def _layer_forward(self, lp: Params, kind: str, ffn: str, h, aux,
-                       enc_out=None):
+                       enc_out=None, where=None):
         """One decoder layer: mixer, cross-attention to the encoder where
-        there is one, FFN (a MoE layer adds its aux losses into `aux`)."""
+        there is one, FFN (a MoE layer adds its aux losses into `aux`).
+        `where` is the layer's path in the params ("groups/1")."""
         cfg = self.cfg
+        tp = self._tp_at(where)
         mix_in = rmsnorm(lp["pre_norm"], h, cfg.norm_eps)
-        h = self._act(h + self._mix(lp, kind, mix_in))
+        h = self._act(h + self._mix(lp, kind, mix_in, tp))
         if enc_out is not None and "cross" in lp:
             h = self._act(self._cross(lp, h, attn.encode_cross_kv(
                 lp["cross"], cfg, enc_out)))
-        return self._ffn_act(lp, ffn, h, aux)
+        return self._ffn_act(lp, ffn, h, aux, tp)
 
-    def _ffn_act(self, lp: Params, kind: str, h, aux=None):
+    def _ffn_act(self, lp: Params, kind: str, h, aux=None, tp=None):
         """`_ffn`, its output constrained where there is an FFN."""
-        out = self._ffn(lp, kind, h, aux)
+        out = self._ffn(lp, kind, h, aux, tp)
         return out if kind == NONE else self._act(out)
 
     def _cross(self, lp: Params, h, enc_kv):
@@ -353,14 +385,16 @@ class Model:
         cfg = self.cfg
         h, enc_out = self._embed_inputs(params, batch)
         aux = self._zero_aux(h.device)
-        for lp in params.get("first", []):     # outside the remat
+        for j, lp in enumerate(params.get("first", [])):   # outside the remat
             h = self._layer_forward(lp, cfg.pattern[0], DENSE, h, aux,
-                                    enc_out)
+                                    enc_out, f"first/{j}")
 
         def group(layers, h, lb, z):
             g_aux = {"moe_lb_loss": lb, "moe_z_loss": z}
-            for kind, ffn, lp in zip(cfg.pattern, cfg.ffn_pattern, layers):
-                h = self._layer_forward(lp, kind, ffn, h, g_aux, enc_out)
+            for i, (kind, ffn, lp) in enumerate(zip(cfg.pattern,
+                                                    cfg.ffn_pattern, layers)):
+                h = self._layer_forward(lp, kind, ffn, h, g_aux, enc_out,
+                                        f"groups/{i}")
             return h, g_aux["moe_lb_loss"], g_aux["moe_z_loss"]
 
         for g in range(cfg.num_groups):
@@ -545,7 +579,8 @@ class Model:
         if kind == MLA:
             return attn.mla_prefill(lp["mixer"], cfg, x, max_seq=max_seq)
         if kind == MAMBA:
-            out, (h_last, tail) = ssm.mamba_mix(lp["mixer"], cfg, x)
+            out, (h_last, tail) = ssm.mamba_mix(lp["mixer"], cfg, x,
+                                                shard_fn=self._shard_act())
             return out, {"h": h_last, "conv": tail}
         if kind == MLSTM:
             out, ((c, n, m), tail) = xlstm.mlstm_mix(lp["mixer"], cfg, x)

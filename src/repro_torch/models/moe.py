@@ -16,6 +16,19 @@ The reference's products are einsums and `lax.ragged_dot` outside any
 Pallas kernel, so the port's are `torch.einsum`/`torch.bmm` and a loop of
 `torch.matmul`. The scatters `.at[...].add` become `index_add`; on the card
 its float sums run in no fixed order (atomics).
+
+Under executing sharding rules (`moe_apply(..., tp=)`, a rank of the
+sharded train step) the layer computes the reference's global function
+from the rank's blocks: the residual stream comes in whole along the
+sequence (`tp.enter`), so every model rank routes the same whole groups
+and drops exactly the tokens the reference drops; the rank runs its own
+experts (expert parallel: the model axis divides E) or every expert's
+block of `d_ff` columns (the expert-internal TP fallback), and the shared
+experts' columns, each expert weight gathered over its FSDP axes at the
+product; the partial sums leave through `tp.exit`. The aux losses are the
+global batch's: each rank sums its counts, probabilities and squared
+log-normalizers over its own block of positions, and one all-reduce over
+every rank adds them up, so each token's gradient is counted once.
 """
 from __future__ import annotations
 
@@ -28,6 +41,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, MoEConfig
 from repro_torch.models.layers import dense_init, swiglu, swiglu_init, torch_dtype
+from repro_torch.parallel import collectives as c
 
 Params = Dict[str, Any]
 
@@ -63,12 +77,19 @@ def moe_init(gen: torch.Generator, cfg: ModelConfig,
     return p
 
 
-def _router(params: Params, mc: MoEConfig, x2d: torch.Tensor):
-    """x2d: (T, d) -> gates (T, k), idx (T, k), aux losses."""
+def _route(params: Params, mc: MoEConfig, x2d: torch.Tensor):
+    """x2d: (T, d) -> fp32 logits and probabilities (T, E), the top-k
+    gates renormalized (T, k) and their experts (T, k)."""
     logits = x2d.float() @ params["router"].float()
     probs = torch.softmax(logits, dim=-1)
     top_p, top_i = torch.topk(probs, mc.top_k, dim=-1)
     top_p = top_p / torch.clamp_min(top_p.sum(-1, keepdim=True), 1e-9)
+    return logits, probs, top_p, top_i
+
+
+def _router(params: Params, mc: MoEConfig, x2d: torch.Tensor):
+    """x2d: (T, d) -> gates (T, k), idx (T, k), aux losses."""
+    logits, probs, top_p, top_i = _route(params, mc, x2d)
     # switch load-balance loss: E * sum_e f_e * P_e
     e = mc.num_experts
     f_e = _expert_counts(top_i, e).float()
@@ -132,6 +153,21 @@ def _dropping_moe(params: Params, mc: MoEConfig, x3d, gates, idx,
     e = mc.num_experts
     cap = capacity(mc, n)
     sf = shard_fn or (lambda name, a: a)
+    dispatch, combine = _dispatch(mc, x3d, gates, idx)
+    dispatch = sf("moe_dispatch", dispatch)
+    h_in = sf("moe_egcd", torch.einsum("gnec,gnd->egcd", dispatch, x3d))
+    h_out = _expert_ffn(params, h_in.reshape(e, g_ * cap, d))
+    h_out = sf("moe_egcd", h_out.reshape(e, g_, cap, d))
+    # combine weights in activation dtype, as the reference does
+    return torch.einsum("gnec,egcd->gnd", combine.to(x3d.dtype), h_out)
+
+
+def _dispatch(mc: MoEConfig, x3d, gates, idx):
+    """The (G, N, E, C) dispatch one-hot (in x3d's dtype) and combine
+    weights (fp32) of groups x3d (G, N, d) routed to `idx` with `gates`."""
+    g_, n, d = x3d.shape
+    e = mc.num_experts
+    cap = capacity(mc, n)
     slots = torch.arange(cap, device=x3d.device)
 
     # position of each (token, rank) within its (group, expert) queue;
@@ -150,12 +186,7 @@ def _dropping_moe(params: Params, mc: MoEConfig, x3d, gates, idx,
         oh = (pos_r[..., None] == slots) & keep[..., None]
         dispatch = dispatch + oh.to(x3d.dtype)
         combine = combine + oh.float() * gates[..., r:r + 1, None]
-    dispatch = sf("moe_dispatch", dispatch)
-    h_in = sf("moe_egcd", torch.einsum("gnec,gnd->egcd", dispatch, x3d))
-    h_out = _expert_ffn(params, h_in.reshape(e, g_ * cap, d))
-    h_out = sf("moe_egcd", h_out.reshape(e, g_, cap, d))
-    # combine weights in activation dtype, as the reference does
-    return torch.einsum("gnec,egcd->gnd", combine.to(x3d.dtype), h_out)
+    return dispatch, combine
 
 
 def _ragged_moe(params: Params, mc: MoEConfig, x2d, gates, idx):
@@ -182,10 +213,118 @@ def _ragged_moe(params: Params, mc: MoEConfig, x2d, gates, idx):
     return torch.zeros_like(x2d).index_add(0, tok, y)
 
 
+def _groups(b: int, s: int) -> Tuple[int, int]:
+    """(groups, tokens a group) of the dropping dispatch: groups of <=4096
+    tokens of one row, one flat group at decode."""
+    if s > 1:
+        gsz = math.gcd(s, 4096)
+        return b * (s // gsz), gsz
+    return 1, b * s
+
+
+def _global_aux(mc: MoEConfig, logits, probs, top_i, b: int, s: int, tp):
+    """The aux losses of the global batch from a rank's whole-sequence
+    routing of its rows: the counts, probabilities and squared
+    log-normalizers of its own block of positions (`tp.tp_block`) summed
+    over every rank (the all-reduce's backward passes each rank its own
+    part), then `_router`'s formulas over every token."""
+    e = mc.num_experts
+    p0, p1 = tp.tp_block(s)
+
+    def own(t):
+        return t.reshape(b, s, -1)[:, p0:p1].reshape(-1, t.shape[-1])
+    lse = torch.logsumexp(own(logits), dim=-1)
+    stats = c.all_reduce(tp.comm, torch.cat([
+        _expert_counts(own(top_i), e).float(), own(probs).sum(dim=0),
+        torch.sum(lse ** 2)[None]]), tp.mesh.axis_names)
+    tokens = b * s * tp.batch_split()[1]
+    f_e = stats[:e] / torch.clamp_min(stats[:e].sum(), 1.0)
+    p_e = stats[e:2 * e] / tokens
+    return {"moe_lb_loss": e * torch.sum(f_e * p_e),
+            "moe_z_loss": stats[2 * e] / tokens}
+
+
+def _gathered_columns(params: Params, name: str, x2d, tp):
+    """x2d (T, d) through every local expert's `name` block (E_l, d_l, f_l)
+    at once: the block laid out as one (d_l, E_l * f_l) matrix, gathered
+    over its FSDP axes along d for the product -> (T, E_l, f_l)."""
+    w = params[name]
+    dim, axes = tp.gather_dim(name)
+    flat = w.permute(1, 0, 2).reshape(w.shape[1], -1)
+    out = c.gathered_mm(tp.comm, x2d, flat, 0, axes if dim == 1 else ())
+    return out.reshape(x2d.shape[0], w.shape[0], w.shape[2])
+
+
+def _rank_dense(params: Params, mc: MoEConfig, x2d, gates, idx, e0: int,
+                tp):
+    """`_dense_moe` on a rank: its experts [e0, e0 + E_l) or every
+    expert's block of columns, partial sums out."""
+    t = x2d.shape[0]
+    el = params["w_gate"].shape[0]
+    comb = torch.zeros((t, mc.num_experts), dtype=x2d.dtype,
+                       device=x2d.device)
+    comb = comb.scatter(1, idx, gates.to(x2d.dtype))[:, e0:e0 + el]
+    h = _swiglu_act(_gathered_columns(params, "w_gate", x2d, tp),
+                    _gathered_columns(params, "w_up", x2d, tp))
+    y = tp.linear(h.transpose(0, 1), params["w_down"], "w_down")
+    return torch.einsum("etd,te->td", y, comb)
+
+
+def _rank_dropping(params: Params, mc: MoEConfig, x3d, gates, idx, e0: int,
+                   tp):
+    """`_dropping_moe` on a rank: the whole groups' dispatch, its experts'
+    slots [e0, e0 + E_l) (or every expert's, on its columns) through
+    their SwiGLU, partial sums out."""
+    g_, n, d = x3d.shape
+    el = params["w_gate"].shape[0]
+    cap = capacity(mc, n)
+    dispatch, combine = _dispatch(mc, x3d, gates, idx)
+    dispatch = dispatch[:, :, e0:e0 + el]
+    combine = combine[:, :, e0:e0 + el]
+    h_in = torch.einsum("gnec,gnd->egcd", dispatch, x3d).reshape(
+        el, g_ * cap, d)
+    h = _swiglu_act(tp.linear(h_in, params["w_gate"], "w_gate"),
+                    tp.linear(h_in, params["w_up"], "w_up"))
+    h_out = tp.linear(h, params["w_down"], "w_down").reshape(el, g_, cap, d)
+    return torch.einsum("gnec,egcd->gnd", combine.to(x3d.dtype), h_out)
+
+
+def _rank_moe(params: Params, cfg: ModelConfig, x: torch.Tensor, tp
+              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """`moe_apply` as a rank of the sharded step runs it (module
+    docstring): x in the residual stream's layout -> the layer's output in
+    the same layout, the global aux losses."""
+    mc = cfg.moe
+    xf = tp.enter(x)
+    b, s, d = xf.shape
+    x2d = xf.reshape(b * s, d)
+    logits, probs, gates, idx = _route(params, mc, x2d)
+    aux = _global_aux(mc, logits, probs, idx, b, s, tp)
+    el = params["w_gate"].shape[0]
+    e0 = tp.tp_block(mc.num_experts)[0] if el < mc.num_experts else 0
+    if mc.dispatch == "dense":
+        y = _rank_dense(params, mc, x2d, gates, idx, e0, tp)
+    elif mc.dispatch == "dropping":
+        g_, n = _groups(b, s)
+        y = _rank_dropping(params, mc, x2d.reshape(g_, n, d),
+                           gates.reshape(g_, n, -1), idx.reshape(g_, n, -1),
+                           e0, tp).reshape(b * s, d)
+    else:
+        raise NotImplementedError(f"{mc.dispatch} dispatch on a rank")
+    if mc.num_shared_experts:
+        y = y + swiglu(params["shared"], x2d, tp.at("shared", inner=True))
+    return tp.exit(y.reshape(b, s, d)), aux
+
+
 def moe_apply(params: Params, cfg: ModelConfig, x: torch.Tensor,
-              shard_fn=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+              shard_fn=None, tp=None
+              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x: (B, S, d) -> (B, S, d), aux losses. `shard_fn` annotates the
-    dropping dispatch's layouts (the model's `_moe_shard`)."""
+    dropping dispatch's layouts (the model's `_moe_shard`); `tp`, the
+    executing rules at this layer's FFN, makes it a rank's part of the
+    layer (module docstring)."""
+    if tp is not None:
+        return _rank_moe(params, cfg, x, tp)
     mc = cfg.moe
     b, s, d = x.shape
     x2d = x.reshape(b * s, d)
@@ -195,11 +334,7 @@ def moe_apply(params: Params, cfg: ModelConfig, x: torch.Tensor,
     elif mc.dispatch == "dropping":
         # groups of <=4096 tokens: capacity (and the dispatch one-hot) stays
         # bounded regardless of sequence length; one flat group at decode
-        if s > 1:
-            gsz = math.gcd(s, 4096)
-            g_, n = b * (s // gsz), gsz
-        else:
-            g_, n = 1, b * s
+        g_, n = _groups(b, s)
         y = _dropping_moe(params, mc, x2d.reshape(g_, n, d),
                           gates.reshape(g_, n, -1), idx.reshape(g_, n, -1),
                           shard_fn)

@@ -435,7 +435,9 @@ def _gathered_mm(x: torch.Tensor, w: torch.Tensor, dim: int,
 def _(x, w, dim, key):
     comm, axes = _comm_of(key)
     n = comm.size(axes)
-    return x.new_empty((*x.shape[:-1], w.shape[1] * (n if dim == 1 else 1)))
+    last = w.dim() - 1
+    return x.new_empty((*x.shape[:-1],
+                        w.shape[-1] * (n if dim == last else 1)))
 
 
 def _gathered_mm_setup(ctx, inputs, output):
@@ -448,8 +450,11 @@ def _gathered_mm_backward(ctx, g):
     comm, axes = _comm_of(ctx.key)
     x, w = ctx.saved_tensors
     full = comm.all_gather(w, ctx.dim, axes)
-    gx = g @ full.T
-    gw = x.reshape(-1, x.shape[-1]).T @ g.reshape(-1, g.shape[-1])
+    gx = g @ full.transpose(-1, -2)
+    if w.dim() == 2:
+        gw = x.reshape(-1, x.shape[-1]).T @ g.reshape(-1, g.shape[-1])
+    else:                       # a batch of products (experts)
+        gw = x.transpose(-1, -2) @ g
     return gx, comm.reduce_scatter(gw, ctx.dim, axes), None, None
 
 
@@ -461,7 +466,9 @@ GATHERED_MM = torch.ops.repro_torch.gathered_mm.default
 def gathered_mm(comm: Comm, x, w, dim: int, axes):
     """`x @ w` with `w` sharded along `dim` over `axes`: the whole weight
     gathered for the product and again in the backward, its gradient
-    reduce-scattered back to the shard. Without such axes, `x @ w`."""
+    reduce-scattered back to the shard. `w` is a matrix, or a batch of
+    them (E, K, N) that multiplies `x` (E, M, K). Without such axes,
+    `x @ w`."""
     if comm.size(axes) == 1:
         return x @ w
     return _gathered_mm(x, w, dim, comm.key(axes))

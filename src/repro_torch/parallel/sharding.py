@@ -44,14 +44,29 @@ the model runs rank-local (`models.model`, `models.attention`,
   * KV heads the model axis does not divide (`_group_for_tp`'s expand
     case) are all-gathered, and the rank takes those its query heads read
     (`kv_heads`);
+  * a MoE layer takes its tokens in (`enter`: every model rank routes the
+    same whole groups) and runs the rank's experts (expert parallel) or
+    every expert's `d_ff` columns (the expert-internal TP fallback), its
+    partial sums out through `exit`; the aux losses are sums over each
+    rank's own block of positions, all-reduced over every rank
+    (`models.moe`);
+  * a Mamba mixer runs the rank's block of `d_inner` channels: `in_proj`'s
+    column blocks all-gathered over `model` for the rank's x and z
+    channels, `x_proj` and `dt_proj` gathered whole (`whole`), its
+    `x_proj` partial sums all-reduced (`models.ssm`);
   * after a microbatch's backward a gradient is all-reduced over the batch
     axes its spec leaves replicated, and over `model` too for a leaf
-    `model` does not shard while SP splits the tokens that reach it
+    `model` does not shard while its ranks' gradients differ: any such
+    leaf under SP (the tokens that reach it are split), the router always
+    (each model rank's experts or columns see their own part of it)
     (`sync_grads`); the global norm counts each element once
     (`global_norm`).
-`constrain_act` returns its tensor as it is: the layout is already the
-spec's. `shard_tree` cuts a rank's blocks out of whole leaves and
-`gather_tree` puts them back together.
+A layer names its leaves by their path in the params (`at`, `linear`), so
+two leaves of one name in layers of other kinds (jamba's dense and MoE
+`ffn/w_gate`) each gather the block their own spec describes.
+`constrain_act` and `constrain_moe` return their tensor as it is: the
+layout is already the spec's. `shard_tree` cuts a rank's blocks out of
+whole leaves and `gather_tree` puts them back together.
 """
 from __future__ import annotations
 
@@ -62,8 +77,8 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import (ATTN, DENSE, MAMBA, MLA, MLSTM, MOE,
-                                      SLSTM, SWA, ModelConfig, ShapeConfig)
+from repro_torch.configs.base import (MAMBA, MLA, MLSTM, SLSTM, ModelConfig,
+                                      ShapeConfig)
 from repro_torch.parallel import collectives as c
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -177,6 +192,13 @@ def _map_with_path(fn, tree, path=()):
     return fn("/".join(path), tree)
 
 
+# leaves a rank gathers whole for its block of a Mamba mixer's channels
+# (`whole`): their specs cut across the block
+WHOLE = {"x_proj", "dt_proj"}
+# replicated leaves whose gradient the model ranks each hold a part of
+# whatever the residual stream's layout: the router's (a rank's experts or
+# columns weigh their own gates)
+_PARTIAL_OVER_MODEL = {"router"}
 # parameter names that are row-parallel (input dim on `model`)
 _ROW_2D = {"w_o", "down", "w_down", "out_proj", "dt_proj"}
 # names that live on the inner (d_inner/model-sharded) dimension
@@ -204,7 +226,7 @@ class ShardingRules:
         # long-context decode with batch=1: shard sequence instead of batch
         self.seq_shard = (self.shape.kind == "decode"
                           and self.shape.global_batch == 1)
-        self._specs = self._by_name = None
+        self._specs = self._by_path = None
         if self.comm is not None:
             check_executable(self)
 
@@ -302,8 +324,7 @@ class ShardingRules:
 
     def constrain_moe(self, name: str, x):
         if self.executing:
-            raise NotImplementedError(_unsupported(self.cfg, self.mesh,
-                                                   MOE_ITEM))
+            return x
         mesh, tp, bat = self.mesh, self.tp, self.batch_axes
         if name == "moe_dispatch":               # (G, N, E, C)
             g = x.shape[0]
@@ -317,6 +338,8 @@ class ShardingRules:
                 spec = _fit(mesh, (tp, bat, None, None), x.shape)
             else:
                 spec = _fit(mesh, (tp, None, bat, None), x.shape)
+        elif name == "moe_aux":                  # the aux losses' sums
+            spec = P(None)
         else:
             return x
         return _constrain(self, x, name, spec)
@@ -409,30 +432,35 @@ class ShardingRules:
         specs = self.param_specs()
         return {k: (P() if k == "step" else specs) for k in opt_state}
 
-    def _leaf_spec(self, name: str) -> PartitionSpec:
-        """The spec of one layer's leaf `name` (a stacked leaf without its
-        leading layer axis)."""
-        if self._by_name is None:
+    def _leaf_spec(self, path: str) -> PartitionSpec:
+        """The spec of the leaf at `path` in the params ("embed/table",
+        "groups/1/ffn/w_gate"), a stacked leaf's without its leading layer
+        axis: one layer's block."""
+        if self._by_path is None:
             out = {}
 
             def one(path, spec):
                 stacked = bool(re.search(r"(groups|encoder/layers)", path))
-                out.setdefault(path.rsplit("/", 1)[-1],
-                               P(*spec[1:]) if stacked else spec)
+                out[path] = P(*spec[1:]) if stacked else spec
                 return spec
             _map_specs(one, self.param_specs())
-            self._by_name = out
-        return self._by_name[name]
+            self._by_path = out
+        return self._by_path[path]
 
-    def _fsdp_dim(self, name: str) -> Tuple[int, Tuple[str, ...]]:
-        """(the dimension of leaf `name` its spec shards over FSDP axes,
-        those axes); (-1, ()) where there is none."""
+    def _fsdp_dim(self, path: str) -> Tuple[int, Tuple[str, ...]]:
+        """(the dimension of the leaf at `path` its spec shards over FSDP
+        axes, those axes); (-1, ()) where there is none."""
         fsdp = set(_flat_axes(self.fsdp))
-        for i, axes in enumerate(self._leaf_spec(name)):
+        for i, axes in enumerate(self._leaf_spec(path)):
             got = tuple(a for a in _flat_axes(axes) if a in fsdp)
             if got:
                 return i, got
         return -1, ()
+
+    def at(self, prefix: str) -> "Scoped":
+        """These rules as the layer or sublayer at `prefix` in the params
+        sees them: `linear(x, w, "w_q")` is the leaf `prefix/w_q`'s."""
+        return Scoped(self, prefix)
 
     def enter(self, x):
         """The residual stream into a column-parallel product: under SP
@@ -450,18 +478,36 @@ class ShardingRules:
             return c.reduce_scatter(self.comm, y, 1, self.tp)
         return c.all_reduce(self.comm, y, self.tp)
 
-    def linear(self, x, w, name: str):
-        """`x @ w` for this rank's block `w` of leaf `name`: the block
-        gathered over the FSDP axes of its spec (ZeRO-3), still split over
-        `model` where the spec says."""
-        dim, axes = self._fsdp_dim(name)
+    def linear(self, x, w, path: str):
+        """`x @ w` for this rank's block `w` of the leaf at `path`: the
+        block gathered over the FSDP axes of its spec (ZeRO-3), still split
+        over `model` where the spec says. A 3-D block (experts) multiplies
+        a batch of the same leading size."""
+        dim, axes = self._fsdp_dim(path)
         return c.gathered_mm(self.comm, x, w, dim, axes)
+
+    def whole(self, w, path: str):
+        """The whole leaf at `path` from this rank's block `w`: all-gathered
+        along each dimension its spec splits, the last dimension first
+        (the backward reduce-scatters the gradient back to the block, so
+        the ranks' parts of it are summed)."""
+        spec = self._leaf_spec(path)
+        for dim in reversed(range(len(spec))):
+            if spec[dim] is not None:
+                w = c.all_gather(self.comm, w, dim, spec[dim])
+        return w
+
+    def tp_block(self, n: int) -> Tuple[int, int]:
+        """This rank's block [start, stop) of `n` (channels, experts,
+        positions) split over `model`."""
+        m = self.comm.index(self.tp)
+        return m * n // self.tp_size, (m + 1) * n // self.tp_size
 
     def embed(self, table, tokens):
         """The vocab-parallel lookup: this rank's rows of the table
         (gathered over its FSDP axes), the tokens outside them zero, the
         partial sums over `model` reduced by `exit`."""
-        dim, axes = self._fsdp_dim("table")
+        dim, axes = self._fsdp_dim("embed/table")
         full = c.all_gather(self.comm, table, dim, axes) \
             if dim >= 0 else table
         n = full.shape[0]
@@ -520,21 +566,28 @@ class ShardingRules:
         i, n = self.batch_split()
         return {k: shard_rows(v, i, n) for k, v in batch.items()}
 
-    def _sync_axes(self, spec) -> Tuple[str, ...]:
-        used = {a for axes in spec for a in _flat_axes(axes)}
+    def sync_axes(self, path: str) -> Tuple[str, ...]:
+        """The axes the gradient of the leaf at `path` is all-reduced over
+        after a microbatch: the batch axes its spec leaves replicated, and
+        `model` where the spec does not shard it while the model ranks'
+        gradients of it differ (under SP every such leaf; the router
+        always)."""
+        used = {a for axes in self._leaf_spec(path) for a in _flat_axes(axes)}
         rep = [a for a in self.batch_axes if a not in used]
-        if self.sequence_parallel and self.tp not in used:
+        partial = (self.sequence_parallel
+                   or path.rsplit("/", 1)[-1] in _PARTIAL_OVER_MODEL)
+        if partial and self.tp not in used:
             rep.append(self.tp)
         return tuple(a for a in self.mesh.axis_names if a in rep)
 
     def sync_grads(self, grads):
         """A microbatch's gradients, each all-reduced over the axes its
-        leaf is replicated on while its parts differ: the batch axes the
-        spec leaves replicated, and `model` for a leaf it does not shard
-        under SP (a norm's scale sees only its rank's positions). The FSDP
-        reduce-scatters ran in the backward."""
-        return tree_map(lambda g, spec: self.comm.all_reduce(
-            g, self._sync_axes(spec)), grads, self.param_specs())
+        leaf is replicated on while its parts differ (`sync_axes`): a
+        norm's scale under SP sees only its rank's positions, the router
+        only its rank's experts or columns. The FSDP reduce-scatters ran
+        in the backward."""
+        return _map_with_path(lambda path, g: self.comm.all_reduce(
+            g, self.sync_axes(path)), grads)
 
     def global_norm(self, grads):
         """The gradients' global norm over every rank, each element
@@ -550,6 +603,42 @@ class ShardingRules:
                 total = total + sum(torch.sum(torch.square(part.float()))
                                     for (part,) in _chunks(g))
         return torch.sqrt(self.comm.all_reduce(total, self.mesh.axis_names))
+
+
+class Scoped:
+    """Executing rules as one layer or sublayer sees them (`ShardingRules.
+    at`): its leaves named by their path under `prefix`; everything else
+    the rules'. `inner` keeps its products' partial sums and takes its
+    input as it comes: a part of a layer that shares the layer's `enter`
+    and `exit` (a MoE layer's shared experts)."""
+
+    def __init__(self, rules: ShardingRules, prefix: str,
+                 inner: bool = False):
+        self.rules, self.prefix, self.inner = rules, prefix, inner
+
+    def __getattr__(self, name):
+        return getattr(self.rules, name)
+
+    def _path(self, name: str) -> str:
+        return f"{self.prefix}/{name}"
+
+    def at(self, sub: str, inner: bool = False) -> "Scoped":
+        return Scoped(self.rules, self._path(sub), inner or self.inner)
+
+    def enter(self, x):
+        return x if self.inner else self.rules.enter(x)
+
+    def exit(self, y):
+        return y if self.inner else self.rules.exit(y)
+
+    def linear(self, x, w, name: str):
+        return self.rules.linear(x, w, self._path(name))
+
+    def whole(self, w, name: str):
+        return self.rules.whole(w, self._path(name))
+
+    def gather_dim(self, name: str) -> Tuple[int, Tuple[str, ...]]:
+        return self.rules._fsdp_dim(self._path(name))
 
 
 def _constrain(rules: ShardingRules, x, name: str, spec: PartitionSpec):
@@ -588,14 +677,21 @@ def _map_specs(fn, specs, path=()):
 
 
 # What executing the plan does not cover yet, each under its ROADMAP item
-MOE_ITEM = "MoE with expert parallelism (the constrain_moe all-to-alls)"
-RECURRENT_ITEM = "Mamba and xLSTM under tensor parallelism"
 MLA_ITEM = "MLA"
+XLSTM_ITEM = "xLSTM under tensor parallelism"
 MODAL_ITEM = "the encoder-decoder and image inputs"
 CHUNKED_ITEM = ("gemma3's chunked loss under vocab TP, with its tied "
-                "embeddings and sliding-window layers")
+                "embeddings")
 COMPRESSION_ITEM = "int8 gradient compression on shards"
-DENSE_ITEM = "layers other than GQA/MHA attention with a dense FFN"
+RAGGED_ITEM = "the ragged MoE dispatch over many ranks"
+MAMBA_SP_ITEM = ("Mamba under sequence parallelism (a scan split over "
+                 "ranks passes its state between them)")
+SOFTCAP_ITEM = "attention logit softcapping"
+# leaves each rank holds a block of along `model` and uses as its own part
+# of the layer (x_proj and dt_proj are gathered whole: `whole`)
+_TP_LEAVES = {"w_q", "w_k", "w_v", "w_o", "w_gate", "w_up", "w_down",
+              "table", "lm_head", "in_proj", "out_proj", "conv_w", "conv_b",
+              "D", "dt_bias", "A_log"}
 
 
 def _unsupported(cfg: ModelConfig, mesh, item: str) -> str:
@@ -605,23 +701,25 @@ def _unsupported(cfg: ModelConfig, mesh, item: str) -> str:
 
 def check_executable(rules: ShardingRules) -> None:
     """Raise `NotImplementedError`, naming its ROADMAP item, for a config
-    or step the executing rules do not run: anything but dense decoders of
-    GQA/MHA attention and SwiGLU FFNs on tokens under the chunked-loss
-    vocabulary; and `ValueError` for a step whose shapes the mesh does not
-    split evenly."""
+    or step the executing rules do not run: anything but decoders of
+    GQA/MHA or sliding-window attention and Mamba mixers (without SP),
+    SwiGLU or MoE FFNs (`dense` or `dropping` dispatch, shared experts) on
+    tokens under the chunked-loss vocabulary; and `ValueError` for a step
+    whose shapes the mesh does not split evenly."""
     from repro_torch.models.model import Model, padded_vocab
     cfg, mesh = rules.cfg, rules.mesh
     kinds = set(cfg.pattern) | set(cfg.ffn_pattern)
-    for hit, item in ((cfg.moe is not None or MOE in kinds, MOE_ITEM),
-                      (bool(kinds & {MAMBA, MLSTM, SLSTM}), RECURRENT_ITEM),
-                      (MLA in kinds, MLA_ITEM),
-                      (cfg.encoder_layers > 0 or cfg.input_mode != "tokens",
-                       MODAL_ITEM),
-                      (padded_vocab(cfg) >= Model.CHUNKED_LOSS_VOCAB
-                       or cfg.tie_embeddings or SWA in kinds, CHUNKED_ITEM),
-                      (kinds != {ATTN, DENSE} or cfg.first_k_dense
-                       or cfg.tie_embeddings or cfg.attn_logit_softcap,
-                       DENSE_ITEM)):
+    for hit, item in (
+            (MLA in kinds, MLA_ITEM),
+            (bool(kinds & {MLSTM, SLSTM}), XLSTM_ITEM),
+            (cfg.encoder_layers > 0 or cfg.input_mode != "tokens",
+             MODAL_ITEM),
+            (padded_vocab(cfg) >= Model.CHUNKED_LOSS_VOCAB
+             or cfg.tie_embeddings, CHUNKED_ITEM),
+            (cfg.moe is not None and cfg.moe.dispatch == "ragged",
+             RAGGED_ITEM),
+            (MAMBA in kinds and rules.sequence_parallel, MAMBA_SP_ITEM),
+            (bool(cfg.attn_logit_softcap), SOFTCAP_ITEM)):
         if hit:
             raise NotImplementedError(_unsupported(cfg, mesh, item))
     if rules.shape.kind != "train":
@@ -636,10 +734,13 @@ def check_executable(rules: ShardingRules) -> None:
         problems.append(f"sequence {s} over model={m}")
     if b % _axis_size(mesh, rules.batch_axes):
         problems.append(f"batch {b} over {rules.batch_axes}")
-    for name in ("w_q", "w_k", "w_v", "w_o", "w_gate", "w_up", "w_down",
-                 "table", "lm_head"):
-        if m > 1 and rules.tp not in _flat_axes(rules._leaf_spec(name)):
-            problems.append(f"{name} not split over model")
+    if m > 1:
+        def one(path, spec):
+            if path.rsplit("/", 1)[-1] in _TP_LEAVES and \
+                    rules.tp not in _flat_axes(spec):
+                problems.append(f"{path} not split over model")
+            return spec
+        _map_specs(one, rules.param_specs())
     if problems:
         raise ValueError(f"{cfg.name} on {mesh.shape}: "
                          + "; ".join(problems))

@@ -86,6 +86,7 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig,
             None if tp is None else tp.global_norm(grads))
         metrics = {"loss": loss, "xent": aux.get("xent", loss),
                    "moe_lb_loss": aux.get("moe_lb_loss", torch.zeros(())),
+                   "moe_z_loss": aux.get("moe_z_loss", torch.zeros(())),
                    **opt_metrics}
         return params, opt_state, metrics
 

@@ -50,14 +50,23 @@ CASES = {
                                     {"sequence_parallel": False}),
     "dots remat, fsdp and tp (2, 2)": ("phi3-medium-14b", (2, 2),
                                        ("data", "model"), {}),
+    "moe dropping, expert parallel, window (2, 2)": (
+        "mixtral-8x22b", (2, 2), ("data", "model"),
+        {"moe": {"dispatch": "dropping"}}),
+    "moe 3 experts dense, expert-internal TP (2, 2)": (
+        "mixtral-8x22b", (2, 2), ("data", "model"),
+        {"moe": {"num_experts": 3}}),
+    "moe shared expert, a dense first layer (1, 4)": (
+        "mixtral-8x22b", (1, 4), ("data", "model"),
+        {"moe": {"num_shared_experts": 1}, "first_k_dense": 1}),
+    "mamba and moe, no sequence parallel (2, 2)": (
+        "jamba-1.5-large-398b", (2, 2), ("data", "model"), {}),
 }
 CKPT_CASE = ("stablelm-1.6b", (2, 2), ("data", "model"))
 # every arch outside the slice, and the item its error names
 UNSUPPORTED = {
-    "xlstm-125m": "Mamba and xLSTM under tensor parallelism",
-    "jamba-1.5-large-398b": "MoE with expert parallelism",
-    "mixtral-8x22b": "MoE with expert parallelism",
-    "deepseek-v2-236b": "MoE with expert parallelism",
+    "xlstm-125m": "xLSTM under tensor parallelism",
+    "deepseek-v2-236b": "MLA",
     "gemma3-12b": "gemma3's chunked loss under vocab TP",
     "seamless-m4t-medium": "the encoder-decoder and image inputs",
     "internvl2-2b": "the encoder-decoder and image inputs",
@@ -65,8 +74,15 @@ UNSUPPORTED = {
 
 
 def _config(arch, over):
+    """The smoke config with `over`; its "moe" entry overrides fields of
+    the config's MoE."""
+    import dataclasses
     from repro_torch.launch.train import launch_config
-    return launch_config(arch, True).scaled(**over)
+    cfg = launch_config(arch, True)
+    over = dict(over)
+    if "moe" in over:
+        over["moe"] = dataclasses.replace(cfg.moe, **over["moe"])
+    return cfg.scaled(**over)
 
 
 def _init(cfg):

@@ -232,3 +232,94 @@ def test_paramset_publish_records_the_reference_specs():
         jax_core.shutdown()
     assert got == want
     assert any(s and "model" in s for s in got.values())
+
+
+# ----------------------------------------------------- the executing rules
+
+def _executing(arch, mesh_shape=(2, 2), smoke=True, **over):
+    """The executing rules of rank 0 of `mesh_shape` (a `PlanComm`: no
+    process group) for `arch`'s smoke (or full) config with `over`."""
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.parallel.collectives import PlanComm
+    cfg = (registry.get_smoke_config(arch) if smoke
+           else registry.get_config(arch)).scaled(**over)
+    mesh = Mesh(mesh_shape, ("data", "model"))
+    return sharding.make_rules(mesh, cfg, base.ShapeConfig(
+        "test", "train", 64, 4), comm=PlanComm(mesh))
+
+
+def test_leaf_specs_resolve_by_path_not_by_name():
+    """jamba's dense-FFN `w_gate` (2-D, column-parallel) and its MoE
+    `w_gate` (3-D, experts over `model`) share a name; each layer's product
+    gathers the block its own leaf's spec describes. Keyed by the last
+    name, the first leaf of a name would answer for both."""
+    rules = _executing("jamba-1.5-large-398b")
+    P = sharding.P
+    for path, spec, fsdp_dim in (
+            ("groups/0/ffn/w_gate", P("data", "model"), 0),
+            ("groups/1/ffn/w_gate", P("model", "data", None), 1),
+            ("groups/0/ffn/w_down", P("model", "data"), 1),
+            ("groups/1/ffn/w_down", P("model", None, "data"), 2),
+            ("groups/0/mixer/x_proj", P("data", "model"), 0),
+            ("groups/4/mixer/w_q", P("data", "model"), 0),
+            ("embed/table", P("model", "data"), 1)):
+        assert rules._leaf_spec(path) == spec, path
+        assert rules._fsdp_dim(path) == (fsdp_dim, ("data",)), path
+    scoped = rules.at("groups/1").at("ffn")
+    assert scoped.gather_dim("w_gate") == (1, ("data",))
+    assert scoped.at("shared", inner=True).inner
+    # the router's gradient is summed over `model` without SP too; a norm's
+    # scale then is not (each model rank holds the whole stream)
+    assert not rules.sequence_parallel
+    assert rules.sync_axes("groups/1/ffn/router") == ("data", "model")
+    assert rules.sync_axes("groups/1/pre_norm/scale") == ("data",)
+
+
+@pytest.mark.parametrize("arch, over", [
+    ("mixtral-8x22b", {}),
+    ("mixtral-8x22b", {"moe": base.MoEConfig(num_experts=3, top_k=2,
+                                             d_ff_expert=256)}),
+    ("jamba-1.5-large-398b", {})])
+def test_the_executing_rules_run_mixtral_and_jamba(arch, over):
+    rules = _executing(arch, **over)
+    assert rules.executing
+
+
+@pytest.mark.parametrize("arch, over, item", [
+    ("deepseek-v2-236b", {}, "MLA"),
+    ("xlstm-125m", {}, "xLSTM under tensor parallelism"),
+    ("gemma3-12b", {}, "gemma3's chunked loss"),
+    ("seamless-m4t-medium", {}, "the encoder-decoder and image inputs"),
+    ("internvl2-2b", {}, "the encoder-decoder and image inputs"),
+    ("mixtral-8x22b", {"moe": base.MoEConfig(num_experts=4, top_k=2,
+                                             d_ff_expert=256,
+                                             dispatch="ragged")},
+     "ragged MoE dispatch"),
+    ("jamba-1.5-large-398b", {"sequence_parallel": True},
+     "Mamba under sequence parallelism")])
+def test_the_executing_rules_name_what_they_do_not_run(arch, over, item):
+    with pytest.raises(NotImplementedError, match="ROADMAP A18") as err:
+        _executing(arch, **over)
+    assert item in str(err.value)
+
+
+def test_the_production_plans_of_mixtral_and_jamba_execute():
+    """mixtral's 8 experts on model = 16 take the expert-internal TP
+    fallback, jamba's 16 one expert a rank (expert parallel); the dry run
+    traces both train cells as rank 0 runs them, on either plan."""
+    from repro_torch.launch import dryrun
+    from repro_torch.parallel.collectives import PlanComm
+    P = sharding.P
+    want = {("mixtral-8x22b", "single"): P(None, "data", "model"),
+            ("mixtral-8x22b", "multi"): P(None, ("pod", "data"), "model"),
+            ("jamba-1.5-large-398b", "single"): P("model", "data", None),
+            ("jamba-1.5-large-398b", "multi"): P("model", ("pod", "data"),
+                                                 None)}
+    for (arch, kind), spec in want.items():
+        cfg = registry.get_config(arch)
+        mesh = MESHES[kind]
+        shape = next(s for s in base.shapes_for(cfg) if s.kind == "train")
+        assert dryrun.executes(sharding.make_rules(mesh, cfg, shape))
+        rules = sharding.make_rules(mesh, cfg, shape, comm=PlanComm(mesh))
+        moe_layer = cfg.ffn_pattern.index(base.MOE)
+        assert rules._leaf_spec(f"groups/{moe_layer}/ffn/w_gate") == spec
