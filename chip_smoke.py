@@ -922,12 +922,19 @@ def _launch_flash_shapes() -> list:
         cfg = _sharded_config(sc)
         (data, model), s = sc.mesh, sc.seq_len
         heads, hkv = _rank_heads(cfg, model)
+        dt, b = getattr(torch, cfg.param_dtype), sc.batch // data
         for kind in dict.fromkeys(cfg.pattern):
-            if kind in (SWA, "attn"):
-                out.append((f"{sc.arch} rank of {sc.mesh} (phase 10)",
-                            getattr(torch, cfg.param_dtype), sc.batch // data,
-                            heads, hkv, s, s, cfg.head_dim, cfg.head_dim,
-                            True, cfg.window_size if kind == SWA else 0))
+            label = f"{sc.arch} rank of {sc.mesh} (phase 10)"
+            if kind == MLA:
+                m = cfg.mla
+                out.append((f"{label} MLA", dt, b, heads, heads, s, s,
+                            m.nope_head_dim + m.rope_head_dim, m.v_head_dim,
+                            True, 0))
+            elif kind in (SWA, "attn"):
+                window = cfg.window_size if kind == SWA else 0
+                out.append((label + (f" window {window}" if window else ""),
+                            dt, b, heads, hkv, s, s, cfg.head_dim,
+                            cfg.head_dim, True, window))
     for what, cfg, b, s in runs:
         dt = getattr(torch, cfg.param_dtype)
         h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -1067,6 +1074,7 @@ MLSTM_CASES = [  # (label, B, H, S, hd, dtypes, with_state)
     *[(f"decode S=1 with state hd={hd}", 4, 4, 1, hd, (_F32, _BF16), True)
       for hd in (32, 64, 256, 384)],
     ("xlstm-125m launcher shape (phase 5c)", 2, 4, 128, 384, (_BF16,), False),
+    ("xlstm-125m rank of (2, 2) (phase 10)", 1, 2, 128, 384, (_BF16,), False),
 ]
 
 
@@ -2650,10 +2658,11 @@ def _remat_breakdown(cfg, params, batch: int, shards: int) -> None:
         f"{extra - shards * fwd_ms:.1f} ms")
 
 
-# Phases 5 and 7 train xlstm-125m cut from 12 layers to 6 at full width
-# for the run's time (the whole run passed 850 s once phase 10 held the MoE
-# and hybrid decoders): 3 mLSTM and 3 sLSTM layers.
-TRAIN_XLSTM_LAYERS = 6
+# Phases 5 and 7 train xlstm-125m cut from 12 layers to 2 at full width
+# for the run's time: to 6 once phase 10 held the MoE and hybrid decoders
+# (the whole run passed 850 s), to 2 (one sLSTM and one mLSTM layer) once
+# it held MLA, the xLSTM cells and the tied, chunked head.
+TRAIN_XLSTM_LAYERS = 2
 
 
 def train_full_model() -> int:
@@ -3368,20 +3377,42 @@ class ShardedCase(NamedTuple):
     batch: int
     seq_len: int
     smoke: bool = False
+    # the one-card step runs once the ranks have trained and freed the
+    # card, and takes their expert choices (`_route`'s top-k, every call in
+    # order), its own logged beside them
+    routes_from_ranks: bool = False
 
 
-# Widths are never cut. stablelm is cut from 24 layers to 6 for the phase's
+# Widths are never cut. stablelm is cut from 24 layers to 2 for the phase's
 # time: whole, its four gloo ranks on one H100 took 13.7-16.0 s a step,
-# and the phase 138.6 s (PERF.md, section 5). mixtral is cut from 56 layers
-# to 1, as phase 5b trains it on one card: over (1, 4) a rank holds 2 of
-# its 8 experts and 12 query heads over 2 KV heads; the `dropping`
-# dispatch, `"dots"` remat, bf16. Not (2, 2): gathering its 1.2 GB expert
-# blocks over `data` through gloo would take about 16 s a step. jamba runs
-# at its smoke config (a full-width group is 72 GB of training state): Mamba
-# on each rank's 128 of 256 channels, its residual stream without sequence
-# parallelism.
+# and the phase 138.6 s (PERF.md, section 5); 6 layers took 47.0-51.6 s
+# of the phase, to 2 for the three cases after jamba. mixtral is cut from
+# 56 layers to 1, as phase 5b trains it on one card: over (1, 4) a rank
+# holds 2 of its 8 experts and 12 query heads over 2 KV heads; the
+# `dropping` dispatch, `"dots"` remat, bf16. Not (2, 2): gathering its 1.2
+# GB expert blocks over `data` through gloo would take about 16 s a step.
+# jamba runs at its smoke config (a full-width group is 72 GB of training
+# state): Mamba on each rank's 128 of 256 channels, its residual stream
+# without sequence parallelism. deepseek-v2 is cut from 60 layers to 2, as
+# phase 5c trains it on one card (its dense first layer and one MoE
+# layer): a rank holds 32 of 128 MLA heads, 40 of 160 experts (`dropping`,
+# top-6) and the 2 shared experts' columns; its one-card step peaks at
+# 51.9 GB, so it runs after the ranks, and takes their expert choices:
+# its own differ in 69 of 12,288 top-k assignments (bf16 near ties in the
+# router's input, which tensor parallelism rounds otherwise), and at its
+# capacity factor of 1.0 each changed choice moves the capacity's cut
+# through the expert's queue, which put AdamW `m` up to 8.6% of a leaf's
+# largest entry apart (one H100, PERF.md, section 6). The ranks' own
+# choices must stay within ROUTES_APART_MAX of the one-card step's.
+# gemma3 is cut from
+# 48 layers to 6 (one group: 5 windowed at 1024, 1 global), as 5c trains
+# it: a rank holds 4 of 16 query heads over 2 of 8 KV heads at head_dim
+# 256 and 65,536 rows of the tied table, and the loss at 2048 positions is
+# the chunked one.
+# xlstm-125m is cut from 12 layers to 2 (one sLSTM, one mLSTM): a rank
+# holds 2 of 4 heads of each cell (mlstm_scan at 2 heads of 384).
 SHARDED_TRAIN = (
-    ShardedCase("stablelm-1.6b cut to 6 layers", "stablelm-1.6b", 6, (2, 2),
+    ShardedCase("stablelm-1.6b cut to 2 layers", "stablelm-1.6b", 2, (2, 2),
                 2, 2048),
     ShardedCase("phi3-medium-14b cut to 2 layers, KV heads expanded",
                 "phi3-medium-14b", 2, (1, 4), 1, 2048),
@@ -3389,9 +3420,21 @@ SHARDED_TRAIN = (
                 "mixtral-8x22b", 1, (1, 4), 2, 2048),
     ShardedCase("jamba smoke fp32, Mamba and experts over model",
                 "jamba-1.5-large-398b", None, (2, 2), 2, 64, smoke=True),
+    ShardedCase("deepseek-v2 cut to 2 layers, MLA heads and experts over "
+                "model", "deepseek-v2-236b", 2, (1, 4), 1, 2048,
+                routes_from_ranks=True),
+    ShardedCase("gemma3-12b cut to 6 layers, the tied table's chunked loss",
+                "gemma3-12b", 6, (1, 4), 1, 2048),
+    ShardedCase("xlstm-125m cut to 2 layers, sLSTM and mLSTM heads over "
+                "model", "xlstm-125m", 2, (2, 2), 2, 128),
 )
 # 1 warm-up step, then the timed ones, on both sides
 SHARDED_STEPS = 3
+# where the one-card step takes the ranks' expert choices, the share of
+# the first forward's top-k assignments of a rank's rows that may differ
+# from the one-card step's own: deepseek-v2's read 69 of 12,288 (0.56%)
+# on every rank in every run on one H100 (PERF.md, section 6)
+ROUTES_APART_MAX = 0.015
 # The sharded step against the one-card step, by the config's dtype. bf16:
 # the loss to 1e-3 of its value, each updated leaf to 1e-3 of its largest
 # entry (sums over ranks and a rank's columns round in another order).
@@ -3409,10 +3452,18 @@ SHARDED_STEPS = 3
 # rows summed apart differ by about 5% of its largest entry
 # (`_embed_grad_rounding` measures it each run). A gradient that misses
 # its sync, or a norm summed on one rank only, is off by 55% or more
-# (PERF.md, section 6, the planted faults). fp32 (jamba smoke): no gate
-# looser than bf16's; the CPU holds the same step to JAX's at 1e-5 (loss,
-# norm) and 1e-4 (leaves, moments), and the card's products and the
-# scan's sums run in other orders than the one-card step's.
+# (PERF.md, section 6, the planted faults). A bf16 leaf block that starts
+# at 0 everywhere (xlstm-125m's conv biases) has no forward to hold: after
+# the steps it is AdamW's updates alone, lr x m / sqrt(v) an entry, so it
+# carries m's error magnified by the leaf's largest m over the entry's own:
+# on one H100 its entries were 0.053-0.298 of the leaf's largest apart
+# (40-4,186 bf16 steps of the entry) where the one-card m is at least 1% of
+# the leaf's largest, 0.026-0.096 at 10%, 0.013-0.026 at 50% (PERF.md,
+# section 6). Such a block is held through m, at the m gate, its own
+# reading logged. fp32 (jamba smoke): every leaf held, its conv biases
+# too; no gate looser than bf16's; the CPU holds the same step to JAX's at
+# 1e-5 (loss, norm) and 1e-4 (leaves, moments), and the card's products
+# and the scan's sums run in other orders than the one-card step's.
 SHARDED_GATES = {
     torch.bfloat16: {"loss": 1e-3, "leaf": 1e-3, "norm": 2e-2, "m": 5e-2,
                      "m_table": 0.25},
@@ -3421,6 +3472,9 @@ SHARDED_GATES = {
 }
 # the leaf whose gradient the lookup accumulates in bf16
 EMBED_TABLE = "embed/table"
+# a bf16 leaf block that starts at 0, logged where the one-card step's m
+# is at least these shares of the leaf's largest m
+ZERO_M_SHARES = (0.01, 0.1, 0.5)
 SHARDED_TIMEOUT_S = 300
 SHARDED_DIR = ROOT / "build" / "chip_smoke_sharded"
 
@@ -3442,16 +3496,24 @@ def _rank_heads(cfg, model: int) -> tuple:
                    else cfg.num_kv_heads // model)
 
 
-def _recording_routes(moe_mod) -> list:
+def _recording_routes(moe_mod, replay=None) -> list:
     """Wraps `moe._route` to keep the experts (T, k) each MoE layer of a
     step chose, on the host; returns the list it fills (the first
-    forward's layers come first)."""
+    forward's layers come first). With `replay` (a list of (T, k) experts,
+    one a call in order) each call then takes those experts instead, their
+    gates its own probabilities at them, renormalized as `_route` does."""
     real, seen = moe_mod._route, []
 
     def route(params, mc, x2d):
         out = real(params, mc, x2d)
         seen.append(out[3].detach().cpu())
-        return out
+        if replay is None:
+            return out
+        logits, probs, _, _ = out
+        top_i = replay[len(seen) - 1].to(probs.device)
+        top_p = probs.gather(-1, top_i)
+        return (logits, probs, top_p / torch.clamp_min(
+            top_p.sum(-1, keepdim=True), 1e-9), top_i)
     moe_mod._route = route
     return seen
 
@@ -3460,37 +3522,47 @@ def _sharded_rank(rank: int, world: int, backend: str, case: int,
                   mesh_shape: tuple, work: str) -> None:
     """One rank of phase 10: the launcher's loop (`launch.train.train`) on
     the case's mesh over `backend` from the seeded weights, its blocks
-    held to the one-card step's (`ref.pt`), its flash and ssm_scan calls,
-    the experts its first forward routed each token to, bytes, memory and
-    step ms written to `rank<r>.json`. Ranks over gloo share the cards
-    (host memory carries their collectives); over nccl each has its
-    own."""
+    held to the one-card step's (`ref.pt`), its flash, ssm_scan and
+    mlstm_scan calls, the experts its first forward routed each token to,
+    bytes, memory and step ms written to `rank<r>.json`. Ranks over gloo
+    share the cards (host memory carries their collectives); over nccl each
+    has its own. A rank trains once the one-card step has freed the card
+    (`go`) and compares once its state is written (`ref_done`); where the
+    one-card step runs after the ranks (`routes_from_ranks`), a rank trains
+    at once, moves its blocks to the host, frees the card and says so
+    (`trained<r>`) before it waits for `ref_done`."""
     import torch.distributed as dist
     from datetime import timedelta
     from repro_torch.bridge import init_params
     from repro_torch.launch.mesh import Mesh
     from repro_torch.launch.train import train
-    from repro_torch.models import attention, moe, ssm
+    from repro_torch.models import attention, moe, ssm, xlstm
     from repro_torch.parallel.collectives import Comm
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.parallel.sharding import _block, leaf_specs, make_rules
+    from repro_torch.tree import tree_map
     sc = SHARDED_TRAIN[case]
     work = Path(work)
     torch.cuda.set_device(rank % torch.cuda.device_count())
     dist.init_process_group(backend, init_method=f"file://{work}/rdv",
                             rank=rank, world_size=world,
                             timeout=timedelta(seconds=SHARDED_TIMEOUT_S))
-    # started beside the one-card step: train once it has finished
-    deadline = time.monotonic() + SHARDED_TIMEOUT_S
-    while not (work / "go").exists():
-        if time.monotonic() > deadline:
-            raise TimeoutError("the one-card step did not finish")
-        time.sleep(0.05)
+
+    def wait_for(name: str, what: str) -> None:
+        deadline = time.monotonic() + SHARDED_TIMEOUT_S
+        while not (work / name).exists():
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"the one-card step did not {what}")
+            time.sleep(0.05)
+    if not sc.routes_from_ranks:
+        # started beside the one-card step: train once it has finished
+        wait_for("go", "finish")
     cfg = _sharded_config(sc)
     mesh = Mesh(mesh_shape, ("data", "model"))
     comm = Comm(mesh)
     wrapper, seen = attention.flash_attention, []
     scan, scan_seen = ssm.ssm_scan, []
+    mlstm, mlstm_seen = xlstm.mlstm_scan, []
 
     def flash(q, k, v, **kw):      # the heads of each call, then the kernel
         seen.append((q.shape[1], k.shape[1], kw.get("window", 0)))
@@ -3499,9 +3571,14 @@ def _sharded_rank(rank: int, world: int, backend: str, case: int,
     def ssm_scan(x, *args):        # the channels of each call
         scan_seen.append(tuple(x.shape))
         return scan(x, *args)
+
+    def mlstm_scan(q, *args, **kw):    # (B, H, S, hd) of each call
+        mlstm_seen.append(tuple(q.shape))
+        return mlstm(q, *args, **kw)
     attention.flash_attention, ssm.ssm_scan = flash, ssm_scan
+    xlstm.mlstm_scan = mlstm_scan
     routes = _recording_routes(moe)
-    wrapper.launches = scan.launches = 0
+    wrapper.launches = scan.launches = mlstm.launches = 0
     ends, per_step, held, norms = [], [], {}, []
 
     def on_step(step, metrics):
@@ -3510,6 +3587,13 @@ def _sharded_rank(rank: int, world: int, backend: str, case: int,
         norms.append(metrics["grad_norm"])
         per_step.append(comm.stats.snapshot())
         comm.stats.reset()
+    # the blocks that start at 0 everywhere (SHARDED_GATES)
+    zero = set()
+
+    def on_state(p, o):
+        held.update(params=p, m=o["m"])
+        zero.update(path for path, t in zip(_paths(p), _tree_leaves(p))
+                    if not bool(t.any()))
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     losses = train(cfg, steps=SHARDED_STEPS, batch=sc.batch,
@@ -3518,25 +3602,48 @@ def _sharded_rank(rank: int, world: int, backend: str, case: int,
                        device="cuda").manual_seed(SEED + 40 + case)),
                    mesh=mesh, comm=comm, log_every=SHARDED_STEPS,
                    on_step=on_step,
-                   on_state=lambda p, o: held.update(params=p, m=o["m"]))
+                   on_state=on_state)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
+    if sc.routes_from_ranks and comm.coords["model"] == 0:
+        # every call's experts of this data block, for the one-card step
+        torch.save(routes, work / f"calls{comm.coords['data']}.pt")
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = [a.elapsed_time(b) for a, b in zip(ends, ends[1:])]
+    if sc.routes_from_ranks:
+        held = tree_map(lambda t: t.cpu(), held)
+        norms = [float(n) for n in norms]
+        ends.clear()
+        release_memory()
+        (work / f"trained{rank}").touch()
+    wait_for("ref_done", "write its state")
     # this rank's block of each updated leaf and of AdamW's first moment
     # against the one-card step's
     ref = torch.load(work / "ref.pt", mmap=True, weights_only=True)
     scales = json.loads((work / "ref_max.json").read_text())
     rules = make_rules(mesh, cfg, ShapeConfig("10", "train", sc.seq_len,
                                               sc.batch), comm)
-    worst = {"params": (0.0, ""), "m": (0.0, ""), "m_table": (0.0, "")}
+    worst = {"params": (0.0, ""), "m": (0.0, ""), "m_table": (0.0, ""),
+             "params_from_zero": (0.0, "")}
+    bf16, zero_m = cfg.param_dtype == "bfloat16", {}
     for part in ("params", "m"):
         paths = _paths(held[part])
         for (block, spec), path, whole in zip(
                 leaf_specs(held[part], rules.param_specs()), paths,
                 _ref_leaves(ref[part], paths)):
-            want = whole[_block(spec, comm.coords, mesh, whole.shape)]
-            err = float((block.float() - want.to(block.device).float())
-                        .abs().max()) / (scales[part][path] or 1.0)
+            idx = _block(spec, comm.coords, mesh, whole.shape)
+            diff = (block.cuda().float() - whole[idx].cuda().float()).abs()
+            scale = scales[part][path] or 1.0
+            err = float(diff.max()) / scale
             key = "m_table" if part == "m" and path == EMBED_TABLE else part
+            if part == "params" and path in zero and bf16:
+                key = "params_from_zero"        # held through m
+                share = next(_ref_leaves(ref["m"], [path]))[idx].cuda() \
+                    .float().abs() / (scales["m"][path] or 1.0)
+                zero_m[path] = [float(torch.where(share >= s, diff, 0).max())
+                                / scale for s in ZERO_M_SHARES]
+            elif part == "m" and path in zero and bf16:
+                zero_m[path].append(err)
             worst[key] = max(worst[key], (err, path))
     # the experts the first forward's MoE layers chose for this rank's rows
     rows, n_rows = rules.batch_split()
@@ -3545,19 +3652,21 @@ def _sharded_rank(rank: int, world: int, backend: str, case: int,
         torch.save([r.reshape(sc.batch // n_rows, sc.seq_len, -1)
                     for r in routes[:moe_layers]],
                    work / f"routes{rank}.pt")
-    step_ms = [a.elapsed_time(b) for a, b in zip(ends, ends[1:])]
     (work / f"rank{rank}.json").write_text(json.dumps({
         "rank": rank, "card": torch.cuda.current_device(),
         "backend": dist.get_backend(), "losses": losses,
         "grad_norms": [float(n) for n in norms],
         "worst_leaf": worst["params"], "worst_m": worst["m"],
         "worst_m_table": worst["m_table"],
+        "worst_leaf_from_zero": worst["params_from_zero"],
         "flash_launches": wrapper.launches,
         "flash_heads": sorted(set(seen)), "flash_calls": len(seen),
         "ssm_launches": scan.launches, "ssm_calls": len(scan_seen),
-        "ssm_shapes": sorted(set(scan_seen)), "batch_block": rows,
+        "ssm_shapes": sorted(set(scan_seen)),
+        "mlstm_launches": mlstm.launches, "mlstm_calls": len(mlstm_seen),
+        "mlstm_shapes": sorted(set(mlstm_seen)), "batch_block": rows,
         "bytes": per_step, "step_ms": step_ms, "wall_s": wall_s,
-        "max_memory_allocated": torch.cuda.max_memory_allocated()}))
+        "zero_m": zero_m, "max_memory_allocated": peak}))
     dist.destroy_process_group()
 
 
@@ -3585,14 +3694,16 @@ def _sharded_reference(case: int, work: Path) -> dict:
     rules) from the same seeded weights and batches: its losses, gradient
     norms, step ms and launches; the experts its first forward routed each
     token to (`routes.pt`); its updated params and AdamW first moment
-    saved to `ref.pt` for the ranks (with each leaf's largest entry), then
-    freed."""
+    moved to the host, the card freed for the ranks (`go`), then saved to
+    `ref.pt` for them (`ref_done`; each leaf's largest entry in
+    `ref_max.json`)."""
     from repro_torch.launch.train import train
     from repro_torch.models import moe
     from repro_torch.tree import tree_map
     sc = SHARDED_TRAIN[case]
     cfg = _sharded_config(sc)
     torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
     params, n_params = _init_full(cfg, SEED + 40 + case)
     ends, norms, held = [], [], {}
 
@@ -3601,7 +3712,12 @@ def _sharded_reference(case: int, work: Path) -> dict:
         ends[-1].record()
         norms.append(metrics["grad_norm"])
     real_route = moe._route
-    routes = _recording_routes(moe)
+    replay = None
+    if sc.routes_from_ranks:
+        blocks = [torch.load(work / f"calls{d}.pt")
+                  for d in range(sc.mesh[0])]
+        replay = [torch.cat(calls) for calls in zip(*blocks)]
+    routes = _recording_routes(moe, replay)
     reset_launch_counts()
     try:
         losses = train(cfg, steps=SHARDED_STEPS, batch=sc.batch,
@@ -3610,29 +3726,43 @@ def _sharded_reference(case: int, work: Path) -> dict:
                        on_state=lambda p, o: held.update(m=o["m"]))
     finally:
         moe._route = real_route
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
     launches = launch_counts()
     want = {k: n * SHARDED_STEPS for k, n in _train_launches(cfg).items()}
     if launches != want:
         raise AssertionError(f"{sc.label} on one card: launches {launches}, "
                              f"want {want}")
+    if replay is not None and len(routes) != len(replay):
+        raise AssertionError(f"{sc.label} on one card: {len(routes)} "
+                             f"routings, the ranks' {len(replay)}")
     step_ms = [a.elapsed_time(b) for a, b in zip(ends, ends[1:])]
     moe_layers = cfg.num_groups * cfg.ffn_pattern.count("moe")
     torch.save([r.reshape(sc.batch, sc.seq_len, -1)
                 for r in routes[:moe_layers]], work / "routes.pt")
     both = {"params": params, "m": held.pop("m")}
-    torch.save(tree_map(lambda t: t.cpu(), both), work / "ref.pt")
     (work / "ref_max.json").write_text(json.dumps({
         part: {path: float(t.float().abs().max())
                for path, t in zip(_paths(tree), _tree_leaves(tree))}
         for part, tree in both.items()}))
-    (work / "go").touch()
+    host = tree_map(lambda t: t.cpu(), both)
     out = {"losses": losses, "grad_norms": [float(n) for n in norms],
            "step_ms": step_ms, "params": n_params,
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
            "flash_launches": launches["flash_attention"],
-           "ssm_launches": launches["ssm_scan"]}
+           "ssm_launches": launches["ssm_scan"],
+           "mlstm_launches": launches["mlstm_scan"]}
     del params, both
     release_memory()
+    # the card is the ranks': they train while ref.pt is written
+    (work / "go").touch()
+    t2 = time.perf_counter()
+    torch.save(host, work / "ref.pt")
+    (work / "ref_done").touch()
+    log(f"[sharded] {sc.label}, the one-card step: init and "
+        f"{SHARDED_STEPS} steps {t1 - t0:.1f} s, its state to the host "
+        f"{t2 - t1:.1f} s, to ref.pt {time.perf_counter() - t2:.1f} s"
+        + ("; it took the ranks' expert choices" if replay else ""))
     return out
 
 
@@ -3702,9 +3832,10 @@ def _embed_grad_rounding(cfg, ranks: int, batch: int, seq_len: int) -> dict:
 def _start_ranks(case: int, mesh_shape: tuple, backend: str,
                  work: Path) -> list:
     """Starts the case's ranks (spawn), each on card `rank % count`; they
-    train once `work/go` exists."""
+    train once `work/go` exists, or at once where the case's one-card step
+    runs after them (`routes_from_ranks`)."""
     import torch.multiprocessing as tmp
-    for pattern in ("rank*.json", "routes*.pt"):
+    for pattern in ("rank*.json", "routes*.pt", "trained*"):
         for f in work.glob(pattern):
             f.unlink()
     (work / "rdv").unlink(missing_ok=True)
@@ -3716,6 +3847,21 @@ def _start_ranks(case: int, mesh_shape: tuple, backend: str,
     for p in procs:
         p.start()
     return procs
+
+
+def _wait_trained(case: int, procs: list, work: Path) -> None:
+    """Until every rank has trained and freed the card (`trained<r>`); a
+    rank that fails, or the timeout, fails the phase."""
+    deadline = time.monotonic() + SHARDED_TIMEOUT_S
+    while not all((work / f"trained{r}").exists()
+                  for r in range(len(procs))):
+        bad = [(r, p.exitcode) for r, p in enumerate(procs)
+               if p.exitcode is not None]
+        if bad or time.monotonic() > deadline:
+            raise AssertionError(f"phase 10 {SHARDED_TRAIN[case].label}: "
+                                 f"ranks (rank, exit code) {bad} before "
+                                 "all had trained")
+        time.sleep(0.1)
 
 
 def _stop(procs: list) -> None:
@@ -3770,12 +3916,18 @@ def _check_sharded(case: int, ref: dict, ranks: list, mesh_shape: tuple,
                              mesh)["collective_by_kind"]
     launches = {k: n * SHARDED_STEPS for k, n in _train_launches(cfg).items()}
     calls, scans = launches["flash_attention"], launches["ssm_scan"]
+    mlstms = launches["mlstm_scan"]
     heads = _rank_heads(cfg, mesh.shape["model"])
     windows = sorted({cfg.window_size if k == "swa" else 0
-                      for k in cfg.pattern if k in ("attn", "swa")})
+                      for k in cfg.pattern if k in ("attn", "swa", "mla")})
     want_heads = [[*heads, w] for w in windows]
     channels = (cfg.mamba.expand * cfg.d_model // mesh.shape["model"]
                 if cfg.mamba else 0)
+    # mlstm_scan on the rank's rows and heads: (B, H, S, hd)
+    mlstm_shape = ([[sc.batch // mesh.shape["data"],
+                     cfg.num_heads // mesh.shape["model"], sc.seq_len,
+                     int(cfg.xlstm.proj_factor_mlstm * cfg.d_model)
+                     // cfg.num_heads]] if mlstms else [])
     cards = sorted({r["card"] for r in ranks})
     failed = []
     routes = _routes_apart(work, ranks)
@@ -3809,6 +3961,12 @@ def _check_sharded(case: int, ref: dict, ranks: list, mesh_shape: tuple,
             failed.append(f"{what}: ssm_scan launched {r['ssm_launches']} "
                           f"times on {r['ssm_shapes']}, want {scans} on "
                           f"{channels} channels")
+        if r["mlstm_launches"] != mlstms or r["mlstm_calls"] != mlstms or \
+                r["mlstm_shapes"] != mlstm_shape:
+            failed.append(f"{what}: mlstm_scan launched "
+                          f"{r['mlstm_launches']} times on (B, H, S, hd) "
+                          f"{r['mlstm_shapes']}, want {mlstms} on "
+                          f"{mlstm_shape}")
         for step in r["bytes"]:
             if step.keys() != plan.keys() or any(
                     not math.isclose(step[k], v, rel_tol=1e-9)
@@ -3822,10 +3980,20 @@ def _check_sharded(case: int, ref: dict, ranks: list, mesh_shape: tuple,
         f"{max(r['worst_m'] for r in ranks)}, the embedding table's "
         f"{max(r['worst_m_table'] for r in ranks)} of its largest entry "
         f"(gates {gates})")
+    zero = max(r["worst_leaf_from_zero"] for r in ranks)
+    if zero[1]:
+        log(f"[sharded] {sc.label}: bf16 leaf blocks that start at 0, "
+            f"held through m: worst {zero}; each rank's, where the one-card "
+            f"m is at least {ZERO_M_SHARES} of the leaf's largest, then "
+            f"their m: {[r['zero_m'] for r in ranks]}")
     if routes:
         log(f"[sharded] {sc.label}: top-k assignments of the first forward "
             f"that differ from the one-card step's, each rank over its rows "
             f"(experts the one card chose and the rank did not): {routes}")
+        if sc.routes_from_ranks and any(v["differ"] > ROUTES_APART_MAX
+                                    * v["of"] for v in routes.values()):
+            failed.append(f"phase 10 {sc.label}: top-k assignments apart "
+                          f"{routes} past {ROUTES_APART_MAX} of them")
     log(f"[sharded] {sc.label}: {backend}, {world} ranks on {len(cards)} of "
         f"{torch.cuda.device_count()} card(s) ({world // len(cards)} a "
         f"card), mesh {mesh.shape}, global batch {sc.batch} x {sc.seq_len}, "
@@ -3834,7 +4002,9 @@ def _check_sharded(case: int, ref: dict, ranks: list, mesh_shape: tuple,
         f"of its largest entry; flash {calls} launches a rank on (q, k "
         f"heads, window) {want_heads} ({ref['flash_launches']} on one "
         f"card); ssm_scan {scans} a rank on {channels} channels "
-        f"({ref['ssm_launches']} on one card)")
+        f"({ref['ssm_launches']} on one card); mlstm_scan {mlstms} a rank "
+        f"on (B, H, S, hd) {mlstm_shape} ({ref['mlstm_launches']} on one "
+        f"card)")
     for r in ranks:
         log(f"[sharded]   rank {r['rank']} card {r['card']}: "
             f"max_memory_allocated {r['max_memory_allocated']} bytes; step "
@@ -3861,6 +4031,8 @@ def _check_sharded(case: int, ref: dict, ranks: list, mesh_shape: tuple,
             "one_card_flash_launches": ref["flash_launches"],
             "ssm_launches": sum(r["ssm_launches"] for r in ranks),
             "one_card_ssm_launches": ref["ssm_launches"],
+            "mlstm_launches": sum(r["mlstm_launches"] for r in ranks),
+            "one_card_mlstm_launches": ref["mlstm_launches"],
             "routes_apart": routes,
             "bytes_by_kind": ranks[0]["bytes"][-1], "dry_run_bytes": plan,
             "step_ms": {r["rank"]: r["step_ms"] for r in ranks},
@@ -3882,6 +4054,8 @@ def sharded_phase() -> dict:
         t0 = time.perf_counter()
         procs = _start_ranks(case, sc.mesh, "gloo", work)
         try:
+            if sc.routes_from_ranks:
+                _wait_trained(case, procs, work)
             ref = _sharded_reference(case, work)
         except BaseException:
             _stop(procs)
@@ -4951,7 +5125,8 @@ def main() -> int:
     release_memory()
     sharded = timed("sharded", sharded_phase)
     for label, r in sharded.items():
-        for entry, key in ((flash, "flash_launches"), (ssm, "ssm_launches")):
+        for entry, key in ((flash, "flash_launches"), (ssm, "ssm_launches"),
+                           (mlstm, "mlstm_launches")):
             if r[key]:
                 entry["launches_by_path"][
                     f"sharded train {label}, {r['backend']} {r['ranks']} "
@@ -4959,8 +5134,8 @@ def main() -> int:
                 entry["launches_by_path"][
                     f"one-card step of {label} (phase 10)"] = \
                     r[f"one_card_{key}"]
-    flash["launches"] = sum(flash["launches_by_path"].values())
-    ssm["launches"] = sum(ssm["launches_by_path"].values())
+    for entry in (flash, ssm, mlstm):
+        entry["launches"] = sum(entry["launches_by_path"].values())
 
     print(json.dumps({"kernels": [flash, mlstm, ssm, int8]}), flush=True)
     print(json.dumps({"ok": True, "device": {

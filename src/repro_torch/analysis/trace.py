@@ -65,6 +65,19 @@ recomputation's included, and counts:
                    (`sharding.WHOLE`) gathered whole at a forward use,
                    their gradients reduce-scattered back in
                    `gradient_sync` in place of the FSDP reduce-scatter;
+                 - an xLSTM cell and an MLA layer as the executed ones run
+                   on a rank's heads (`models.xlstm`,
+                   `models.attention`): at "mlstm_xz", "mlstm_conv",
+                   "slstm_pre", "slstm_y", "slstm_up" and "mla_latent"
+                   (and "mlstm_qkv", "slstm_conv" where the model axis
+                   cuts the cell's heads) a tensor all-gathered over
+                   `model` from column blocks (its gradient
+                   reduce-scattered back), `w_if` gathered
+                   whole (`sharding.WHOLE`); a train step's tied table is
+                   gathered at its lookup only (the head reads that
+                   copy); the chunked loss's "vocab_max" (forward) and
+                   "vocab_sum" (and its gradient) all-reduce a chunk's
+                   row statistics over `model`;
                  - a constraint's tensor that takes a gradient records,
                    when its backward runs, the collectives that carry the
                    gradient back: all-gather for reduce-scatter and the
@@ -75,7 +88,8 @@ recomputation's included, and counts:
                    the batch axes a leaf is replicated on (and over
                    `model` for a leaf `model` does not shard when the
                    residual stream splits its sequence there, and for
-                   the router whatever the layout), the loss's
+                   `sharding.partial_over_model`'s leaves whatever the
+                   layout), the loss's
                    all-reduce a microbatch and the gradient norm's a step.
                  These are the plan's model, estimates of the collectives
                  XLA would plan (its own resharding is not seen). A step
@@ -125,6 +139,19 @@ _LOOKUPS = {aten.index.Tensor}           # `table[tokens]`
 _GATHERED_MM = "repro_torch::gathered_mm"
 
 _STACK: List["Trace"] = []
+# constraint points whose tensor the executed step all-gathers over `model`
+# from each rank's block of its last dimension (the backward
+# reduce-scatters), and those it all-reduces there, by name -> label
+_GATHERED = {"kv": "kv heads", "mamba_xz": "mamba x, z",
+             "mlstm_xz": "mlstm x_m, z", "mlstm_conv": "mlstm conv",
+             "slstm_pre": "slstm gates", "slstm_y": "slstm heads",
+             "slstm_up": "slstm g, u", "mla_latent": "mla latent"}
+_SUMMED = {"mamba_xdb": "mamba x_proj", "vocab_max": "vocab row max",
+           "vocab_sum": "vocab sum of exponentials"}
+# gathered as `_GATHERED`'s only where the model axis cuts the cell's
+# heads (a multiple of them: `models.xlstm._RankHeads`), by the heads
+_CUT_HEADS = {"mlstm_qkv": lambda cfg: cfg.num_heads,
+              "slstm_conv": lambda cfg: cfg.xlstm.num_heads_slstm}
 
 
 def active() -> Optional["Trace"]:
@@ -476,6 +503,10 @@ class Trace(TorchDispatchMode):
         axes, n_fsdp, n_all = self._split(spec)
         if n_fsdp <= 1:
             return
+        if name == "table" and func not in _LOOKUPS \
+                and self.rules.cfg.tie_embeddings \
+                and self.rules.shape.kind == "train":
+            return      # a tied head reads the rows the lookup gathered
         if self.rules.shape.kind == "decode":
             # a decode step's products keep their weights where they are
             # (its activations, one token a sequence, are what moves); the
@@ -524,16 +555,16 @@ class Trace(TorchDispatchMode):
                 fwd = bwd = [("all-reduce", tp, full, full, "residual")]
         elif name == "logits" and rules.shape.kind != "decode":
             fwd = bwd = [("all-to-all", tp, per_dev, per_dev, "logits")]
-        elif name == "kv":
+        elif name in _GATHERED or (name in _CUT_HEADS and rules.tp_size
+                                   > _CUT_HEADS[name](rules.cfg)):
             n = _axis_size(rules.mesh, tp)
-            fwd = [("all-gather", tp, full / n, full, "kv heads")]
-            bwd = [("reduce-scatter", tp, full, full / n, "kv heads")]
-        elif name == "mamba_xz":
-            n = _axis_size(rules.mesh, tp)
-            fwd = [("all-gather", tp, full / n, full, "mamba x, z")]
-            bwd = [("reduce-scatter", tp, full, full / n, "mamba x, z")]
-        elif name == "mamba_xdb":
-            fwd = bwd = [("all-reduce", tp, full, full, "mamba x_proj")]
+            label = _GATHERED.get(name, name)
+            fwd = [("all-gather", tp, full / n, full, label)]
+            bwd = [("reduce-scatter", tp, full, full / n, label)]
+        elif name in _SUMMED:
+            fwd = [("all-reduce", tp, full, full, _SUMMED[name])]
+            if name != "vocab_max":     # a stabilizer: no gradient
+                bwd = fwd
         for rec in fwd:
             self._collective(*rec)
         if bwd and x.requires_grad and torch.is_grad_enabled():
@@ -550,10 +581,10 @@ class Trace(TorchDispatchMode):
         replicated."""
         if self.rules is None:
             return
-        from repro_torch.parallel.sharding import (_PARTIAL_OVER_MODEL,
-                                                   WHOLE, _axis_size,
+        from repro_torch.parallel.sharding import (WHOLE, _axis_size,
                                                    _flat_axes,
                                                    _map_with_path,
+                                                   partial_over_model,
                                                    tree_leaves_specs)
         from repro_torch.tree import tree_leaves
         rules = self.rules
@@ -561,9 +592,9 @@ class Trace(TorchDispatchMode):
             "btd", (rules.shape.global_batch, rules.shape.seq_len,
                     rules.cfg.d_model))[1])
         specs = tree_leaves_specs(rules.param_shardings(params))
-        names = tree_leaves(_map_with_path(
-            lambda path, _: path.rsplit("/", 1)[-1], params))
-        for t, spec, name in zip(tree_leaves(params), specs, names):
+        paths = tree_leaves(_map_with_path(lambda path, _: path, params))
+        for t, spec, path in zip(tree_leaves(params), specs, paths):
+            name = path.rsplit("/", 1)[-1]
             axes, n_fsdp, n_all = self._split(spec)
             local = _nbytes(t) * n_fsdp / n_all
             if name in WHOLE:
@@ -577,7 +608,7 @@ class Trace(TorchDispatchMode):
                                  local / n_fsdp, "grad", times)
             used = {a for a_ in spec for a in _flat_axes(a_)}
             rep = [a for a in rules.batch_axes if a not in used]
-            if (sp or name in _PARTIAL_OVER_MODEL) and rules.tp not in used:
+            if (sp or partial_over_model(path)) and rules.tp not in used:
                 rep.append(rules.tp)
             rep = tuple(a for a in rules.mesh.axis_names if a in rep)
             if _axis_size(rules.mesh, rep) > 1:

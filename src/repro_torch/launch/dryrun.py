@@ -36,8 +36,8 @@ What a record holds, per device of the plan:
     layer's aux sums, the gradients' reduce-scatter and all-reduce, the
     loss's and the norm's sums), with the ring model's bytes. A train step
     that `launch.train` executes over a process group (`executes`: the
-    configs `sharding.check_executable` passes: the dense decoders,
-    mixtral and jamba) is traced as rank 0 runs it instead, on its blocks and
+    configs `sharding.check_executable` passes: all but seamless and
+    internvl2) is traced as rank 0 runs it instead, on its blocks and
     rows, with its own collectives (`collectives.PlanComm`;
     `collectives_from` says which): its FLOPs, bytes and peak are then a
     device's own (`divisor` 1). `collective_bytes_dcn` the groups over

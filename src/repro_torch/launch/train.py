@@ -21,9 +21,10 @@ over `parallel.collectives.Comm`): one rank a card over `nccl` at
 `multi` are the production plans and run when the world has their 256 or
 512 ranks (`repro_torch.launch.dryrun` traces a step under either plan
 without devices). Over more than one rank the dense decoders, mixtral
-(MoE, sliding window) and jamba (Mamba, MoE, no sequence parallelism) run
-(`sharding.check_executable`); every other arch raises naming its ROADMAP
-item. The config's `remat_policy` and `train_microbatch` hold as the model
+(MoE, sliding window), jamba (Mamba, MoE, no sequence parallelism),
+deepseek-v2 (MLA), xlstm-125m (the xLSTM cells) and gemma3-12b (the tied,
+chunked head) run (`sharding.check_executable`); seamless and internvl2
+raise naming their ROADMAP item. The config's `remat_policy` and `train_microbatch` hold as the model
 and the step read them; `--smoke` takes the reduced config in fp32
 without microbatches.
 """

@@ -20,8 +20,9 @@ absorbed einsums over the latent cache. Caches for sliding-window layers
 are ring buffers of size `window` with per-slot absolute positions;
 `slot_pos == -1` marks a free slot. The reference's `blockwise_sdpa` has no
 counterpart: full-sequence attention takes the kernel instead. Under
-executing sharding rules (`attention_forward(..., tp=)`) the same body
-computes a rank's own heads, and flash runs on those.
+executing sharding rules (`attention_forward(..., tp=)`, `mla_forward(...,
+tp=)`) the same body computes a rank's own heads, and flash runs on
+those.
 """
 from __future__ import annotations
 
@@ -33,8 +34,9 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.models.layers import (Local, apply_rope, dense_init,
-                                       l2norm, rmsnorm, torch_dtype)
+from repro_torch.models.layers import (LOCAL, Local, apply_rope,
+                                       dense_init, l2norm, no_move,
+                                       rmsnorm, torch_dtype)
 
 Params = Dict[str, Any]
 NEG_INF = -1e30
@@ -318,37 +320,64 @@ def mla_init(gen: torch.Generator, cfg: ModelConfig,
     }
 
 
-def _mla_q(params: Params, cfg: ModelConfig, x, positions):
+def _mla_latent(params: Params, x, name: str, tp, sf):
+    """`x @ params[name]`, whole on every rank: a rank's column block of
+    the latent all-gathered over `model` (`tp.cols`); `sf` marks the same
+    for the dry run's plan ("mla_latent")."""
+    return sf(tp.cols(tp.linear(x, params[name], name)), "mla_latent")
+
+
+def _mla_q(params: Params, cfg: ModelConfig, x, positions, tp=LOCAL,
+           sf=no_move):
+    """q's nope and rope parts (B,S,h,*) of the heads whose `w_uq` columns
+    `params` holds (all of them, or under executing rules a rank's)."""
     m = cfg.mla
     B, S, _ = x.shape
-    cq = rmsnorm(params["q_norm"], x @ params["w_dq"])
-    q = (cq @ params["w_uq"]).reshape(B, S, cfg.num_heads,
-                                      m.nope_head_dim + m.rope_head_dim)
+    cq = rmsnorm(params["q_norm"], _mla_latent(params, x, "w_dq", tp, sf))
+    q = tp.linear(cq, params["w_uq"], "w_uq").reshape(
+        B, S, -1, m.nope_head_dim + m.rope_head_dim)
     q_nope, q_rope = q[..., :m.nope_head_dim], q[..., m.nope_head_dim:]
     return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
 
 
-def _mla_ckv(params: Params, cfg: ModelConfig, x, positions):
-    c_kv = rmsnorm(params["kv_norm"], x @ params["w_dkv"])
-    k_rope = (x @ params["w_kr"])[:, :, None, :]              # (B,S,1,rope)
+def _mla_ckv(params: Params, cfg: ModelConfig, x, positions, tp=LOCAL,
+             sf=no_move):
+    c_kv = rmsnorm(params["kv_norm"],
+                   _mla_latent(params, x, "w_dkv", tp, sf))
+    k_rope = _mla_latent(params, x, "w_kr", tp, sf)[:, :, None, :]
     return c_kv, apply_rope(k_rope, positions, cfg.rope_theta)[:, :, 0, :]
 
 
-def mla_forward(params: Params, cfg: ModelConfig, x) -> torch.Tensor:
+def mla_forward(params: Params, cfg: ModelConfig, x, *, shard_fn=None,
+                tp=None) -> torch.Tensor:
     """Unabsorbed (train/prefill) MLA: K and V expanded per head (no KV
     grouping), causal attention through the flash wrapper at head_dim
     nope + rope. V's v_head_dim columns are zero-padded to that width for
     the kernel, which takes one head_dim for q, k and v, and the output's
     first v_head_dim columns kept: exact, since the padded columns weigh
-    nothing and the scale is 1/sqrt(nope + rope) either way."""
+    nothing and the scale is 1/sqrt(nope + rope) either way.
+
+    `tp` places it: all heads (`Local`, the default), or under executing
+    `ShardingRules` a rank's: the residual stream in (`tp.enter`); the
+    latents `w_dq`, `w_dkv` and `w_kr` column-parallel, each all-gathered
+    whole over `model` (`q_norm` and `kv_norm` normalise the whole latent,
+    every head reads the one `k_rope`), their gradients' parts summed by
+    the reduce-scatter back and the norms' scales by `sync_grads`; the
+    rank's heads of `w_uq`'s columns, `w_uk` and `w_uv` as they are; flash
+    on those heads; the rank's rows of `w_o`, the partial sums out
+    (`tp.exit`). `shard_fn` marks the latents' gathers for the dry run's
+    plan of the same."""
     m = cfg.mla
+    tp = LOCAL if tp is None else tp
+    sf = shard_fn or no_move
+    x = tp.enter(x)
     B, S, _ = x.shape
-    h = cfg.num_heads
     positions = torch.arange(S, device=x.device)
-    q_nope, q_rope = _mla_q(params, cfg, x, positions)
-    c_kv, k_rope = _mla_ckv(params, cfg, x, positions)
+    q_nope, q_rope = _mla_q(params, cfg, x, positions, tp, sf)
+    c_kv, k_rope = _mla_ckv(params, cfg, x, positions, tp, sf)
     k_nope = torch.einsum("bsr,rhe->bshe", c_kv, params["w_uk"])
     v = torch.einsum("bsr,rhe->bshe", c_kv, params["w_uv"])
+    h = v.shape[2]
     q = torch.cat([q_nope, q_rope], dim=-1)                  # (B,S,h,qk)
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
         B, S, h, m.rope_head_dim)], dim=-1)
@@ -357,7 +386,8 @@ def mla_forward(params: Params, cfg: ModelConfig, x) -> torch.Tensor:
     out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                           v.transpose(1, 2), causal=True)
     out = out.transpose(1, 2)[..., :m.v_head_dim]
-    return out.reshape(B, S, h * m.v_head_dim) @ params["w_o"]
+    return tp.exit(tp.linear(out.reshape(B, S, h * m.v_head_dim),
+                             params["w_o"], "w_o"))
 
 
 def init_mla_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,

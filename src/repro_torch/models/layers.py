@@ -110,12 +110,19 @@ def swiglu_init(gen: torch.Generator, d_model: int, d_ff: int, dtype,
     }
 
 
+def no_move(x: torch.Tensor, name: str) -> torch.Tensor:
+    """The identity `shard_fn` of a layer on one device: a plan hook that
+    records a tensor's layout change, where there is none to record."""
+    return x
+
+
 class Local:
     """The tensor-parallel hooks of a layer that holds all its heads and
     columns, as executing `ShardingRules` (`parallel.sharding`) give a
     rank's layer its part: the residual stream in (`enter`) and the sums
     out (`exit`) as they are, a product with the whole weight (`linear`),
-    the keys' or values' columns as their heads (`kv_heads`)."""
+    its output already whole (`cols`), the keys' or values' columns as
+    their heads (`kv_heads`)."""
     tp_size = 1
 
     def __init__(self, head_dim: int = 0):
@@ -132,6 +139,10 @@ class Local:
     @staticmethod
     def linear(x: torch.Tensor, w: torch.Tensor, name: str) -> torch.Tensor:
         return x @ w
+
+    @staticmethod
+    def cols(y: torch.Tensor) -> torch.Tensor:
+        return y
 
     def kv_heads(self, t: torch.Tensor, heads: int) -> torch.Tensor:
         return t.reshape(*t.shape[:-1], -1, self.head_dim)

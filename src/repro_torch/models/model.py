@@ -58,13 +58,16 @@ without rules the model is the card's.
 Executing rules (`ShardingRules` with a `comm`, over a process group) make
 `loss_fn` rank-local for the configs `sharding.check_executable` passes:
 params are the rank's blocks, the batch its rows; the embedding is
-vocab-parallel, each layer's attention (global or windowed), Mamba mixer
-and FFN (SwiGLU or MoE) compute the rank's heads, `d_inner` channels,
-`d_ff` columns or experts on the residual stream the rules move (`enter`,
-`exit`), each layer seeing the rules at its path in the params
-(`ShardingRules.at`); a MoE layer's aux losses are already the global
-batch's; and the loss is taken on the rank's positions of the
-sequence-parallel logits and summed over every rank. Forward, prefill and
+vocab-parallel, each layer's attention (global, windowed or MLA), Mamba
+mixer, xLSTM cell and FFN (SwiGLU or MoE) compute the rank's heads,
+`d_inner` channels, `d_ff` columns or experts on the residual stream the
+rules move (`enter`, `exit`), each layer seeing the rules at its path in
+the params (`ShardingRules.at`); a MoE layer's aux losses are already the
+global batch's; a tied head reads the rank's rows of the table the lookup
+gathered; and the loss is taken on the rank's positions of the
+sequence-parallel logits, or where the chunked loss applies over the
+rank's vocab columns chunk by chunk (`_vocab_parallel_xent`), and summed
+over every rank. Forward, prefill and
 decode stay world-size-1 paths. The remat's recompute stops, as at world
 size 1, once it has remade what the backward needs: the reduce-scatter
 or all-reduce of a group's output does not run again (its last product,
@@ -88,7 +91,8 @@ from repro_torch.models import moe, ssm, xlstm
 from repro_torch.models.layers import (LOCAL, embed_tokens, rmsnorm,
                                        softmax_xent, swiglu, torch_dtype,
                                        unembed)
-from repro_torch.parallel.collectives import GATHERED_MM
+from repro_torch.parallel.collectives import (GATHERED_MM, all_reduce,
+                                              all_reduce_backward)
 
 Params = Dict[str, Any]
 MIXERS = (ATTN, SWA, MLA, MAMBA, SLSTM, MLSTM)
@@ -290,15 +294,16 @@ class Model:
                                           expand_kv=expand, shard_fn=sf,
                                           tp=tp)
         if kind == MLA:
-            return attn.mla_forward(lp["mixer"], cfg, x)
-        if kind == MAMBA:
-            if tp is not None:
-                return ssm.mamba_mix_rank(lp["mixer"], cfg, x, tp)
-            return ssm.mamba_mix(lp["mixer"], cfg, x,
-                                 shard_fn=self._shard_act())[0]
-        if kind == MLSTM:
-            return xlstm.mlstm_mix(lp["mixer"], cfg, x)[0]
-        return xlstm.slstm_mix(lp["mixer"], cfg, x)[0]
+            return attn.mla_forward(lp["mixer"], cfg, x,
+                                    shard_fn=self._shard_act(), tp=tp)
+        if tp is not None:
+            rank_mix = {MAMBA: ssm.mamba_mix_rank,
+                        MLSTM: xlstm.mlstm_mix_rank,
+                        SLSTM: xlstm.slstm_mix_rank}[kind]
+            return rank_mix(lp["mixer"], cfg, x, tp)
+        mix = {MAMBA: ssm.mamba_mix, MLSTM: xlstm.mlstm_mix,
+               SLSTM: xlstm.slstm_mix}[kind]
+        return mix(lp["mixer"], cfg, x, shard_fn=self._shard_act())[0]
 
     def _remat(self, fn):
         """`fn` under the config's remat policy: `"full"` as it is,
@@ -363,16 +368,20 @@ class Model:
                 enc_layer, _layer(enc["layers"], e)))(h)
         return rmsnorm(enc["final_norm"], h, cfg.norm_eps)
 
-    def _embed_inputs(self, params: Params, batch):
-        """(decoder-input hidden states, encoder output or None)."""
+    def _embed_inputs(self, params: Params, batch, rows=None):
+        """(decoder-input hidden states, encoder output or None). `rows`:
+        under executing rules, the rank's rows of the table already
+        gathered (`ShardingRules.vocab_rows`), for a tied head to read
+        too."""
         cfg = self.cfg
         if cfg.input_mode == "frames":
             enc_out = self._encode(params, batch["frames"])
             return self._act(embed_tokens(params["embed"],
                                           batch["tokens"])), enc_out
         if self.tp is not None:
-            return self.tp.embed(params["embed"]["table"],
-                                 batch["tokens"]), None
+            if rows is None:
+                rows = self.tp.vocab_rows(params["embed"]["table"])
+            return self.tp.embed(rows, batch["tokens"]), None
         h = embed_tokens(params["embed"], batch["tokens"])
         if cfg.input_mode == "tokens+image":
             img = batch["image_embeds"].to(params["img_proj"].dtype) \
@@ -380,10 +389,10 @@ class Model:
             h = torch.cat([img.to(h.dtype), h], dim=1)
         return self._act(h), None
 
-    def _hidden(self, params: Params, batch):
+    def _hidden(self, params: Params, batch, rows=None):
         """Hidden states after the final norm, and the aux losses."""
         cfg = self.cfg
-        h, enc_out = self._embed_inputs(params, batch)
+        h, enc_out = self._embed_inputs(params, batch, rows)
         aux = self._zero_aux(h.device)
         for j, lp in enumerate(params.get("first", [])):   # outside the remat
             h = self._layer_forward(lp, cfg.pattern[0], DENSE, h, aux,
@@ -449,6 +458,7 @@ class Model:
         vp = padded_vocab(cfg)
         pad = (torch.arange(vp, device=h.device) >= cfg.vocab_size
                if vp != cfg.vocab_size else None)
+        sf = self._shard_act()
 
         def body(hc, lc, mc):
             logits = self._unembed(params, hc).float()
@@ -458,6 +468,11 @@ class Model:
             if pad is not None:
                 logits = torch.where(pad, -1e30, logits)
             lse = torch.logsumexp(logits, dim=-1)
+            if sf is not None:
+                # the plan of `_vocab_parallel_xent`'s row max and sum of
+                # exponentials over the model axis
+                sf(lse.detach(), "vocab_max")
+                lse = sf(lse, "vocab_sum")
             gold = torch.gather(logits, -1, lc.long()[..., None])[..., 0]
             return torch.sum((lse - gold) * mc)
 
@@ -478,10 +493,14 @@ class Model:
         positions take `_chunked_xent`."""
         cfg = self.cfg
         vp = padded_vocab(cfg)
-        h, aux = self._hidden(params, batch)
+        rows = None
+        if self.tp is not None and cfg.tie_embeddings:
+            # a tied head reads the rows the lookup read: one gather
+            rows = self.tp.vocab_rows(params["embed"]["table"])
+        h, aux = self._hidden(params, batch, rows)
         s = h.shape[1]
         if self.tp is not None:
-            loss = self._local_xent(params, h, batch["tokens"])
+            loss = self._local_xent(params, h, batch, rows)
         elif vp >= self.CHUNKED_LOSS_VOCAB and s > 1024:
             labels, mask = self._labels_and_mask(batch, s)
             loss = self._chunked_xent(params, h, labels, mask)
@@ -501,17 +520,28 @@ class Model:
         total = loss + 0.01 * aux["moe_lb_loss"] + 1e-3 * aux["moe_z_loss"]
         return total, dict(aux, xent=loss)
 
-    def _local_xent(self, params: Params, h, tokens):
+    def _local_xent(self, params: Params, h, batch, rows=None):
         """`loss_fn`'s cross-entropy under executing rules: the final
-        hidden states into the LM head's vocab columns (`tp.enter`,
-        `tp.linear`), the logits to this rank's positions over the whole
-        padded vocabulary (`tp.to_seq`), the pad columns -1e30 and the
-        softcap as `softmax_xent` takes them, the summed loss of the
-        positions that predict a token (all but the last) reduced over
-        every rank and divided by the global count."""
+        hidden states whole along the sequence (`tp.enter`) into the head's
+        vocab columns: an untied `lm_head`'s (`tp.linear`) or, tied, the
+        rank's rows of the table the lookup read (`rows`). Where
+        `loss_fn` takes the chunked loss, `_vocab_parallel_xent`; else the
+        logits to this rank's positions over the whole padded vocabulary
+        (`tp.to_seq`), the pad columns -1e30 and the softcap as
+        `softmax_xent` takes them, the summed loss of the positions that
+        predict a token (all but the last) reduced over every rank and
+        divided by the global count."""
         cfg, tp = self.cfg, self.tp
-        logits = tp.to_seq(tp.linear(tp.enter(h), params["lm_head"],
-                                     "lm_head"))
+        tokens = batch["tokens"]
+        b, s = tokens.shape
+        count = b * tp.batch_split()[1] * (s - 1)
+        h = tp.enter(h)
+        if padded_vocab(cfg) >= self.CHUNKED_LOSS_VOCAB and s > 1024:
+            labels, mask = self._labels_and_mask(batch, s)
+            return tp.reduce_loss(self._vocab_parallel_xent(
+                h, labels, mask, rows), count)
+        logits = tp.to_seq(h @ rows.T if cfg.tie_embeddings else
+                           tp.linear(h, params["lm_head"], "lm_head"))
         lf = logits.float()
         vp = padded_vocab(cfg)
         if vp != cfg.vocab_size:
@@ -519,14 +549,63 @@ class Model:
             lf = torch.where(pad, -1e30, lf)
         if cfg.logit_softcap:
             lf = torch.tanh(lf / cfg.logit_softcap) * cfg.logit_softcap
-        b, s = tokens.shape
         first = tp.seq_start(lf.shape[1])
         pos = torch.arange(first, first + lf.shape[1], device=lf.device)
         labels = tokens[:, torch.clamp(pos + 1, max=s - 1)]
         lse = torch.logsumexp(lf, dim=-1)
         gold = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
         total = torch.sum((lse - gold) * (pos < s - 1))
-        return tp.reduce_loss(total, b * tp.batch_split()[1] * (s - 1))
+        return tp.reduce_loss(total, count)
+
+    def _vocab_parallel_xent(self, h, labels, mask, rows,
+                             chunk: int = 1024):
+        """`_chunked_xent` under executing rules, the tied head's vocabulary
+        split over `model` (`rows`, the rank's rows of the table; an untied
+        head under the chunked loss is refused by `check_executable`,
+        ROADMAP A18): this rank's part of the summed loss, without
+        the (B,S,V) logits or their (B,S/M,V) block. h (B,S,d) is whole
+        along the sequence; S goes in the reference's chunks of gcd(S,
+        1024) positions, each recomputed in the backward (`checkpoint`).
+        A chunk's logits are taken over the rank's vocab columns only,
+        softcapped and their pad columns -1e30 as `_chunked_xent` does;
+        the row max is all-reduced (max) over `model`, then the sum of
+        exponentials under it (the backward all-reduces its gradient:
+        each rank's log-sum-exp below is a copy); the gold logit comes
+        from the rank whose columns hold the label, 0 elsewhere. Each rank
+        adds its copy of the log-sum-exp over M and its own gold logits,
+        so `reduce_loss`'s sum over every rank is the loss's."""
+        cfg, tp = self.cfg, self.tp
+        comm, axis, m = tp.comm, tp.tp, tp.tp_size
+        w = rows.T
+        v0 = tp.vocab_start(w.shape[1])
+        pad = torch.arange(v0, v0 + w.shape[1], device=h.device) \
+            >= cfg.vocab_size
+        s = h.shape[1]
+        chunk = math.gcd(s, chunk)
+
+        def body(hc, lc, mc, w):
+            logits = (hc @ w).float()
+            if cfg.logit_softcap:
+                logits = torch.tanh(logits / cfg.logit_softcap) \
+                    * cfg.logit_softcap
+            logits = torch.where(pad, -1e30, logits)
+            top = comm.all_reduce(logits.detach().amax(-1), axis, op="max")
+            sumexp = torch.exp(logits - top[..., None]).sum(-1)
+            lse = top + torch.log(all_reduce_backward(
+                comm, all_reduce(comm, sumexp, axis), axis))
+            idx = lc.long() - v0
+            own = (idx >= 0) & (idx < w.shape[1])
+            gold = torch.gather(logits, -1, idx.clamp(0, w.shape[1] - 1)
+                                [..., None])[..., 0]
+            return torch.sum((lse / m - gold * own) * mc)
+
+        tot = torch.zeros((), dtype=torch.float32, device=h.device)
+        for a in range(0, s, chunk):
+            tot = tot + checkpoint(body, h[:, a:a + chunk],
+                                   labels[:, a:a + chunk],
+                                   mask[:, a:a + chunk], w,
+                                   use_reentrant=False)
+        return tot
 
     # ------------------------------------------------------------- caches
 

@@ -40,7 +40,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ssm_scan import ssm_scan
-from repro_torch.models.layers import dense_init, torch_dtype
+from repro_torch.models.layers import dense_init, no_move, torch_dtype
 from repro_torch.models.xlstm import _causal_conv, _normal
 from repro_torch.parallel import collectives as c
 
@@ -128,7 +128,7 @@ def mamba_mix(params: Params, cfg: ModelConfig, x, h0=None, conv0=None,
     reference's signature and does not change the math. `shard_fn(x,
     name)` marks where `mamba_mix_rank` moves its tensors (the dry run's
     plan of them: "mamba_xz", "mamba_xdb")."""
-    sf = shard_fn or (lambda a, name: a)
+    sf = shard_fn or no_move
     x_in, z = sf(x @ params["in_proj"], "mamba_xz").chunk(2, dim=-1)
     if conv0 is not None:
         ext = torch.cat([conv0, x_in], dim=1)

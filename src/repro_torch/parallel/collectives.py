@@ -268,16 +268,19 @@ class Comm:
         self._count("reduce-scatter", axes, n, _nbytes(inp), _nbytes(out))
         return out.movedim(0, dim).contiguous()
 
-    def all_reduce(self, x: torch.Tensor, axes) -> torch.Tensor:
-        """The sum of `x` over the members of `axes` (a new tensor)."""
+    def all_reduce(self, x: torch.Tensor, axes,
+                   op: str = "sum") -> torch.Tensor:
+        """The sum of `x` over the members of `axes` (a new tensor); with
+        `op="max"` the elementwise largest."""
         group, n = self.group(axes)
         if n == 1:
             return x
         out = torch.empty_like(x, memory_format=torch.contiguous_format)
+        red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
 
         def fn(o, i, g):
             o.copy_(i)
-            dist.all_reduce(o, group=g)
+            dist.all_reduce(o, op=red, group=g)
         self._run(fn, out, x.contiguous(), group)
         self._count("all-reduce", axes, n, _nbytes(x), _nbytes(x))
         return out

@@ -67,6 +67,11 @@ def make_compressing_train_step(model, opt_cfg, threshold_elems: int = 4096):
     `make_train_step`'s are."""
     from repro_torch.optim.adamw import adamw_update, cosine_schedule
     from repro_torch.train.train_step import value_and_grad
+    if model.tp is not None:       # a rank's step under executing rules
+        from repro_torch.parallel.sharding import (COMPRESSION_ITEM,
+                                                   _unsupported)
+        raise NotImplementedError(_unsupported(model.cfg, model.tp.mesh,
+                                               COMPRESSION_ITEM))
 
     def one(g, e):
         if g.numel() < threshold_elems:

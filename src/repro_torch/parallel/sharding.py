@@ -54,13 +54,21 @@ the model runs rank-local (`models.model`, `models.attention`,
     column blocks all-gathered over `model` for the rank's x and z
     channels, `x_proj` and `dt_proj` gathered whole (`whole`), its
     `x_proj` partial sums all-reduced (`models.ssm`);
+  * an xLSTM cell runs the rank's heads from column blocks all-gathered
+    over `model` (`cols`) and `w_if` gathered whole (`models.xlstm`); an
+    MLA layer gathers its latents whole and runs the rank's heads
+    (`models.attention`);
+  * a tied head reads the rank's rows of the table the lookup gathered
+    (`vocab_rows`); the chunked loss takes each chunk's log-sum-exp over
+    the ranks' vocab columns (`models.model`);
   * after a microbatch's backward a gradient is all-reduced over the batch
     axes its spec leaves replicated, and over `model` too for a leaf
     `model` does not shard while its ranks' gradients differ: any such
     leaf under SP (the tokens that reach it are split), the router always
-    (each model rank's experts or columns see their own part of it)
-    (`sync_grads`); the global norm counts each element once
-    (`global_norm`).
+    (each model rank's experts or columns see their own part of it), and
+    the leaves an xLSTM cell or MLA layer reads only its heads' slices of
+    (`partial_over_model`) (`sync_grads`); the global norm counts each
+    element once (`global_norm`).
 A layer names its leaves by their path in the params (`at`, `linear`), so
 two leaves of one name in layers of other kinds (jamba's dense and MoE
 `ffn/w_gate`) each gather the block their own spec describes.
@@ -77,7 +85,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import (MAMBA, MLA, MLSTM, SLSTM, ModelConfig,
+from repro_torch.configs.base import (MAMBA, MLSTM, SLSTM, ModelConfig,
                                       ShapeConfig)
 from repro_torch.parallel import collectives as c
 from repro_torch.tree import tree_leaves, tree_map
@@ -192,13 +200,24 @@ def _map_with_path(fn, tree, path=()):
     return fn("/".join(path), tree)
 
 
-# leaves a rank gathers whole for its block of a Mamba mixer's channels
-# (`whole`): their specs cut across the block
-WHOLE = {"x_proj", "dt_proj"}
+# leaves a rank gathers whole for its block of a Mamba mixer's channels or
+# an mLSTM cell's heads (`whole`): their specs cut across the block
+WHOLE = {"x_proj", "dt_proj", "w_if"}
 # replicated leaves whose gradient the model ranks each hold a part of
-# whatever the residual stream's layout: the router's (a rank's experts or
-# columns weigh their own gates)
-_PARTIAL_OVER_MODEL = {"router"}
+# whatever the residual stream's layout, by the end of their path: the
+# router's (a rank's experts or columns weigh their own gates), and the
+# leaves an xLSTM cell or an MLA layer reads only its own heads' slices of
+# (the recurrence, the gate biases, the head norms) or feeds only its own
+# heads from (MLA's latent norms)
+_PARTIAL_OVER_MODEL = ("router", "r_rec", "b", "b_if", "norm_scale",
+                       "q_norm/scale", "kv_norm/scale")
+
+
+def partial_over_model(path: str) -> bool:
+    """Whether the model ranks' gradients of the replicated leaf at `path`
+    are parts of it, whatever the residual stream's layout."""
+    return any(path == end or path.endswith("/" + end)
+               for end in _PARTIAL_OVER_MODEL)
 # parameter names that are row-parallel (input dim on `model`)
 _ROW_2D = {"w_o", "down", "w_down", "out_proj", "dt_proj"}
 # names that live on the inner (d_inner/model-sharded) dimension
@@ -486,6 +505,13 @@ class ShardingRules:
         dim, axes = self._fsdp_dim(path)
         return c.gathered_mm(self.comm, x, w, dim, axes)
 
+    def cols(self, y):
+        """A column-parallel product's output (or any tensor split so along
+        its last dimension) whole on every model rank: its blocks
+        all-gathered over `model` (the backward reduce-scatters the
+        gradient, so each rank's part of it is summed)."""
+        return c.all_gather(self.comm, y, y.dim() - 1, self.tp)
+
     def whole(self, w, path: str):
         """The whole leaf at `path` from this rank's block `w`: all-gathered
         along each dimension its spec splits, the last dimension first
@@ -503,17 +529,27 @@ class ShardingRules:
         m = self.comm.index(self.tp)
         return m * n // self.tp_size, (m + 1) * n // self.tp_size
 
-    def embed(self, table, tokens):
-        """The vocab-parallel lookup: this rank's rows of the table
-        (gathered over its FSDP axes), the tokens outside them zero, the
-        partial sums over `model` reduced by `exit`."""
+    def vocab_rows(self, table):
+        """This rank's rows of the embedding table, whole along `d_model`:
+        its block all-gathered over the FSDP axes of its spec (the
+        backward reduce-scatters the gradient). A tied head reads the copy
+        the lookup read: one gather a step for both."""
         dim, axes = self._fsdp_dim("embed/table")
-        full = c.all_gather(self.comm, table, dim, axes) \
+        return c.all_gather(self.comm, table, dim, axes) \
             if dim >= 0 else table
-        n = full.shape[0]
-        idx = tokens - self.comm.index(self.tp) * n
+
+    def vocab_start(self, rows: int) -> int:
+        """The first vocabulary entry of this rank's `rows`."""
+        return self.comm.index(self.tp) * rows
+
+    def embed(self, rows, tokens):
+        """The vocab-parallel lookup in this rank's rows of the table
+        (`vocab_rows`): the tokens outside them zero, the partial sums over
+        `model` reduced by `exit`."""
+        n = rows.shape[0]
+        idx = tokens - self.vocab_start(n)
         valid = (idx >= 0) & (idx < n)
-        h = full[idx.clamp(0, n - 1)] * valid[..., None].to(full.dtype)
+        h = rows[idx.clamp(0, n - 1)] * valid[..., None].to(rows.dtype)
         return self.exit(h)
 
     def to_seq(self, logits):
@@ -570,12 +606,12 @@ class ShardingRules:
         """The axes the gradient of the leaf at `path` is all-reduced over
         after a microbatch: the batch axes its spec leaves replicated, and
         `model` where the spec does not shard it while the model ranks'
-        gradients of it differ (under SP every such leaf; the router
-        always)."""
+        gradients of it differ (under SP every such leaf; the router, the
+        xLSTM cells' per-head leaves and MLA's latent norms always:
+        `partial_over_model`)."""
         used = {a for axes in self._leaf_spec(path) for a in _flat_axes(axes)}
         rep = [a for a in self.batch_axes if a not in used]
-        partial = (self.sequence_parallel
-                   or path.rsplit("/", 1)[-1] in _PARTIAL_OVER_MODEL)
+        partial = self.sequence_parallel or partial_over_model(path)
         if partial and self.tp not in used:
             rep.append(self.tp)
         return tuple(a for a in self.mesh.axis_names if a in rep)
@@ -584,8 +620,9 @@ class ShardingRules:
         """A microbatch's gradients, each all-reduced over the axes its
         leaf is replicated on while its parts differ (`sync_axes`): a
         norm's scale under SP sees only its rank's positions, the router
-        only its rank's experts or columns. The FSDP reduce-scatters ran
-        in the backward."""
+        only its rank's experts or columns, an xLSTM cell's recurrence
+        only its rank's heads. The FSDP reduce-scatters ran in the
+        backward."""
         return _map_with_path(lambda path, g: self.comm.all_reduce(
             g, self.sync_axes(path)), grads)
 
@@ -677,21 +714,20 @@ def _map_specs(fn, specs, path=()):
 
 
 # What executing the plan does not cover yet, each under its ROADMAP item
-MLA_ITEM = "MLA"
-XLSTM_ITEM = "xLSTM under tensor parallelism"
 MODAL_ITEM = "the encoder-decoder and image inputs"
-CHUNKED_ITEM = ("gemma3's chunked loss under vocab TP, with its tied "
-                "embeddings")
 COMPRESSION_ITEM = "int8 gradient compression on shards"
 RAGGED_ITEM = "the ragged MoE dispatch over many ranks"
 MAMBA_SP_ITEM = ("Mamba under sequence parallelism (a scan split over "
                  "ranks passes its state between them)")
 SOFTCAP_ITEM = "attention logit softcapping"
+UNTIED_CHUNKED_ITEM = ("the chunked loss over an untied head (`lm_head`'s "
+                       "block gathered once for every chunk)")
 # leaves each rank holds a block of along `model` and uses as its own part
-# of the layer (x_proj and dt_proj are gathered whole: `whole`)
+# of the layer (x_proj, dt_proj and w_if are gathered whole: `whole`)
 _TP_LEAVES = {"w_q", "w_k", "w_v", "w_o", "w_gate", "w_up", "w_down",
               "table", "lm_head", "in_proj", "out_proj", "conv_w", "conv_b",
-              "D", "dt_bias", "A_log"}
+              "D", "dt_bias", "A_log", "w_dq", "w_dkv", "w_kr", "w_uq",
+              "w_uk", "w_uv", "up", "down", "w_in"}
 
 
 def _unsupported(cfg: ModelConfig, mesh, item: str) -> str:
@@ -702,20 +738,20 @@ def _unsupported(cfg: ModelConfig, mesh, item: str) -> str:
 def check_executable(rules: ShardingRules) -> None:
     """Raise `NotImplementedError`, naming its ROADMAP item, for a config
     or step the executing rules do not run: anything but decoders of
-    GQA/MHA or sliding-window attention and Mamba mixers (without SP),
-    SwiGLU or MoE FFNs (`dense` or `dropping` dispatch, shared experts) on
-    tokens under the chunked-loss vocabulary; and `ValueError` for a step
-    whose shapes the mesh does not split evenly."""
+    GQA/MHA, sliding-window or MLA attention, Mamba mixers (without SP) and
+    xLSTM cells, SwiGLU or MoE FFNs (`dense` or `dropping` dispatch, shared
+    experts) on tokens, their vocabulary head tied or not, its loss whole,
+    or chunked where tied (the chunked loss reads the table's rows); and
+    `ValueError` for a step whose shapes the mesh does not split evenly."""
     from repro_torch.models.model import Model, padded_vocab
     cfg, mesh = rules.cfg, rules.mesh
     kinds = set(cfg.pattern) | set(cfg.ffn_pattern)
     for hit, item in (
-            (MLA in kinds, MLA_ITEM),
-            (bool(kinds & {MLSTM, SLSTM}), XLSTM_ITEM),
             (cfg.encoder_layers > 0 or cfg.input_mode != "tokens",
              MODAL_ITEM),
-            (padded_vocab(cfg) >= Model.CHUNKED_LOSS_VOCAB
-             or cfg.tie_embeddings, CHUNKED_ITEM),
+            (not cfg.tie_embeddings and rules.shape.seq_len > 1024
+             and padded_vocab(cfg) >= Model.CHUNKED_LOSS_VOCAB,
+             UNTIED_CHUNKED_ITEM),
             (cfg.moe is not None and cfg.moe.dispatch == "ragged",
              RAGGED_ITEM),
             (MAMBA in kinds and rules.sequence_parallel, MAMBA_SP_ITEM),
@@ -728,7 +764,15 @@ def check_executable(rules: ShardingRules) -> None:
     m = rules.tp_size
     b, s = rules.shape.global_batch, rules.shape.seq_len
     problems = []
-    if cfg.num_heads % m:
+    # an xLSTM cell's heads may also be cut over a multiple of them
+    # (`models.xlstm`); attention's must split whole
+    cells = [(kind, n) for kind, n in (
+        (MLSTM, cfg.num_heads),
+        (SLSTM, cfg.xlstm and cfg.xlstm.num_heads_slstm)) if kind in kinds]
+    for kind, n in cells:
+        if n % m and m % n:
+            problems.append(f"{n} {kind} heads over model={m}")
+    if not cells and cfg.num_heads % m:
         problems.append(f"{cfg.num_heads} heads over model={m}")
     if m > 1 and s % m:
         problems.append(f"sequence {s} over model={m}")

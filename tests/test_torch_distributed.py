@@ -61,27 +61,51 @@ CASES = {
         {"moe": {"num_shared_experts": 1}, "first_k_dense": 1}),
     "mamba and moe, no sequence parallel (2, 2)": (
         "jamba-1.5-large-398b", (2, 2), ("data", "model"), {}),
+    "mla and moe, sequence parallel (2, 2)": (
+        "deepseek-v2-236b", (2, 2), ("data", "model"), {}),
+    "mla, moe dropping with shared experts (1, 4)": (
+        "deepseek-v2-236b", (1, 4), ("data", "model"),
+        {"moe": {"dispatch": "dropping"}}),
+    "xlstm cells, tied head (2, 2)": ("xlstm-125m", (2, 2),
+                                      ("data", "model"), {}),
+    "xlstm heads cut over model (1, 4)": (
+        "xlstm-125m", (1, 4), ("data", "model"),
+        {"xlstm": {"num_heads_slstm": 2}}),
+    "tied head, windowed, KV heads gathered (1, 4)": (
+        "gemma3-12b", (1, 4), ("data", "model"), {}),
 }
 CKPT_CASE = ("stablelm-1.6b", (2, 2), ("data", "model"))
-# every arch outside the slice, and the item its error names
+# what the executed plan does not cover yet: case -> (arch, config
+# overrides (a "seq_len" entry is the step's), the item its error names)
 UNSUPPORTED = {
-    "xlstm-125m": "xLSTM under tensor parallelism",
-    "deepseek-v2-236b": "MLA",
-    "gemma3-12b": "gemma3's chunked loss under vocab TP",
-    "seamless-m4t-medium": "the encoder-decoder and image inputs",
-    "internvl2-2b": "the encoder-decoder and image inputs",
+    "seamless-m4t-medium": ("seamless-m4t-medium", {},
+                            "the encoder-decoder and image inputs"),
+    "internvl2-2b": ("internvl2-2b", {},
+                     "the encoder-decoder and image inputs"),
+    "mixtral ragged": ("mixtral-8x22b", {"moe": {"dispatch": "ragged"}},
+                       "the ragged MoE dispatch"),
+    "jamba sequence parallel": ("jamba-1.5-large-398b",
+                                {"sequence_parallel": True},
+                                "Mamba under sequence parallelism"),
+    "stablelm softcap": ("stablelm-1.6b", {"attn_logit_softcap": 50.0},
+                         "attention logit softcapping"),
+    # the chunked loss (vocab >= Model.CHUNKED_LOSS_VOCAB, S > 1024)
+    "stablelm untied chunked loss": (
+        "stablelm-1.6b", {"vocab_size": 131_072, "seq_len": 2048},
+        "the chunked loss over an untied head"),
 }
 
 
 def _config(arch, over):
-    """The smoke config with `over`; its "moe" entry overrides fields of
-    the config's MoE."""
+    """The smoke config with `over`; its "moe" and "xlstm" entries
+    override fields of the config's MoE and xLSTM configs."""
     import dataclasses
     from repro_torch.launch.train import launch_config
     cfg = launch_config(arch, True)
     over = dict(over)
-    if "moe" in over:
-        over["moe"] = dataclasses.replace(cfg.moe, **over["moe"])
+    for sub in ("moe", "xlstm"):
+        if sub in over:
+            over[sub] = dataclasses.replace(getattr(cfg, sub), **over[sub])
     return cfg.scaled(**over)
 
 
@@ -150,13 +174,16 @@ def _rank(rank: int, work: Path) -> None:
     out["checkpoint"] = run(_config(arch, {}), Mesh(mesh_shape, axes),
                             ckpt_dir=str(work / "ckpt_sharded"))
     raised = {}
-    for arch in UNSUPPORTED:
+    for name, (arch, over, _) in UNSUPPORTED.items():
+        over = dict(over)
+        seq_len = over.pop("seq_len", SEQ_LEN)
         try:
-            train(_config(arch, {}), steps=1, batch=BATCH, seq_len=SEQ_LEN,
-                  device="cpu", mesh=Mesh((WORLD, 1), ("data", "model")))
-            raised[arch] = None
+            train(_config(arch, over), steps=1, batch=BATCH,
+                  seq_len=seq_len, device="cpu",
+                  mesh=Mesh((WORLD, 1), ("data", "model")))
+            raised[name] = None
         except NotImplementedError as e:
-            raised[arch] = str(e)
+            raised[name] = str(e)
     out["unsupported"] = raised
     out["registry"] = len(collectives._GROUPS)
     torch.save(out, work / f"rank{rank}.pt")
@@ -307,7 +334,105 @@ def test_unsupported_arch_raises_over_many_ranks(ranks, arch):
     for r in ranks:
         msg = r["unsupported"][arch]
         assert msg is not None and "ROADMAP A18" in msg \
-            and UNSUPPORTED[arch] in msg, msg
+            and UNSUPPORTED[arch][2] in msg, msg
+
+
+class _ThreadComm:
+    """The model axis of `m` ranks as threads of one process: each
+    collective hands this rank's tensor to the others at a barrier
+    (`collectives.Comm`'s calls that the vocab-parallel loss makes)."""
+
+    def __init__(self, mesh, rank, slots, barrier):
+        self.mesh, self.rank, self.backend = mesh, rank, "threads"
+        self.coords = {"data": 0, "model": rank}
+        self._slots, self._barrier = slots, barrier
+
+    def _all(self, x):
+        self._slots[self.rank] = x
+        self._barrier.wait()
+        got = list(self._slots)
+        self._barrier.wait()
+        return got
+
+    def size(self, axes):
+        return self.mesh.shape["model"] if "model" in (axes or ()) else 1
+
+    def index(self, axes):
+        return self.rank if "model" in (axes or ()) else 0
+
+    def all_reduce(self, x, axes, op="sum"):
+        if self.size(axes) == 1:
+            return x
+        got = torch.stack(self._all(x))
+        return got.amax(0) if op == "max" else got.sum(0)
+
+    def all_gather(self, x, dim, axes):
+        return x if self.size(axes) == 1 else torch.cat(self._all(x), dim)
+
+    def reduce_scatter(self, x, dim, axes):
+        if self.size(axes) == 1:
+            return x
+        return sum(self._all(x)).chunk(self.size(axes), dim)[self.rank]
+
+
+def test_vocab_parallel_chunked_loss_equals_the_whole_vocabulary():
+    """`Model._vocab_parallel_xent` on 4 model ranks (threads of this
+    process, each with its rows of the tied table) against the
+    whole-vocabulary loss of one model (`softmax_xent` over the padded
+    logits): the summed parts, and each rank's gradients of the hidden
+    states (summed) and of its head columns, fp32 to 1e-6. gemma3's smoke
+    config at 2 x 2048 (two chunks), its vocabulary cut to 500 of 512
+    padded entries so the last rank's columns hold pad entries, the
+    softcap on."""
+    import threading
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.layers import softmax_xent
+    from repro_torch.models.model import Model
+    from repro_torch.parallel.sharding import make_rules
+    m, b, s = 4, 2, 2048
+    cfg = _config("gemma3-12b", {"vocab_size": 500, "logit_softcap": 30.0})
+    gen = torch.Generator().manual_seed(0)
+    h = torch.randn(b, s, cfg.d_model, generator=gen)
+    head = torch.randn(512, cfg.d_model, generator=gen) * 0.3
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen)
+    # the whole-vocabulary loss, summed over the positions that predict
+    hw, ww = h.clone().requires_grad_(), head.clone().requires_grad_()
+    logits = torch.where(torch.arange(512) >= cfg.vocab_size, -1e30,
+                         (hw @ ww.T).float())
+    want = softmax_xent(logits[:, :-1], tokens[:, 1:],
+                        logit_softcap=cfg.logit_softcap) * b * (s - 1)
+    want.backward()
+    want = want.detach()
+    mesh = Mesh((1, m), ("data", "model"))
+    slots, barrier = [None] * m, threading.Barrier(m)
+    out, errors = [None] * m, []
+
+    def rank(r):
+        try:
+            rules = make_rules(mesh, cfg, ShapeConfig("t", "train", s, b),
+                               comm=_ThreadComm(mesh, r, slots, barrier))
+            model = Model(cfg, rules)
+            hr = h.clone().requires_grad_()
+            block = head[r * 128:(r + 1) * 128].clone().requires_grad_()
+            labels, mask = model._labels_and_mask({"tokens": tokens}, s)
+            part = model._vocab_parallel_xent(hr, labels, mask, block)
+            part.backward()
+            out[r] = (part.detach(), hr.grad, block.grad)
+        except BaseException as e:          # a failed rank breaks the rest
+            errors.append(e)
+            barrier.abort()
+    threads = [threading.Thread(target=rank, args=(r,)) for r in range(m)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=RANK_TIMEOUT_S)
+    assert not errors, errors
+    got = sum(o[0] for o in out)
+    assert float(got) == pytest.approx(float(want), rel=1e-6)
+    for g, w in ((sum(o[1] for o in out), hw.grad),
+                 (torch.cat([o[2] for o in out]), ww.grad)):
+        assert float((g - w).abs().max()) <= 1e-5 * float(w.abs().max())
 
 
 def test_world_size_one_builds_no_rules(monkeypatch):

@@ -236,16 +236,17 @@ def test_paramset_publish_records_the_reference_specs():
 
 # ----------------------------------------------------- the executing rules
 
-def _executing(arch, mesh_shape=(2, 2), smoke=True, **over):
+def _executing(arch, mesh_shape=(2, 2), smoke=True, seq_len=64, **over):
     """The executing rules of rank 0 of `mesh_shape` (a `PlanComm`: no
-    process group) for `arch`'s smoke (or full) config with `over`."""
+    process group) for `arch`'s smoke (or full) config with `over`, at a
+    train step of 4 x `seq_len`."""
     from repro_torch.launch.mesh import Mesh
     from repro_torch.parallel.collectives import PlanComm
     cfg = (registry.get_smoke_config(arch) if smoke
            else registry.get_config(arch)).scaled(**over)
     mesh = Mesh(mesh_shape, ("data", "model"))
     return sharding.make_rules(mesh, cfg, base.ShapeConfig(
-        "test", "train", 64, 4), comm=PlanComm(mesh))
+        "test", "train", seq_len, 4), comm=PlanComm(mesh))
 
 
 def test_leaf_specs_resolve_by_path_not_by_name():
@@ -285,10 +286,22 @@ def test_the_executing_rules_run_mixtral_and_jamba(arch, over):
     assert rules.executing
 
 
+@pytest.mark.parametrize("arch, over", [
+    ("deepseek-v2-236b", {}),
+    ("xlstm-125m", {}),
+    ("gemma3-12b", {})])
+def test_the_executing_rules_run_mla_xlstm_and_the_tied_head(arch, over):
+    rules = _executing(arch, **over)
+    assert rules.executing
+
+
 @pytest.mark.parametrize("arch, over, item", [
-    ("deepseek-v2-236b", {}, "MLA"),
-    ("xlstm-125m", {}, "xLSTM under tensor parallelism"),
-    ("gemma3-12b", {}, "gemma3's chunked loss"),
+    ("stablelm-1.6b", {"attn_logit_softcap": 50.0},
+     "attention logit softcapping"),
+    ("seamless-m4t-medium", {"smoke": False},
+     "the encoder-decoder and image inputs"),
+    ("internvl2-2b", {"smoke": False},
+     "the encoder-decoder and image inputs"),
     ("seamless-m4t-medium", {}, "the encoder-decoder and image inputs"),
     ("internvl2-2b", {}, "the encoder-decoder and image inputs"),
     ("mixtral-8x22b", {"moe": base.MoEConfig(num_experts=4, top_k=2,
@@ -296,11 +309,67 @@ def test_the_executing_rules_run_mixtral_and_jamba(arch, over):
                                              dispatch="ragged")},
      "ragged MoE dispatch"),
     ("jamba-1.5-large-398b", {"sequence_parallel": True},
-     "Mamba under sequence parallelism")])
+     "Mamba under sequence parallelism"),
+    ("stablelm-1.6b", {"vocab_size": 131_072, "seq_len": 2048},
+     "the chunked loss over an untied head")])
 def test_the_executing_rules_name_what_they_do_not_run(arch, over, item):
     with pytest.raises(NotImplementedError, match="ROADMAP A18") as err:
         _executing(arch, **over)
     assert item in str(err.value)
+
+
+@pytest.mark.parametrize("how", ["make_train_step",
+                                 "make_compressing_train_step"])
+def test_int8_compression_on_shards_is_refused(how):
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.parallel import compression
+    from repro_torch.train.train_step import make_train_step
+    rules = _executing("stablelm-1.6b")
+    model = build_model(rules.cfg, rules)
+    with pytest.raises(NotImplementedError, match="ROADMAP A18") as err:
+        if how == "make_train_step":
+            make_train_step(model, AdamWConfig(),
+                            grad_compression=compression.compress_grads)
+        else:
+            compression.make_compressing_train_step(model, AdamWConfig())
+    assert "int8 gradient compression on shards" in str(err.value)
+
+
+def test_the_per_head_leaves_sum_their_gradient_over_model():
+    """Without SP (xlstm) a rank's xLSTM cells read only their heads'
+    slices of the recurrence, the gate biases and the head norms: those
+    gradients are summed over `model`; a block norm's scale, whole on
+    every model rank, is not. MLA's latent norms feed only a rank's
+    heads: summed over `model` with or without SP."""
+    rules = _executing("xlstm-125m")
+    assert not rules.sequence_parallel
+    for leaf in ("groups/0/mixer/r_rec", "groups/0/mixer/b",
+                 "groups/0/mixer/norm_scale", "groups/1/mixer/b_if",
+                 "groups/1/mixer/norm_scale"):
+        assert rules.sync_axes(leaf) == ("data", "model"), leaf
+    for leaf in ("groups/0/pre_norm/scale", "final_norm/scale"):
+        assert rules.sync_axes(leaf) == ("data",), leaf
+    # gathered whole from its FSDP and model blocks: reduce-scattered back
+    assert rules.sync_axes("groups/1/mixer/w_if") == ()
+    mla = _executing("deepseek-v2-236b", sequence_parallel=False)
+    for leaf in ("groups/0/mixer/q_norm/scale",
+                 "groups/0/mixer/kv_norm/scale"):
+        assert mla.sync_axes(leaf) == ("data", "model"), leaf
+    assert mla.sync_axes("groups/0/pre_norm/scale") == ("data",)
+
+
+def test_a_mesh_that_cuts_a_head_is_a_value_error():
+    """An xLSTM cell's heads split over `model` or are cut over a multiple
+    of them (the sLSTM's 4 of xlstm's config over 8 ranks); other counts
+    are refused. MLA's latents must split over `model`."""
+    assert _executing("xlstm-125m", (1, 8), num_heads=8,
+                      num_kv_heads=8).executing
+    with pytest.raises(ValueError, match="4 slstm heads over model=3"):
+        _executing("xlstm-125m", (1, 3), num_heads=3, num_kv_heads=3)
+    with pytest.raises(ValueError, match="w_kr not split over model"):
+        _executing("deepseek-v2-236b", (1, 4), mla=base.MLAConfig(
+            kv_lora_rank=32, q_lora_rank=48, rope_head_dim=2,
+            nope_head_dim=32, v_head_dim=32))
 
 
 def test_the_production_plans_of_mixtral_and_jamba_execute():
