@@ -140,7 +140,7 @@ Phases, each of which raises (and so exits non-zero) on any failure:
               internvl2-2b and seamless-m4t-medium whole, gemma3-12b cut to
               one 6-layer group, phi3-medium-14b to 4 layers, mistral-large
               to 2, deepseek-v2 to 2 (its dense first layer and one MoE
-              layer), xlstm-125m whole at 2x128; jamba at its smoke config
+              layer), xlstm-125m to 2 at 2x128; jamba at its smoke config
               (a full-width group does not fit). Finite losses, and each
               kernel launched once a layer a step, twice inside the remat.
               (b) `_SSMScan` at jamba's full-width layer (B=1 S=2048
@@ -202,7 +202,9 @@ Phases, each of which raises (and so exits non-zero) on any failure:
               node is killed publishes resume with a version lag of at most
               64; in every run no ticket hangs, none is dispatched past its
               deadline, and the source produces and acks exactly the batches
-              the run took.
+              the run took. Each hot-swap arm's timeline is logged (waves,
+              latencies by wall time, collections, swaps, the stalls and
+              what they follow), and the threads and heap when 8b starts.
   8c. rl      `repro_torch.examples.rl_pipeline` at its defaults and with
               `--kill-node`: the learner's weights live on the card, the
               policy improves, the ParamSet fetch round-trips; then
@@ -222,16 +224,24 @@ Phases, each of which raises (and so exits non-zero) on any failure:
               repro_torch.launch.dryrun` on four full-width cells of the
               single-pod plan, none of which may initialize CUDA.
   10. sharded the sharded training step (`launch.train.train` over a
-              process group, the reference's ShardingRules executing):
-              stablelm-1.6b cut to 6 of its 24 layers at full width over a
-              (2, 2) mesh, batch 2 x 2048; phi3-medium-14b cut to 2 layers
-              at full width over (1, 4), batch 1 x 2048 (KV heads
-              expanded); mixtral-8x22b cut to 1 layer at full width over
-              (1, 4), batch 2 x 2048 (2 of its 8 experts and 12(2) heads a
-              rank, the `dropping` dispatch, window 4096, "dots"); jamba at
-              its smoke config in fp32 over (2, 2), batch 2 x 64 (Mamba on
-              128 of 256 channels a rank, ssm_scan on them, experts over
-              model, no sequence parallelism). 1 warm-up + 2 steps each, as
+              process group, the reference's ShardingRules executing), the
+              nine cases of SHARDED_TRAIN at full width, cut by depth:
+              stablelm-1.6b cut to 2 of its 24 layers over a (2, 2) mesh,
+              batch 2 x 2048; phi3-medium-14b cut to 2 layers over (1, 4),
+              batch 1 x 2048 (KV heads expanded); mixtral-8x22b cut to 1
+              layer over (1, 4), batch 2 x 2048 (2 of its 8 experts and
+              12(2) heads a rank, the `dropping` dispatch, window 4096,
+              "dots"); jamba at its smoke config in fp32 over (2, 2), batch
+              2 x 64 (Mamba on 128 of 256 channels a rank, ssm_scan on them,
+              experts over model, no sequence parallelism); deepseek-v2 cut
+              to 2 layers over (1, 4) (MLA heads and experts over model);
+              gemma3-12b cut to 6 over (1, 4) (the tied table's chunked
+              loss); xlstm-125m cut to 2 over (2, 2) (sLSTM and mLSTM
+              heads); seamless-m4t-medium cut to 2 encoder and 2 decoder
+              layers over (2, 2), batch 2 x 2048 (the encoder, cross-
+              attention, the untied head's chunked loss); internvl2-2b cut
+              to 2 layers over (1, 4), batch 1 x 2048 (the image rows rank
+              0's). 1 warm-up + 2 steps each, as
               gloo ranks spawned on this card (their collectives through
               host memory: no measure of the plan's speed). Each rank held
               to the one-card step from the same weights and batches, at
@@ -903,8 +913,9 @@ def _launch_flash_shapes() -> list:
     MLA at nope + rope with the values zero-padded; the encoder non-causal
     and cross-attention over as many frames as tokens), jamba's smoke step,
     and deepseek's smoke serve waves in 5c(e), whose MLA head_dim of 48 the
-    wrapper pads to 64. (label, dtype, B, H, Hkv, S, T, q/k hd, v hd,
-    causal, window)."""
+    wrapper pads to 64; and each phase 10 case's rank (its rows and heads,
+    an encoder's and cross-attention's calls too). (label, dtype, B, H,
+    Hkv, S, T, q/k hd, v hd, causal, window)."""
     from repro_torch.configs.base import MLA, SWA
     from repro_torch.configs.registry import get_config
     from repro_torch.launch.train import launch_config
@@ -935,6 +946,11 @@ def _launch_flash_shapes() -> list:
                 out.append((label + (f" window {window}" if window else ""),
                             dt, b, heads, hkv, s, s, cfg.head_dim,
                             cfg.head_dim, True, window))
+        if cfg.encoder_layers:
+            out += [(f"{label} encoder", dt, b, heads, hkv, s, s,
+                     cfg.head_dim, cfg.head_dim, False, 0),
+                    (f"{label} cross {s} over {s} frames", dt, b, heads, hkv,
+                     s, s, cfg.head_dim, cfg.head_dim, False, 0)]
     for what, cfg, b, s in runs:
         dt = getattr(torch, cfg.param_dtype)
         h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -1076,6 +1092,8 @@ MLSTM_CASES = [  # (label, B, H, S, hd, dtypes, with_state)
     ("xlstm-125m launcher shape (phase 5c)", 2, 4, 128, 384, (_BF16,), False),
     ("xlstm-125m rank of (2, 2) (phase 10)", 1, 2, 128, 384, (_BF16,), False),
 ]
+# the case timed beside the main shape: phase 10's rank shape
+MLSTM_RANK_CASE = "xlstm-125m rank of (2, 2) (phase 10)"
 
 
 def check_mlstm_scan(gen):
@@ -1083,7 +1101,7 @@ def check_mlstm_scan(gen):
                                                 mlstm_scan_two_pass_ref)
     from repro_torch.kernels.mlstm_scan.ops import PATHS
     f32, bf16 = torch.float32, torch.bfloat16
-    main = None
+    main = rank = None
     for label, b, h, s, hd, dtypes, with_state in MLSTM_CASES:
         for dt in dtypes:
             args, state = _mlstm_inputs(gen, b, h, s, hd, dt, with_state)
@@ -1105,6 +1123,8 @@ def check_mlstm_scan(gen):
                 f"{MLSTM_TOL[dt]}, state {MLSTM_TOL[f32]}){two_pass} ok")
             if main is None:
                 main = (args, err, err_tp)
+            if label == MLSTM_RANK_CASE:
+                rank = (args, err, err_tp)
 
     # chained: the state out of one call feeds the next, against one call
     # over the whole sequence
@@ -1182,6 +1202,24 @@ def check_mlstm_scan(gen):
         f"{entry['bound_ms']:.4f} ms ({entry['bound_by']}: {flops} flop, "
         f"{nbytes} bytes); {entry['tflops']:.1f} TFLOP/s useful on the card; "
         f"max_abs_err vs the two-pass plain version {err_two_pass}")
+    args, err, err_two_pass = rank
+    q = args[0]
+    flops, nbytes = _mlstm_work(q, None)
+    t_ops, t_bytes = flops / PEAK_FLOPS[q.dtype], nbytes / PEAK_BYTES_PER_S
+    entry["at_rank_shape"] = r = {
+        "shape": f"bf16 B, H, S, hd = {tuple(q.shape)} ({MLSTM_RANK_CASE})",
+        "max_abs_err": err, "max_abs_err_vs_two_pass_plain": err_two_pass,
+        "ms": cuda_ms(lambda: mlstm_scan(*args), 20),
+        "device_ms": queued_ms(lambda: mlstm_scan(*args)),
+        "plain_ms": cuda_ms(lambda: mlstm_scan_ref(*args), 10),
+        "bound_ms": max(t_ops, t_bytes) * 1e3,
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": None}
+    log(f"[kernels] mlstm_scan at {r['shape']}: kernel {r['ms']:.4f} ms a "
+        f"call, {r['device_ms']:.4f} ms on the card alone, plain "
+        f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+        f"({r['bound_by']}: {flops} flop, {nbytes} bytes); max_abs_err "
+        f"{err}, vs the two-pass plain version {err_two_pass}")
     return entry
 
 
@@ -2408,10 +2446,8 @@ def serve_gemma3(card: str) -> dict:
     timed, engine, waves, out = _serve_bounded(cfg, params, 4, card,
                                            (2048, 2048, 8192), cfg.num_layers)
     long_wave = [w for w in waves if len(w[0].prompt) == 8192]
-    # the device alone: the host side of 48 eager layers' 16 decode steps
-    # (some 82,000 launches) takes the profiler about a minute to trace
     profile_waves(ServingEngine(timed.model, params, engine.max_seq),
-                  long_wave, host_ops=False)
+                  long_wave)
     return out
 
 
@@ -2529,28 +2565,25 @@ def serve_dense_models(card: str) -> dict:
     return out
 
 
-def profile_waves(engine, waves, host_ops: bool = True) -> None:
+def profile_waves(engine, waves) -> None:
     """Where a wave's time goes (`profiled`), for each of `waves`."""
     for wave in waves:
         desc = f"{len(wave)}x{len(wave[0].prompt)}+{wave[0].max_new_tokens}"
-        profiled(f"wave {desc}", lambda: engine.serve(wave, len(wave)),
-                 host_ops)
+        profiled(f"wave {desc}", lambda: engine.serve(wave, len(wave)))
 
 
-def profiled(desc: str, fn, host_ops: bool = True) -> None:
+def profiled(desc: str, fn) -> None:
     """torch.profiler over one call of `fn`: device busy time (sum of kernel
     times on the one stream) against the wall time, and the kernels that
     take most of it. The profiler's own host cost inflates the wall time,
-    so the idle share here is an upper bound. `host_ops=False` records the
-    device activity alone, which keeps a call of some 500,000 launches
-    cheap to trace."""
+    so the idle share here is an upper bound. It records the device's
+    activity alone (nothing here reads the host's ops): recording those too
+    took stablelm's 35,000 launches a wave 23.7-24.0 s to trace, gemma3's
+    some 82,000 about a minute."""
     from torch.profiler import ProfilerActivity, profile
-    activities = [ProfilerActivity.CUDA]
-    if host_ops:
-        activities.append(ProfilerActivity.CPU)
     torch.cuda.synchronize()
     t_trace = time.perf_counter()
-    with profile(activities=activities) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -2645,8 +2678,7 @@ def _remat_breakdown(cfg, params, batch: int, shards: int) -> None:
         profiled(f"train step {batch}x{PROFILE_SEQ_LEN} in {shards} shards, "
                  f"remat_policy {policy!r}",
                  lambda: train_lm(c, 1, batch, PROFILE_SEQ_LEN, shards,
-                                  params=params, sync=True),
-                 host_ops=False)
+                                  params=params, sync=True))
     mean = {p: statistics.mean(ms) for p, ms in step.items()}
     extra = mean[cfg.remat_policy] - mean["full"]
     log(f"[train] remat at {batch}x{PROFILE_SEQ_LEN} in {shards} shards "
@@ -2886,7 +2918,9 @@ def train_mixtral() -> dict:
 # remat_policy: (arch, depth cut or None, global batch, seq_len, params).
 # Widths are never cut. B x S is chosen to fit the card beside the state:
 # flash's recompute backward holds (B,H,S,S) fp32 scores a layer (MLA's 128
-# heads: 2.1 GB a 1x2048); xlstm runs short (its eager sLSTM loop, A4).
+# heads: 2.1 GB a 1x2048); xlstm runs short (its eager sLSTM loop, A4), and
+# is cut from 12 layers to 2 (one sLSTM, one mLSTM) for the run's time, as
+# phases 5 and 7 are: whole, its 4 steps took about 10 s.
 LAUNCH_TRAIN = (
     ("stablelm-1.6b", None, 2, 2048, 1_644_267_520),
     ("internvl2-2b", None, 2, 2048, 1_893_828_608),
@@ -2895,7 +2929,7 @@ LAUNCH_TRAIN = (
     ("phi3-medium-14b", 4, 1, 2048, 2_390_799_360),
     ("mistral-large-123b", 2, 1, 2048, 3_573_608_448),
     ("deepseek-v2-236b", 2, 1, 2048, 5_327_221_760),
-    ("xlstm-125m", None, 2, 128, 141_742_896),
+    ("xlstm-125m", 2, 2, 128, 56_064_776),
 )
 # 1 warm-up step, then the timed ones
 LAUNCH_STEPS = 4
@@ -3372,7 +3406,7 @@ class ShardedCase(NamedTuple):
     `seq_len`."""
     label: str
     arch: str
-    layers: Optional[int]
+    layers: Optional[int]     # the decoder's and an encoder's alike
     mesh: tuple
     batch: int
     seq_len: int
@@ -3411,6 +3445,14 @@ class ShardedCase(NamedTuple):
 # the chunked one.
 # xlstm-125m is cut from 12 layers to 2 (one sLSTM, one mLSTM): a rank
 # holds 2 of 4 heads of each cell (mlstm_scan at 2 heads of 384).
+# seamless-m4t-medium is cut from 12 encoder and 12 decoder layers to 2 and
+# 2: a rank holds 8 of 16 heads of the encoder's self-attention, the
+# decoder's and its cross-attention (flash non-causal, 2048 decoder rows
+# over 2048 encoder keys), 128,256 columns of the untied head, whose
+# padded 256,512 entries take the chunked loss at 2048 positions.
+# internvl2-2b is cut from 24 layers to 2: over (1, 4) a rank holds 4 of
+# 16 query heads over 2 of 8 KV heads, and rank 0's 512 positions of the
+# 2048 hold the 256 image rows and the first 256 tokens.
 SHARDED_TRAIN = (
     ShardedCase("stablelm-1.6b cut to 2 layers", "stablelm-1.6b", 2, (2, 2),
                 2, 2048),
@@ -3427,6 +3469,11 @@ SHARDED_TRAIN = (
                 "gemma3-12b", 6, (1, 4), 1, 2048),
     ShardedCase("xlstm-125m cut to 2 layers, sLSTM and mLSTM heads over "
                 "model", "xlstm-125m", 2, (2, 2), 2, 128),
+    ShardedCase("seamless-m4t-medium cut to 2 encoder and 2 decoder layers, "
+                "the untied chunked loss", "seamless-m4t-medium", 2, (2, 2),
+                2, 2048),
+    ShardedCase("internvl2-2b cut to 2 layers, image tokens on rank 0",
+                "internvl2-2b", 2, (1, 4), 1, 2048),
 )
 # 1 warm-up step, then the timed ones, on both sides
 SHARDED_STEPS = 3
@@ -3484,7 +3531,11 @@ def _sharded_config(case: ShardedCase):
     from repro_torch.launch.train import launch_config
     cfg = launch_config(case.arch, True) if case.smoke \
         else get_config(case.arch)
-    return cfg.scaled(num_layers=case.layers) if case.layers else cfg
+    if not case.layers:
+        return cfg
+    if cfg.encoder_layers:
+        cfg = cfg.scaled(encoder_layers=case.layers)
+    return cfg.scaled(num_layers=case.layers)
 
 
 def _rank_heads(cfg, model: int) -> tuple:
@@ -3543,20 +3594,31 @@ def _sharded_rank(rank: int, world: int, backend: str, case: int,
     from repro_torch.tree import tree_map
     sc = SHARDED_TRAIN[case]
     work = Path(work)
+    # wall times of this rank's steps for the log: imported (spawned during
+    # the case before), the case started, the group up, the card free
+    marks = {"imported": time.time()}
+
+    def wait_for(name: str, what: str, timeout: float = SHARDED_TIMEOUT_S
+                 ) -> None:
+        deadline = time.monotonic() + timeout
+        while not (work / name).exists():
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"the phase did not {what}")
+            time.sleep(0.05)
+    # spawned while the case before runs: nothing touches the card or the
+    # group until this case starts
+    wait_for("start", "start this case", SHARDED_TIMEOUT_S * len(
+        SHARDED_TRAIN))
+    marks["started"] = time.time()
     torch.cuda.set_device(rank % torch.cuda.device_count())
     dist.init_process_group(backend, init_method=f"file://{work}/rdv",
                             rank=rank, world_size=world,
                             timeout=timedelta(seconds=SHARDED_TIMEOUT_S))
-
-    def wait_for(name: str, what: str) -> None:
-        deadline = time.monotonic() + SHARDED_TIMEOUT_S
-        while not (work / name).exists():
-            if time.monotonic() > deadline:
-                raise TimeoutError(f"the one-card step did not {what}")
-            time.sleep(0.05)
+    marks["group"] = time.time()
     if not sc.routes_from_ranks:
         # started beside the one-card step: train once it has finished
-        wait_for("go", "finish")
+        wait_for("go", "finish the one-card step")
+    marks["go"] = time.time()
     cfg = _sharded_config(sc)
     mesh = Mesh(mesh_shape, ("data", "model"))
     comm = Comm(mesh)
@@ -3587,6 +3649,7 @@ def _sharded_rank(rank: int, world: int, backend: str, case: int,
         norms.append(metrics["grad_norm"])
         per_step.append(comm.stats.snapshot())
         comm.stats.reset()
+        marks.setdefault("first step queued", time.time())
     # the blocks that start at 0 everywhere (SHARDED_GATES)
     zero = set()
 
@@ -3605,6 +3668,7 @@ def _sharded_rank(rank: int, world: int, backend: str, case: int,
                    on_state=on_state)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
+    marks["trained"] = time.time()
     if sc.routes_from_ranks and comm.coords["model"] == 0:
         # every call's experts of this data block, for the one-card step
         torch.save(routes, work / f"calls{comm.coords['data']}.pt")
@@ -3616,7 +3680,8 @@ def _sharded_rank(rank: int, world: int, backend: str, case: int,
         ends.clear()
         release_memory()
         (work / f"trained{rank}").touch()
-    wait_for("ref_done", "write its state")
+    wait_for("ref_done", "write the one-card step's state")
+    marks["ref"] = time.time()
     # this rank's block of each updated leaf and of AdamW's first moment
     # against the one-card step's
     ref = torch.load(work / "ref.pt", mmap=True, weights_only=True)
@@ -3666,7 +3731,8 @@ def _sharded_rank(rank: int, world: int, backend: str, case: int,
         "mlstm_launches": mlstm.launches, "mlstm_calls": len(mlstm_seen),
         "mlstm_shapes": sorted(set(mlstm_seen)), "batch_block": rows,
         "bytes": per_step, "step_ms": step_ms, "wall_s": wall_s,
-        "zero_m": zero_m, "max_memory_allocated": peak}))
+        "zero_m": zero_m, "max_memory_allocated": peak,
+        "marks": dict(marks, compared=time.time())}))
     dist.destroy_process_group()
 
 
@@ -3831,9 +3897,10 @@ def _embed_grad_rounding(cfg, ranks: int, batch: int, seq_len: int) -> dict:
 
 def _start_ranks(case: int, mesh_shape: tuple, backend: str,
                  work: Path) -> list:
-    """Starts the case's ranks (spawn), each on card `rank % count`; they
-    train once `work/go` exists, or at once where the case's one-card step
-    runs after them (`routes_from_ranks`)."""
+    """Starts the case's ranks (spawn), each on card `rank % count`; once
+    `work/start` exists they join their group and train once `work/go`
+    exists, or at once where the case's one-card step runs after them
+    (`routes_from_ranks`)."""
     import torch.multiprocessing as tmp
     for pattern in ("rank*.json", "routes*.pt", "trained*"):
         for f in work.glob(pattern):
@@ -4005,11 +4072,13 @@ def _check_sharded(case: int, ref: dict, ranks: list, mesh_shape: tuple,
         f"({ref['ssm_launches']} on one card); mlstm_scan {mlstms} a rank "
         f"on (B, H, S, hd) {mlstm_shape} ({ref['mlstm_launches']} on one "
         f"card)")
+    start = (work / "start").stat().st_mtime
     for r in ranks:
+        marks = {k: round(t - start, 1) for k, t in r["marks"].items()}
         log(f"[sharded]   rank {r['rank']} card {r['card']}: "
             f"max_memory_allocated {r['max_memory_allocated']} bytes; step "
             f"ms (CUDA events between step ends) {r['step_ms']}; train() "
-            f"{r['wall_s']:.1f} s")
+            f"{r['wall_s']:.1f} s; s from the case's start {marks}")
     log(f"[sharded]   bytes a step a rank by kind (ring model), each rank: "
         f"{ranks[0]['bytes'][-1]}; the dry run at this mesh and shape: "
         f"{plan}; the one-card step's ms {ref['step_ms']}, peak "
@@ -4040,48 +4109,74 @@ def _check_sharded(case: int, ref: dict, ranks: list, mesh_shape: tuple,
                                      for r in ranks}}
 
 
+def _spawn_case(case: int) -> tuple:
+    """The case's work directory, made anew, and its gloo ranks, spawned:
+    they import while the case before runs, and wait for `start`."""
+    work = SHARDED_DIR / str(case)
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    return work, _start_ranks(case, SHARDED_TRAIN[case].mesh, "gloo", work)
+
+
 def sharded_phase() -> dict:
     """Phase 10: each SHARDED_TRAIN case over its mesh of gloo ranks on
     this machine's cards (phase 1 built the kernels: the ranks load them),
     held to the one-card step; where there are 2 cards or more, the first
-    case also over nccl, one rank a card."""
+    case also over nccl, one rank a card. A case's ranks are spawned when
+    the case before starts: their start-up overlaps it."""
     out = {}
     count = torch.cuda.device_count()
-    for case, sc in enumerate(SHARDED_TRAIN):
-        work = SHARDED_DIR / str(case)
-        shutil.rmtree(work, ignore_errors=True)
-        work.mkdir(parents=True)
-        t0 = time.perf_counter()
-        procs = _start_ranks(case, sc.mesh, "gloo", work)
-        try:
-            if sc.routes_from_ranks:
-                _wait_trained(case, procs, work)
-            ref = _sharded_reference(case, work)
-        except BaseException:
-            _stop(procs)
-            raise
-        ranks = _join_ranks(case, procs, "gloo", work)
-        out[sc.label] = _check_sharded(case, ref, ranks, sc.mesh, "gloo",
-                                       work)
-        if sc.mesh[0] > 1 and not sc.smoke:
-            out[sc.label]["embed_grad_rounding"] = r = _embed_grad_rounding(
-                _sharded_config(sc), sc.mesh[0], sc.batch, sc.seq_len)
-            log(f"[sharded] {sc.label}: the embedding table's bf16 gradient "
-                f"(top token {r['top_token_hits']} times), shares of its "
-                f"largest entry: the whole batch {r['whole']} and the "
-                f"{sc.mesh[0]} data ranks' rows summed {r['ranks']} from "
-                f"the float64 sum, {r['whole_vs_ranks']} apart")
-        log(f"[time] sharded {sc.label}: {time.perf_counter() - t0:.1f} s")
-        if case == 0 and count >= 2:
-            nccl = ((2, 2) if count >= 4 else (1, 2))
-            ranks = _join_ranks(case, _start_ranks(case, nccl, "nccl", work),
-                                "nccl", work)
-            out[f"{sc.label} nccl"] = _check_sharded(case, ref, ranks, nccl,
-                                                     "nccl", work)
-        elif case == 0:
-            log(f"[sharded] nccl: {count} card on this machine; one rank a "
-                "card needs 2 or more, not run")
-        shutil.rmtree(work, ignore_errors=True)
+    nxt = _spawn_case(0)
+    try:
+        for case, sc in enumerate(SHARDED_TRAIN):
+            work, procs = nxt
+            t0 = time.perf_counter()
+            (work / "start").touch()
+            nxt = (_spawn_case(case + 1) if case + 1 < len(SHARDED_TRAIN)
+                   else None)
+            out.update(_sharded_case(case, work, procs, count, t0))
+    finally:
+        if nxt is not None:
+            _stop(nxt[1])
+    return out
+
+
+def _sharded_case(case: int, work: Path, procs: list, count: int,
+                  t0: float) -> dict:
+    """One case of phase 10 from its started ranks: the one-card step, the
+    ranks joined and checked; the first case over nccl too where there are
+    2 cards or more."""
+    sc = SHARDED_TRAIN[case]
+    out = {}
+    try:
+        if sc.routes_from_ranks:
+            _wait_trained(case, procs, work)
+        ref = _sharded_reference(case, work)
+    except BaseException:
+        _stop(procs)
+        raise
+    ranks = _join_ranks(case, procs, "gloo", work)
+    out[sc.label] = _check_sharded(case, ref, ranks, sc.mesh, "gloo",
+                                   work)
+    if sc.mesh[0] > 1 and not sc.smoke:
+        out[sc.label]["embed_grad_rounding"] = r = _embed_grad_rounding(
+            _sharded_config(sc), sc.mesh[0], sc.batch, sc.seq_len)
+        log(f"[sharded] {sc.label}: the embedding table's bf16 gradient "
+            f"(top token {r['top_token_hits']} times), shares of its "
+            f"largest entry: the whole batch {r['whole']} and the "
+            f"{sc.mesh[0]} data ranks' rows summed {r['ranks']} from "
+            f"the float64 sum, {r['whole_vs_ranks']} apart")
+    log(f"[time] sharded {sc.label}: {time.perf_counter() - t0:.1f} s")
+    if case == 0 and count >= 2:
+        nccl = ((2, 2) if count >= 4 else (1, 2))
+        ranks = _join_ranks(case, _start_ranks(case, nccl, "nccl", work),
+                            "nccl", work)
+        out[f"{sc.label} nccl"] = _check_sharded(case, ref, ranks, nccl,
+                                                 "nccl", work)
+    elif case == 0:
+        log(f"[sharded] nccl: {count} card on this machine; one rank a "
+            "card needs 2 or more, not run")
+    shutil.rmtree(work, ignore_errors=True)
     return out
 
 
@@ -4751,6 +4846,138 @@ def _drift_recovery(seed: int) -> None:
                              f"{s['stream_batches']} < {num}")
 
 
+# A replica's wave interval (the end of its last wave to the end of this
+# one) at least this long is a stall; the runs' intervals are 2-6 ms.
+STALL_MS = 20.0
+# the latency timeline's bins
+TIMELINE_BIN_S = 0.1
+
+
+class _StreamTimeline:
+    """What a stream run's replicas did against wall time, for the log:
+    each wave's start, end and its requests' latencies (`OnlineServingEngine.
+    serve`), each swap's ms (`maybe_swap`, inside its wave), each Python
+    collection's generation, ms and the objects it freed and could not
+    free (`gc.callbacks`). Installed around one run, removed after it."""
+
+    def __enter__(self):
+        from repro_torch.streaming import pipeline as pl
+        self._cls = pl.OnlineServingEngine
+        self._real = (self._cls.serve, self._cls.maybe_swap)
+        serve, swap = self._real
+        self.waves, self.swaps, self.gcs = [], [], []
+        self._gc_start = None
+
+        def timed_serve(eng, requests, max_wave=8):
+            a = time.perf_counter()
+            out = serve(eng, requests, max_wave)
+            self.waves.append((id(eng), a, time.perf_counter(),
+                               [r.latency_s for r in out]))
+            return out
+
+        def timed_swap(eng):
+            a = time.perf_counter()
+            ok = swap(eng)
+            self.swaps.append((a, time.perf_counter() - a, ok))
+            return ok
+        self._cls.serve, self._cls.maybe_swap = timed_serve, timed_swap
+        gc.callbacks.append(self._on_gc)
+        self.t0 = time.perf_counter()
+        return self
+
+    def _on_gc(self, phase, info):
+        now = time.perf_counter()
+        if phase == "start":
+            self._gc_start = now
+        elif self._gc_start is not None:
+            self.gcs.append((self._gc_start, now - self._gc_start,
+                             info["generation"], info["collected"],
+                             info["uncollectable"]))
+
+    def __exit__(self, *exc):
+        self.t1 = time.perf_counter()
+        self._cls.serve, self._cls.maybe_swap = self._real
+        gc.callbacks.remove(self._on_gc)
+
+    def summary(self) -> dict:
+        """The stalls (a replica's wave interval of STALL_MS or more), each
+        put down to the collections that overlap it where they took half of
+        it, else to a swap of its wave that took half of it, else to
+        neither; the collections and
+        swaps; and per TIMELINE_BIN_S of wall time the requests completed,
+        their largest latency, the collections' ms."""
+        t0, ms = self.t0, 1e3
+        stalls = {"collection": [], "swap": [], "neither": []}
+        last = {}
+        for eng, a, b, _ in sorted(self.waves, key=lambda w: w[2]):
+            prev = last.get(eng, a)
+            last[eng] = b
+            if (b - prev) * ms < STALL_MS:
+                continue
+            gcs = [g for g in self.gcs if g[0] < b and g[0] + g[1] > prev]
+            swaps = [s for s in self.swaps if a <= s[0] <= b]
+            # [from, interval, of it the wave's own] ms
+            entry = [round((prev - t0) * ms, 1), round((b - prev) * ms, 1),
+                     round((b - a) * ms, 1)]
+            if sum(g[1] for g in gcs) * 2 >= b - prev:
+                stalls["collection"].append(entry + [
+                    [(g[2], round(g[1] * ms, 1)) for g in gcs]])
+            elif swaps and max(s[1] for s in swaps) * 2 >= b - prev:
+                stalls["swap"].append(entry + [
+                    round(max(s[1] for s in swaps) * ms, 1)])
+            else:
+                stalls["neither"].append(entry)
+        bins = {}
+        for _, _, b, lat in self.waves:
+            k = int((b - t0) / TIMELINE_BIN_S)
+            n, top = bins.get(k, (0, 0.0))
+            bins[k] = (n + len(lat), max([top] + [x * ms for x in lat]))
+        gc_bins = {}
+        for a, d, *_ in self.gcs:
+            k = int((a - t0) / TIMELINE_BIN_S)
+            gc_bins[k] = gc_bins.get(k, 0.0) + d * ms
+        swap_ms = sorted(s[1] * ms for s in self.swaps)
+        return {
+            "wall_ms": round((self.t1 - t0) * ms, 1),
+            "waves": len(self.waves),
+            "stalls": {k: len(v) for k, v in stalls.items()},
+            "stall_ms": {k: round(sum(e[1] for e in v), 1)
+                         for k, v in stalls.items()},
+            "stall_list": stalls,
+            # (generation, at ms, ms, freed, not freeable)
+            "collections": [(g[2], round((g[0] - t0) * ms, 1),
+                             round(g[1] * ms, 2), g[3], g[4])
+                            for g in self.gcs if g[2] > 0 or g[1] * ms >= 1.0],
+            "gen0_collections": sum(1 for g in self.gcs if g[2] == 0),
+            "collection_ms": round(sum(g[1] for g in self.gcs) * ms, 1),
+            "swaps": len(self.swaps),
+            "swap_ms_p50_max_sum": (
+                [round(statistics.median(swap_ms), 3),
+                 round(swap_ms[-1], 3), round(sum(swap_ms), 1)]
+                if swap_ms else []),
+            "timeline": [(round(k * TIMELINE_BIN_S, 1), n, round(top, 1),
+                          round(gc_bins.get(k, 0.0), 1))
+                         for k, (n, top) in sorted(bins.items())]}
+
+
+def _heap_and_threads(what: str) -> None:
+    """Logs the threads alive and the heap the collector tracks: objects,
+    the generations' counts, the frozen count, the commonest types."""
+    import collections
+    import threading
+    names = collections.Counter(
+        t.name.rstrip("0123456789").rstrip("-_") or t.name
+        for t in threading.enumerate())
+    objs = gc.get_objects()
+    kinds = collections.Counter(type(o).__name__ for o in objs)
+    log(f"[stream] {what}: threads {len(threading.enumerate())} "
+        f"{dict(names)}; tracked objects {len(objs)}, gc counts "
+        f"{gc.get_count()}, thresholds {gc.get_threshold()}, frozen "
+        f"{gc.get_freeze_count()}; commonest types "
+        f"{kinds.most_common(12)}")
+    del objs
+
+
 def _hotswap_overhead(seed: int) -> None:
     from repro_torch import core
     from repro_torch.streaming.sources import StreamConfig
@@ -4761,10 +4988,13 @@ def _hotswap_overhead(seed: int) -> None:
         try:
             p = _stream_pipeline(StreamConfig(dim=16, batch=32, seed=seed,
                                               interval_s=0.01), swap=swap)
-            rep = p.run(num)
+            with _StreamTimeline() as tl:
+                rep = p.run(num)
             p.close()
         finally:
             core.shutdown()
+        log(f"[stream] hotswap_overhead ({arm}) timeline: "
+            f"{json.dumps(tl.summary())}")
         _check_stream_run(f"hotswap_overhead ({arm})", rep, num)
         slo = rep["slo"]
         if slo["completed_ok"] <= 0:
@@ -4896,6 +5126,7 @@ def _learner_kill(seed: int) -> None:
 def streaming() -> None:
     """Phase 8b: stream_bench.py's four scenarios on the port's plane, at
     its CI seed."""
+    _heap_and_threads("phase 8b starts")
     for name, fn in (("drift_recovery", _drift_recovery),
                      ("hotswap_overhead", _hotswap_overhead),
                      ("churn_plateau", _churn_plateau),

@@ -44,6 +44,10 @@ recomputation's included, and counts:
                    over `model` are all-reduced, or under Megatron-SP
                    reduce-scattered and all-gathered again before the next
                    column-parallel product;
+                 - at the "enc_in" constraint (the encoder's input,
+                   `frame_proj`'s column blocks) as at "btd", but under
+                   Megatron-SP an all-to-all from the column blocks to
+                   the rank's positions in place of the reduce-scatter;
                  - at the "logits" constraint of a train or prefill step,
                    vocab-parallel logits become sequence-parallel: an
                    all-to-all over `model`;
@@ -551,6 +555,14 @@ class Trace(TorchDispatchMode):
                        ("all-gather", tp, per_dev, full, "sp residual")]
                 bwd = [("reduce-scatter", tp, full, per_dev, "sp residual"),
                        ("all-gather", tp, per_dev, full, "sp residual")]
+            else:
+                fwd = bwd = [("all-reduce", tp, full, full, "residual")]
+        elif name == "enc_in":
+            if tp in other:        # column blocks to the rank's positions
+                fwd = [("all-to-all", tp, per_dev, per_dev, "enc in"),
+                       ("all-gather", tp, per_dev, full, "sp residual")]
+                bwd = [("reduce-scatter", tp, full, per_dev, "sp residual"),
+                       ("all-to-all", tp, per_dev, per_dev, "enc in")]
             else:
                 fwd = bwd = [("all-reduce", tp, full, full, "residual")]
         elif name == "logits" and rules.shape.kind != "decode":

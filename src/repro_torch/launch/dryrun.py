@@ -36,10 +36,10 @@ What a record holds, per device of the plan:
     layer's aux sums, the gradients' reduce-scatter and all-reduce, the
     loss's and the norm's sums), with the ring model's bytes. A train step
     that `launch.train` executes over a process group (`executes`: the
-    configs `sharding.check_executable` passes: all but seamless and
-    internvl2) is traced as rank 0 runs it instead, on its blocks and
-    rows, with its own collectives (`collectives.PlanComm`;
-    `collectives_from` says which): its FLOPs, bytes and peak are then a
+    configs `sharding.check_executable` passes, every train cell but
+    phi3's, whose 40 heads the model axis of 16 cuts) is traced as rank 0
+    runs it instead, on its blocks and rows, with its own collectives
+    (`collectives.PlanComm`; `collectives_from` says which): its FLOPs, bytes and peak are then a
     device's own (`divisor` 1). `collective_bytes_dcn` the groups over
     the `pod` axis alone (as the reference counts DCN),
     `collective_bytes_off_node` the groups that leave an 8-card NVLink node

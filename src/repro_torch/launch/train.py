@@ -20,13 +20,17 @@ over `parallel.collectives.Comm`): one rank a card over `nccl` at
 `--mesh host` is the reference's pure FSDP mesh (world, 1); `single` and
 `multi` are the production plans and run when the world has their 256 or
 512 ranks (`repro_torch.launch.dryrun` traces a step under either plan
-without devices). Over more than one rank the dense decoders, mixtral
-(MoE, sliding window), jamba (Mamba, MoE, no sequence parallelism),
-deepseek-v2 (MLA), xlstm-125m (the xLSTM cells) and gemma3-12b (the tied,
-chunked head) run (`sharding.check_executable`); seamless and internvl2
-raise naming their ROADMAP item. The config's `remat_policy` and `train_microbatch` hold as the model
-and the step read them; `--smoke` takes the reduced config in fp32
-without microbatches.
+without devices). Over more than one rank every arch runs on a mesh
+whose model axis splits its heads whole (`sharding.check_executable`;
+phi3's 40 heads do not split over the production plans' 16): the dense
+decoders, mixtral (MoE, sliding window), jamba (Mamba, MoE, no sequence
+parallelism), deepseek-v2 (MLA), xlstm-125m (the xLSTM cells), gemma3-12b
+(the tied, chunked head), seamless (the encoder, cross-attention and
+`frames`, the untied chunked head) and internvl2 (image rows before the
+tokens); a rank takes its rows of every input of the batch (`tokens`,
+`frames`, `image_embeds`). The config's `remat_policy` and
+`train_microbatch` hold as the model and the step read them; `--smoke`
+takes the reduced config in fp32 without microbatches.
 """
 from __future__ import annotations
 

@@ -21,6 +21,7 @@ are ring buffers of size `window` with per-slot absolute positions;
 `slot_pos == -1` marks a free slot. The reference's `blockwise_sdpa` has no
 counterpart: full-sequence attention takes the kernel instead. Under
 executing sharding rules (`attention_forward(..., tp=)`, `mla_forward(...,
+tp=)`, `cross_attention_forward(..., tp=)` with `encode_cross_kv(...,
 tp=)`) the same body computes a rank's own heads, and flash runs on
 those.
 """
@@ -249,16 +250,24 @@ def attention_decode(params: Params, cfg: ModelConfig, x, cache: Params,
 # ========================================================== cross-attention
 
 def cross_attention_forward(params: Params, cfg: ModelConfig, x,
-                            enc_kv: Params) -> torch.Tensor:
+                            enc_kv: Params, tp=None) -> torch.Tensor:
     """x: (B,S,d) decoder states; enc_kv: dict(k, v) of (B,T,kv,hd). Every
     row sees every key (the reference's `causal=False` with no window), so
-    this is the flash kernel non-causal, S rows over T keys."""
+    this is the flash kernel non-causal, S rows over T keys. `tp` places
+    it as `attention_forward`'s: all heads (`Local`), or under executing
+    `ShardingRules` a rank's: q from the decoder stream entered
+    (`tp.enter`) on the rank's columns of w_q, k and v the rank's KV heads
+    over the whole encoder sequence (`encode_cross_kv` with the same
+    `tp`), the rank's rows of w_o, the partial sums out (`tp.exit`)."""
+    tp = Local(cfg.head_dim) if tp is None else tp
+    x = tp.enter(x)
     B, S, _ = x.shape
-    q = (x @ params["w_q"]).reshape(B, S, cfg.num_heads, cfg.head_dim)
+    h = cfg.num_heads // tp.tp_size
+    q = tp.linear(x, params["w_q"], "w_q").reshape(B, S, h, cfg.head_dim)
     out = flash_attention(q.transpose(1, 2), enc_kv["k"].transpose(1, 2),
                           enc_kv["v"].transpose(1, 2), causal=False)
-    out = out.transpose(1, 2).reshape(B, S, cfg.num_heads * cfg.head_dim)
-    return out @ params["w_o"]
+    out = out.transpose(1, 2).reshape(B, S, h * cfg.head_dim)
+    return tp.exit(tp.linear(out, params["w_o"], "w_o"))
 
 
 def cross_attention_decode(params: Params, cfg: ModelConfig, x,
@@ -279,11 +288,16 @@ def cross_attention_decode(params: Params, cfg: ModelConfig, x,
     return out @ params["w_o"]
 
 
-def encode_cross_kv(params: Params, cfg: ModelConfig, enc_out) -> Params:
-    B, T, _ = enc_out.shape
-    kv, hd = cfg.num_kv_heads, cfg.head_dim
-    return {"k": (enc_out @ params["w_k"]).reshape(B, T, kv, hd),
-            "v": (enc_out @ params["w_v"]).reshape(B, T, kv, hd)}
+def encode_cross_kv(params: Params, cfg: ModelConfig, enc_out,
+                    tp=None) -> Params:
+    """The cross keys and values (B,T,kv,hd) of the encoder output: every
+    KV head (`Local`), or under executing `ShardingRules` those of the
+    rank's query heads (`tp.kv_heads`), from the encoder output whole
+    along its sequence."""
+    tp = Local(cfg.head_dim) if tp is None else tp
+    h = cfg.num_heads // tp.tp_size
+    return {name: tp.kv_heads(tp.linear(enc_out, params[w], w), h)
+            for name, w in (("k", "w_k"), ("v", "w_v"))}
 
 
 # ===================================================================== MLA

@@ -63,11 +63,17 @@ mixer, xLSTM cell and FFN (SwiGLU or MoE) compute the rank's heads,
 `d_inner` channels, `d_ff` columns or experts on the residual stream the
 rules move (`enter`, `exit`), each layer seeing the rules at its path in
 the params (`ShardingRules.at`); a MoE layer's aux losses are already the
-global batch's; a tied head reads the rank's rows of the table the lookup
-gathered; and the loss is taken on the rank's positions of the
-sequence-parallel logits, or where the chunked loss applies over the
-rank's vocab columns chunk by chunk (`_vocab_parallel_xent`), and summed
-over every rank. Forward, prefill and
+global batch's; an encoder's layers run as the decoder's (at
+"encoder/layers") from `frame_proj`'s column blocks, its output is
+entered whole along the sequence once and every decoder layer's
+cross-attention takes its rank's heads of it; image rows go before the
+tokens in one reduction into the residual stream (`_rank_inputs`); a
+tied head reads the rank's rows of the table the lookup gathered, an
+untied one its `lm_head` columns; and the loss is taken on the rank's
+positions of the sequence-parallel logits (image positions predict
+nothing), or where the chunked loss applies over the rank's vocab
+columns chunk by chunk (`_vocab_parallel_xent`), and summed over every
+rank. Forward, prefill and
 decode stay world-size-1 paths. The remat's recompute stops, as at world
 size 1, once it has remade what the backward needs: the reduce-scatter
 or all-reduce of a group's output does not run again (its last product,
@@ -334,8 +340,9 @@ class Model:
         mix_in = rmsnorm(lp["pre_norm"], h, cfg.norm_eps)
         h = self._act(h + self._mix(lp, kind, mix_in, tp))
         if enc_out is not None and "cross" in lp:
+            ctp = None if tp is None else tp.at("cross")
             h = self._act(self._cross(lp, h, attn.encode_cross_kv(
-                lp["cross"], cfg, enc_out)))
+                lp["cross"], cfg, enc_out, ctp), ctp))
         return self._ffn_act(lp, ffn, h, aux, tp)
 
     def _ffn_act(self, lp: Params, kind: str, h, aux=None, tp=None):
@@ -343,25 +350,40 @@ class Model:
         out = self._ffn(lp, kind, h, aux, tp)
         return out if kind == NONE else self._act(out)
 
-    def _cross(self, lp: Params, h, enc_kv):
-        """h + cross-attention to the encoder's keys and values."""
+    def _cross(self, lp: Params, h, enc_kv, tp=None):
+        """h + cross-attention to the encoder's keys and values (`tp`: the
+        executing rules at the layer's `cross`)."""
         c_in = rmsnorm(lp["cross_norm"], h, self.cfg.norm_eps)
         return h + attn.cross_attention_forward(lp["cross"], self.cfg, c_in,
-                                                enc_kv)
+                                                enc_kv, tp)
 
     def _encode(self, params: Params, frames):
         """The encoder: projected frames through its non-causal attention
-        layers with dense FFNs, then its final norm."""
+        layers with dense FFNs, then its final norm. Under executing rules
+        `frame_proj`'s column blocks go to the residual stream's layout:
+        under SP by an all-to-all to the rank's positions (`to_seq`); else
+        summed whole on every rank (`pad_cols`, `exit`), since there the
+        stream's gradient is whole on every rank and the all-reduce's
+        backward passes it to `pad_cols`, which takes the rank's columns.
+        Each layer computes its rank's heads and `d_ff` columns, as a
+        decoder layer does."""
         cfg = self.cfg
         enc = params["encoder"]
-        h = self._act(frames.to(params["frame_proj"].dtype)
-                      @ params["frame_proj"])
+        x = frames.to(params["frame_proj"].dtype)
+        if self.tp is None:
+            h = self._act(x @ params["frame_proj"], "enc_in")
+        else:
+            y = self.tp.linear(x, params["frame_proj"], "frame_proj")
+            h = (self.tp.to_seq(y) if self.tp.sequence_parallel
+                 else self.tp.exit(self.tp.pad_cols(y)))
+        tp = self._tp_at("encoder/layers")
 
         def enc_layer(lp, h):
             mix_in = rmsnorm(lp["pre_norm"], h, cfg.norm_eps)
-            h = self._act(h + attn.attention_forward(lp["mixer"], cfg,
-                                                     mix_in, causal=False))
-            return self._ffn_act(lp, DENSE, h)
+            h = self._act(h + attn.attention_forward(
+                lp["mixer"], cfg, mix_in, causal=False,
+                tp=None if tp is None else tp.at("mixer")))
+            return self._ffn_act(lp, DENSE, h, None, tp)
 
         for e in range(cfg.encoder_layers):
             h = self._remat(functools.partial(
@@ -374,25 +396,46 @@ class Model:
         gathered (`ShardingRules.vocab_rows`), for a tied head to read
         too."""
         cfg = self.cfg
+        enc_out = None
         if cfg.input_mode == "frames":
             enc_out = self._encode(params, batch["frames"])
-            return self._act(embed_tokens(params["embed"],
-                                          batch["tokens"])), enc_out
         if self.tp is not None:
-            if rows is None:
-                rows = self.tp.vocab_rows(params["embed"]["table"])
-            return self.tp.embed(rows, batch["tokens"]), None
+            return self._rank_inputs(params, batch, rows), enc_out
         h = embed_tokens(params["embed"], batch["tokens"])
         if cfg.input_mode == "tokens+image":
             img = batch["image_embeds"].to(params["img_proj"].dtype) \
                 @ params["img_proj"]
             h = torch.cat([img.to(h.dtype), h], dim=1)
-        return self._act(h), None
+        return self._act(h), enc_out
+
+    def _rank_inputs(self, params: Params, batch, rows=None):
+        """The decoder's input under executing rules, in the residual
+        stream's layout: the vocab-parallel lookup in the rank's rows of
+        the table (`rows`, gathered here where not given) and, for
+        `tokens+image`, `img_proj`'s column block of the image rows before
+        the tokens, zero outside the rank's columns (`pad_cols`): partial
+        sums over `model` that one `exit` reduces over the whole sequence
+        of image and token positions, so a rank's block of positions may
+        hold image rows, token rows or both."""
+        tp = self.tp
+        if rows is None:
+            rows = tp.vocab_rows(params["embed"]["table"])
+        h = tp.lookup(rows, batch["tokens"])
+        if self.cfg.input_mode != "tokens+image":
+            return tp.exit(h)
+        img = tp.pad_cols(tp.linear(
+            batch["image_embeds"].to(params["img_proj"].dtype),
+            params["img_proj"], "img_proj"))
+        return tp.exit(torch.cat([img.to(h.dtype), h], dim=1))
 
     def _hidden(self, params: Params, batch, rows=None):
         """Hidden states after the final norm, and the aux losses."""
         cfg = self.cfg
         h, enc_out = self._embed_inputs(params, batch, rows)
+        if enc_out is not None and self.tp is not None:
+            # whole along the sequence once for every decoder layer's cross
+            # keys and values: their gradients sum before it is carried back
+            enc_out = self.tp.enter(enc_out)
         aux = self._zero_aux(h.device)
         for j, lp in enumerate(params.get("first", [])):   # outside the remat
             h = self._layer_forward(lp, cfg.pattern[0], DENSE, h, aux,
@@ -520,24 +563,37 @@ class Model:
         total = loss + 0.01 * aux["moe_lb_loss"] + 1e-3 * aux["moe_z_loss"]
         return total, dict(aux, xent=loss)
 
+    def _label_count(self, b: int, s: int, n: int) -> int:
+        """The positions of `b` rows of `s` (`n` tokens a row) that predict
+        a token (`_labels_and_mask`'s mask summed, on the host)."""
+        if self.cfg.input_mode == "tokens+image":
+            p = self.cfg.num_image_tokens
+            return b * max(0, min(s, p - 1 + n) - max(0, p - 1))
+        return b * (s - 1)
+
     def _local_xent(self, params: Params, h, batch, rows=None):
         """`loss_fn`'s cross-entropy under executing rules: the final
         hidden states whole along the sequence (`tp.enter`) into the head's
-        vocab columns: an untied `lm_head`'s (`tp.linear`) or, tied, the
-        rank's rows of the table the lookup read (`rows`). Where
-        `loss_fn` takes the chunked loss, `_vocab_parallel_xent`; else the
-        logits to this rank's positions over the whole padded vocabulary
-        (`tp.to_seq`), the pad columns -1e30 and the softcap as
-        `softmax_xent` takes them, the summed loss of the positions that
-        predict a token (all but the last) reduced over every rank and
-        divided by the global count."""
+        vocab columns: an untied `lm_head`'s or, tied, the rank's rows of
+        the table the lookup read (`rows`). The labels and their mask are
+        `_labels_and_mask`'s (with images, position p-1+j predicts token j
+        and image positions predict nothing). Where `loss_fn` takes the
+        chunked loss, `_vocab_parallel_xent` over those vocab columns (an
+        untied head's gathered once a step, `tp.fsdp_gather`); else the
+        logits (`tp.linear`) to this rank's positions over the whole
+        padded vocabulary (`tp.to_seq`), the pad columns -1e30 and the
+        softcap as `softmax_xent` takes them, the summed loss of the
+        positions the mask keeps. Reduced over every rank and divided by
+        the global count of those positions."""
         cfg, tp = self.cfg, self.tp
-        tokens = batch["tokens"]
-        b, s = tokens.shape
-        count = b * tp.batch_split()[1] * (s - 1)
+        b, n = batch["tokens"].shape
         h = tp.enter(h)
+        s = h.shape[1]
+        count = self._label_count(b * tp.batch_split()[1], s, n)
+        labels, mask = self._labels_and_mask(batch, s)
         if padded_vocab(cfg) >= self.CHUNKED_LOSS_VOCAB and s > 1024:
-            labels, mask = self._labels_and_mask(batch, s)
+            if not cfg.tie_embeddings:
+                rows = tp.fsdp_gather(params["lm_head"], "lm_head").T
             return tp.reduce_loss(self._vocab_parallel_xent(
                 h, labels, mask, rows), count)
         logits = tp.to_seq(h @ rows.T if cfg.tie_embeddings else
@@ -550,20 +606,20 @@ class Model:
         if cfg.logit_softcap:
             lf = torch.tanh(lf / cfg.logit_softcap) * cfg.logit_softcap
         first = tp.seq_start(lf.shape[1])
-        pos = torch.arange(first, first + lf.shape[1], device=lf.device)
-        labels = tokens[:, torch.clamp(pos + 1, max=s - 1)]
+        block = slice(first, first + lf.shape[1])
         lse = torch.logsumexp(lf, dim=-1)
-        gold = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
-        total = torch.sum((lse - gold) * (pos < s - 1))
+        gold = torch.gather(lf, -1, labels[:, block].long()[..., None])[
+            ..., 0]
+        total = torch.sum((lse - gold) * mask[:, block])
         return tp.reduce_loss(total, count)
 
     def _vocab_parallel_xent(self, h, labels, mask, rows,
                              chunk: int = 1024):
-        """`_chunked_xent` under executing rules, the tied head's vocabulary
-        split over `model` (`rows`, the rank's rows of the table; an untied
-        head under the chunked loss is refused by `check_executable`,
-        ROADMAP A18): this rank's part of the summed loss, without
-        the (B,S,V) logits or their (B,S/M,V) block. h (B,S,d) is whole
+        """`_chunked_xent` under executing rules, the head's vocabulary
+        split over `model` (`rows`, the rank's (V/M, d) rows of the head:
+        of the tied table, or an untied `lm_head`'s columns transposed):
+        this rank's part of the summed loss, without the (B,S,V) logits or
+        their (B,S/M,V) block. h (B,S,d) is whole
         along the sequence; S goes in the reference's chunks of gcd(S,
         1024) positions, each recomputed in the backward (`checkpoint`).
         A chunk's logits are taken over the rank's vocab columns only,

@@ -22,10 +22,11 @@ whose backward all-gathers, an all-reduce whose backward is the identity
 and an all-to-all whose backward is the inverse all-to-all.
 `gathered_mm` is ZeRO-3's product with a sharded weight: the weight is
 all-gathered over its FSDP axes for the product and again for the
-backward, which reduce-scatters the weight's gradient; it is one
-dispatcher op (`torch.ops.repro_torch.gathered_mm`), so a selective remat
-that keeps products (`models.model.save_dots`) keeps its output and does
-not gather again.
+backward where the input takes a gradient (a projection of the data,
+`frame_proj` or `img_proj`, does not), which reduce-scatters the weight's
+gradient; it is one dispatcher op (`torch.ops.repro_torch.gathered_mm`),
+so a selective remat that keeps products (`models.model.save_dots`) keeps
+its output and does not gather again.
 
 `gather` brings every rank's tensor to one rank (a checkpoint's leaves
 to the rank that writes them). `close` forgets a Comm's sub-groups; a
@@ -452,8 +453,9 @@ def _gathered_mm_setup(ctx, inputs, output):
 def _gathered_mm_backward(ctx, g):
     comm, axes = _comm_of(ctx.key)
     x, w = ctx.saved_tensors
-    full = comm.all_gather(w, ctx.dim, axes)
-    gx = g @ full.transpose(-1, -2)
+    gx = None
+    if ctx.needs_input_grad[0]:     # an input from the data needs none
+        gx = g @ comm.all_gather(w, ctx.dim, axes).transpose(-1, -2)
     if w.dim() == 2:
         gw = x.reshape(-1, x.shape[-1]).T @ g.reshape(-1, g.shape[-1])
     else:                       # a batch of products (experts)
@@ -468,10 +470,10 @@ GATHERED_MM = torch.ops.repro_torch.gathered_mm.default
 
 def gathered_mm(comm: Comm, x, w, dim: int, axes):
     """`x @ w` with `w` sharded along `dim` over `axes`: the whole weight
-    gathered for the product and again in the backward, its gradient
-    reduce-scattered back to the shard. `w` is a matrix, or a batch of
-    them (E, K, N) that multiplies `x` (E, M, K). Without such axes,
-    `x @ w`."""
+    gathered for the product and again in the backward where `x` takes a
+    gradient, its gradient reduce-scattered back to the shard. `w` is a
+    matrix, or a batch of them (E, K, N) that multiplies `x` (E, M, K).
+    Without such axes, `x @ w`."""
     if comm.size(axes) == 1:
         return x @ w
     return _gathered_mm(x, w, dim, comm.key(axes))

@@ -37,8 +37,8 @@ the model runs rank-local (`models.model`, `models.attention`,
   * every weight is all-gathered over the FSDP axes of its spec at each
     use (`linear`, ZeRO-3's `collectives.gathered_mm`), its gradient
     reduce-scattered back to the shard;
-  * the embedding is vocab-parallel (`embed`: a masked lookup in the rank's
-    rows of the table, then `exit`); the LM head's vocab-parallel logits
+  * the embedding is vocab-parallel (`lookup`: a masked lookup in the
+    rank's rows of the table, then `exit`); the LM head's vocab-parallel logits
     go to the sequence-parallel `logits` layout by an all-to-all
     (`to_seq`), where each rank takes the loss of its positions;
   * KV heads the model axis does not divide (`_group_for_tp`'s expand
@@ -58,9 +58,23 @@ the model runs rank-local (`models.model`, `models.attention`,
     over `model` (`cols`) and `w_if` gathered whole (`models.xlstm`); an
     MLA layer gathers its latents whole and runs the rank's heads
     (`models.attention`);
+  * an encoder (`frames` inputs) runs its layers as the decoder's on the
+    residual stream's layout, from `frame_proj`'s column blocks moved
+    to the rank's positions under SP (`to_seq`), else summed whole
+    (`pad_cols`, then `exit`); its output is entered whole along
+    the sequence once, and every decoder layer's cross-attention takes
+    its rank's heads of the keys and values from it (`models.attention`);
+  * `tokens+image` inputs put the projected image rows before the
+    tokens: `img_proj`'s column blocks and the rank's part of the
+    token lookup (`lookup`) summed into the residual stream's layout over
+    the whole sequence by one `exit`, so a rank's block of positions may
+    hold image rows, token rows or both; image positions predict no token
+    in the loss;
   * a tied head reads the rank's rows of the table the lookup gathered
-    (`vocab_rows`); the chunked loss takes each chunk's log-sum-exp over
-    the ranks' vocab columns (`models.model`);
+    (`vocab_rows`), an untied one its `lm_head` columns (`linear`, or for
+    the chunked loss `fsdp_gather`, once a step); the chunked
+    loss takes each chunk's log-sum-exp over the ranks' vocab columns
+    (`models.model`);
   * after a microbatch's backward a gradient is all-reduced over the batch
     axes its spec leaves replicated, and over `model` too for a leaf
     `model` does not shard while its ranks' gradients differ: any such
@@ -529,32 +543,52 @@ class ShardingRules:
         m = self.comm.index(self.tp)
         return m * n // self.tp_size, (m + 1) * n // self.tp_size
 
+    def fsdp_gather(self, w, path: str):
+        """The block `w` of the leaf at `path` all-gathered over the FSDP
+        axes of its spec, still split over `model` where the spec says (the
+        backward reduce-scatters the gradient): an untied `lm_head`'s vocab
+        columns whole along `d_model`, once a step for every chunk of the
+        chunked loss."""
+        dim, axes = self._fsdp_dim(path)
+        return c.all_gather(self.comm, w, dim, axes) if dim >= 0 else w
+
     def vocab_rows(self, table):
-        """This rank's rows of the embedding table, whole along `d_model`:
-        its block all-gathered over the FSDP axes of its spec (the
-        backward reduce-scatters the gradient). A tied head reads the copy
-        the lookup read: one gather a step for both."""
-        dim, axes = self._fsdp_dim("embed/table")
-        return c.all_gather(self.comm, table, dim, axes) \
-            if dim >= 0 else table
+        """This rank's rows of the embedding table, whole along `d_model`
+        (`fsdp_gather`). A tied head reads the copy the lookup read: one
+        gather a step for both."""
+        return self.fsdp_gather(table, "embed/table")
 
     def vocab_start(self, rows: int) -> int:
         """The first vocabulary entry of this rank's `rows`."""
         return self.comm.index(self.tp) * rows
 
-    def embed(self, rows, tokens):
-        """The vocab-parallel lookup in this rank's rows of the table
-        (`vocab_rows`): the tokens outside them zero, the partial sums over
-        `model` reduced by `exit`."""
+    def lookup(self, rows, tokens):
+        """This rank's part of the vocab-parallel lookup of `tokens`: their
+        rows where this rank's rows of the table (`vocab_rows`) hold them,
+        zero elsewhere; `exit` sums the parts over `model` into the
+        residual stream."""
         n = rows.shape[0]
         idx = tokens - self.vocab_start(n)
         valid = (idx >= 0) & (idx < n)
-        h = rows[idx.clamp(0, n - 1)] * valid[..., None].to(rows.dtype)
-        return self.exit(h)
+        return rows[idx.clamp(0, n - 1)] * valid[..., None].to(rows.dtype)
+
+    def pad_cols(self, y):
+        """A column-parallel product's output (..., d / M), this rank's
+        columns, in place in a zero (..., d): the model ranks' tensors sum
+        to the whole product, so `exit` reduces it into the residual
+        stream's layout (reduce-scattered along the sequence under SP,
+        all-reduced without), and its backward hands each rank the
+        gradient of its own columns."""
+        n = y.shape[-1]
+        first = self.comm.index(self.tp) * n
+        return torch.nn.functional.pad(
+            y, (first, n * self.tp_size - first - n))
 
     def to_seq(self, logits):
-        """Vocab-parallel logits (B, S, V/M) to the `logits` layout
-        (B, S/M, V): an all-to-all over `model`."""
+        """A tensor split over `model` along its last dimension, (B, S,
+        n/M), to the sequence-split layout (B, S/M, n): an all-to-all over
+        `model` (its backward the inverse one). Vocab-parallel logits go so
+        to the `logits` layout, `frame_proj`'s columns under SP to `btd`'s."""
         return c.all_to_all(self.comm, logits, 1, 2, self.tp)
 
     def seq_start(self, s_local: int) -> int:
@@ -714,20 +748,18 @@ def _map_specs(fn, specs, path=()):
 
 
 # What executing the plan does not cover yet, each under its ROADMAP item
-MODAL_ITEM = "the encoder-decoder and image inputs"
 COMPRESSION_ITEM = "int8 gradient compression on shards"
 RAGGED_ITEM = "the ragged MoE dispatch over many ranks"
 MAMBA_SP_ITEM = ("Mamba under sequence parallelism (a scan split over "
                  "ranks passes its state between them)")
 SOFTCAP_ITEM = "attention logit softcapping"
-UNTIED_CHUNKED_ITEM = ("the chunked loss over an untied head (`lm_head`'s "
-                       "block gathered once for every chunk)")
 # leaves each rank holds a block of along `model` and uses as its own part
 # of the layer (x_proj, dt_proj and w_if are gathered whole: `whole`)
 _TP_LEAVES = {"w_q", "w_k", "w_v", "w_o", "w_gate", "w_up", "w_down",
               "table", "lm_head", "in_proj", "out_proj", "conv_w", "conv_b",
               "D", "dt_bias", "A_log", "w_dq", "w_dkv", "w_kr", "w_uq",
-              "w_uk", "w_uv", "up", "down", "w_in"}
+              "w_uk", "w_uv", "up", "down", "w_in", "frame_proj",
+              "img_proj"}
 
 
 def _unsupported(cfg: ModelConfig, mesh, item: str) -> str:
@@ -737,21 +769,18 @@ def _unsupported(cfg: ModelConfig, mesh, item: str) -> str:
 
 def check_executable(rules: ShardingRules) -> None:
     """Raise `NotImplementedError`, naming its ROADMAP item, for a config
-    or step the executing rules do not run: anything but decoders of
-    GQA/MHA, sliding-window or MLA attention, Mamba mixers (without SP) and
-    xLSTM cells, SwiGLU or MoE FFNs (`dense` or `dropping` dispatch, shared
-    experts) on tokens, their vocabulary head tied or not, its loss whole,
-    or chunked where tied (the chunked loss reads the table's rows); and
-    `ValueError` for a step whose shapes the mesh does not split evenly."""
-    from repro_torch.models.model import Model, padded_vocab
+    or step the executing rules do not run: a train step of anything but
+    models of GQA/MHA, sliding-window or MLA attention, Mamba mixers
+    (without SP) and xLSTM cells, SwiGLU or MoE FFNs (`dense` or
+    `dropping` dispatch, shared experts), an encoder of attention layers
+    that every decoder layer cross-attends to (`frames` inputs) or image
+    embeddings before the tokens (`tokens+image`), their vocabulary head
+    tied or not, its loss whole or chunked; and `ValueError` for a step
+    whose shapes the mesh does not split evenly (a head, the sequence, the
+    batch, or a leaf a rank takes its block of along `model`)."""
     cfg, mesh = rules.cfg, rules.mesh
     kinds = set(cfg.pattern) | set(cfg.ffn_pattern)
     for hit, item in (
-            (cfg.encoder_layers > 0 or cfg.input_mode != "tokens",
-             MODAL_ITEM),
-            (not cfg.tie_embeddings and rules.shape.seq_len > 1024
-             and padded_vocab(cfg) >= Model.CHUNKED_LOSS_VOCAB,
-             UNTIED_CHUNKED_ITEM),
             (cfg.moe is not None and cfg.moe.dispatch == "ragged",
              RAGGED_ITEM),
             (MAMBA in kinds and rules.sequence_parallel, MAMBA_SP_ITEM),

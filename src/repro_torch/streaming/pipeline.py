@@ -28,15 +28,25 @@ Thread-backend plane: the engine factory closes over live objects (the
 SLO tracker), which the in-process actor model makes legal; the process
 backend would need a handle-passing variant.
 
-One change from the reference: `run` pumps no more batches than the run
+Two changes from the reference. `run` pumps no more batches than the run
 still needs (`num_batches` less those consumed and those already in the
 source's buffer). The reference pumps `pump_chunk` on every pass; when
 back-pressure cut an earlier pump short, its last passes leave batches
 in the source's buffer past `num_batches`, which its drain then takes and
 acks, so the source produced and acked more than the run asked for.
+And `run` starts with a full collection (`gc.collect`): the interpreter
+collects its oldest generation once the objects promoted into it since
+the last such collection reach a quarter of those it holds, and that
+collection walks every tracked object (170,000-290,000 in a process that
+has imported torch) with every thread stopped. On an H100 host one took
+55-937 ms; fired inside a run, it stalled every replica's waves and the
+requests queued behind them (tail latency 2-3x). From a collected heap
+a run meets one only once its own promotions reach that quarter, which
+runs of a few hundred batches (the stream benchmark's) do not.
 """
 from __future__ import annotations
 
+import gc
 import time
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
@@ -363,7 +373,10 @@ class StreamingPipeline:
         """Drive the loop until `num_batches` mini-batches have been
         taken from the source. `mid_run(consumed)` fires once per loop
         pass (fault-injection hook for the bench's learner-kill
-        scenario)."""
+        scenario). The run starts with a full collection, so that the
+        next collection of the oldest generation waits for the run's own
+        promotions."""
+        gc.collect()
         core = self._core
         pending: List[Tuple[Any, str]] = []       # (step ref, batch oid)
         tickets: List = []

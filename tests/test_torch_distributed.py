@@ -6,7 +6,7 @@ against the dry run's (`launch.dryrun.trace_cell`) for the same mesh and
 shape; the dry run's model of the plan against its trace of the executed
 step where no remat recomputes; a sharded run's checkpoint against a
 single-process run's files, gathered to rank 0, and every Comm closed;
-`python -m torch.distributed.run` on the launcher; the arches the executed
+`python -m torch.distributed.run` on the launcher; the configs the executed
 plan does not cover yet.
 
 The ranks are this file run as a script, one process each, with one CPU
@@ -73,26 +73,31 @@ CASES = {
         {"xlstm": {"num_heads_slstm": 2}}),
     "tied head, windowed, KV heads gathered (1, 4)": (
         "gemma3-12b", (1, 4), ("data", "model"), {}),
+    "encoder, cross-attention, frames (2, 2)": (
+        "seamless-m4t-medium", (2, 2), ("data", "model"), {}),
+    "image rows before the tokens (1, 4)": ("internvl2-2b", (1, 4),
+                                            ("data", "model"), {}),
 }
 CKPT_CASE = ("stablelm-1.6b", (2, 2), ("data", "model"))
 # what the executed plan does not cover yet: case -> (arch, config
-# overrides (a "seq_len" entry is the step's), the item its error names)
+# overrides (a "mesh" entry is the (data, model) shape, (4, 1) by
+# default), the item its error names)
 UNSUPPORTED = {
-    "seamless-m4t-medium": ("seamless-m4t-medium", {},
-                            "the encoder-decoder and image inputs"),
-    "internvl2-2b": ("internvl2-2b", {},
-                     "the encoder-decoder and image inputs"),
     "mixtral ragged": ("mixtral-8x22b", {"moe": {"dispatch": "ragged"}},
                        "the ragged MoE dispatch"),
+    "mixtral ragged (1, 4)": ("mixtral-8x22b",
+                              {"moe": {"dispatch": "ragged"},
+                               "mesh": (1, 4)},
+                              "the ragged MoE dispatch"),
     "jamba sequence parallel": ("jamba-1.5-large-398b",
                                 {"sequence_parallel": True},
                                 "Mamba under sequence parallelism"),
     "stablelm softcap": ("stablelm-1.6b", {"attn_logit_softcap": 50.0},
                          "attention logit softcapping"),
-    # the chunked loss (vocab >= Model.CHUNKED_LOSS_VOCAB, S > 1024)
-    "stablelm untied chunked loss": (
-        "stablelm-1.6b", {"vocab_size": 131_072, "seq_len": 2048},
-        "the chunked loss over an untied head"),
+    "seamless softcap (2, 2)": ("seamless-m4t-medium",
+                                {"attn_logit_softcap": 50.0,
+                                 "mesh": (2, 2)},
+                                "attention logit softcapping"),
 }
 
 
@@ -176,11 +181,11 @@ def _rank(rank: int, work: Path) -> None:
     raised = {}
     for name, (arch, over, _) in UNSUPPORTED.items():
         over = dict(over)
-        seq_len = over.pop("seq_len", SEQ_LEN)
+        mesh_shape = over.pop("mesh", (WORLD, 1))
         try:
             train(_config(arch, over), steps=1, batch=BATCH,
-                  seq_len=seq_len, device="cpu",
-                  mesh=Mesh((WORLD, 1), ("data", "model")))
+                  seq_len=SEQ_LEN, device="cpu",
+                  mesh=Mesh(mesh_shape, ("data", "model")))
             raised[name] = None
         except NotImplementedError as e:
             raised[name] = str(e)

@@ -14,7 +14,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.bridge import init_params  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
 from repro_torch.configs.base import (DECODE_32K, PREFILL_32K,  # noqa: E402
-                                      ShapeConfig)
+                                      TRAIN_4K, ShapeConfig)
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch.mesh import (Mesh, make_host_mesh,  # noqa: E402
                                      make_production_mesh)
@@ -134,6 +134,29 @@ def test_full_width_cell_without_a_card():
     assert rec["n_params"] == 11_765_395_200
     assert not rec["cuda_initialized"] and not torch.cuda.is_initialized()
     assert 0 < rec["hbm_per_dev_gb"] < 80
+
+
+@pytest.mark.parametrize("arch", ["seamless-m4t-medium", "internvl2-2b"])
+@pytest.mark.parametrize("mesh", ["single", "multi"])
+def test_modal_train_cells_trace_the_executed_step(arch, mesh):
+    """seamless's and internvl2's train cells are traced as rank 0 runs
+    the executed step (its blocks, its collectives, `divisor` 1), without
+    a card."""
+    rec = dryrun.run_cell(arch, TRAIN_4K, mesh)
+    assert rec["ok"], rec.get("traceback")
+    assert rec["collectives_from"] == "executed step"
+    assert rec["divisor"] == 1 and rec["fits_80gb"]
+    assert rec["collective_by_kind"]["all-gather"] > 0
+    assert not rec["cuda_initialized"] and not torch.cuda.is_initialized()
+
+
+@pytest.mark.parametrize("mesh", ["single", "multi"])
+def test_phi3_train_cells_take_the_plan(mesh):
+    """phi3's 40 heads do not split over model = 16 (ROADMAP A18 (b)): its
+    train cells take the plan's model of the collectives."""
+    cfg = registry.get_config("phi3-medium-14b")
+    plan = make_production_mesh(multi_pod=mesh == "multi")
+    assert not dryrun.executes(make_rules(plan, cfg, TRAIN_4K))
 
 
 def test_a_failed_cell_is_recorded_with_its_error():

@@ -15,6 +15,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# the suite runs in parallel processes on one host, where torch's default
+# of a thread per core in each of them oversubscribes it
+torch.set_num_threads(1)
 import jax  # noqa: E402
 
 from repro.configs import registry as jreg  # noqa: E402

@@ -236,17 +236,18 @@ def test_paramset_publish_records_the_reference_specs():
 
 # ----------------------------------------------------- the executing rules
 
-def _executing(arch, mesh_shape=(2, 2), smoke=True, seq_len=64, **over):
+def _executing(arch, mesh_shape=(2, 2), smoke=True, seq_len=64,
+               kind="train", **over):
     """The executing rules of rank 0 of `mesh_shape` (a `PlanComm`: no
     process group) for `arch`'s smoke (or full) config with `over`, at a
-    train step of 4 x `seq_len`."""
+    step of `kind` (a train step by default) of 4 x `seq_len`."""
     from repro_torch.launch.mesh import Mesh
     from repro_torch.parallel.collectives import PlanComm
     cfg = (registry.get_smoke_config(arch) if smoke
            else registry.get_config(arch)).scaled(**over)
     mesh = Mesh(mesh_shape, ("data", "model"))
     return sharding.make_rules(mesh, cfg, base.ShapeConfig(
-        "test", "train", seq_len, 4), comm=PlanComm(mesh))
+        "test", kind, seq_len, 4), comm=PlanComm(mesh))
 
 
 def test_leaf_specs_resolve_by_path_not_by_name():
@@ -295,23 +296,64 @@ def test_the_executing_rules_run_mla_xlstm_and_the_tied_head(arch, over):
     assert rules.executing
 
 
+@pytest.mark.parametrize("arch, over", [
+    ("seamless-m4t-medium", {}),
+    ("internvl2-2b", {}),
+    ("internvl2-2b", {"mesh_shape": (1, 4)}),
+    # the chunked loss (vocab >= Model.CHUNKED_LOSS_VOCAB, S > 1024) over
+    # an untied head
+    ("stablelm-1.6b", {"vocab_size": 131_072, "seq_len": 2048}),
+    ("seamless-m4t-medium", {"seq_len": 2048, "smoke": False})])
+def test_the_executing_rules_run_the_encoder_decoder_and_image_inputs(
+        arch, over):
+    rules = _executing(arch, **over)
+    assert rules.executing
+
+
+@pytest.mark.parametrize("arch, kind", [
+    ("seamless-m4t-medium", "single"), ("seamless-m4t-medium", "multi"),
+    ("internvl2-2b", "single"), ("internvl2-2b", "multi")])
+def test_the_production_plans_of_seamless_and_internvl2_execute(arch, kind):
+    """Both train cells run as rank 0 runs them: seamless's untied head
+    of 256,512 padded entries under the chunked loss at 4096 positions,
+    16,032 columns a rank; internvl2's 256 image rows exactly rank 0's
+    block of the sequence over model = 16."""
+    from repro_torch.launch import dryrun
+    from repro_torch.models.model import Model, padded_vocab
+    from repro_torch.parallel.collectives import PlanComm
+    cfg = registry.get_config(arch)
+    mesh = MESHES[kind]
+    shape = next(s for s in base.shapes_for(cfg) if s.kind == "train")
+    assert dryrun.executes(sharding.make_rules(mesh, cfg, shape))
+    rules = sharding.make_rules(mesh, cfg, shape, comm=PlanComm(mesh))
+    assert rules.sequence_parallel
+    if arch == "seamless-m4t-medium":
+        assert padded_vocab(cfg) >= Model.CHUNKED_LOSS_VOCAB
+        assert not cfg.tie_embeddings
+        assert rules._leaf_spec("lm_head")[1] == "model"
+        assert padded_vocab(cfg) // rules.tp_size == 16_032
+    else:
+        assert shape.seq_len // rules.tp_size == cfg.num_image_tokens
+
+
 @pytest.mark.parametrize("arch, over, item", [
     ("stablelm-1.6b", {"attn_logit_softcap": 50.0},
      "attention logit softcapping"),
-    ("seamless-m4t-medium", {"smoke": False},
-     "the encoder-decoder and image inputs"),
-    ("internvl2-2b", {"smoke": False},
-     "the encoder-decoder and image inputs"),
-    ("seamless-m4t-medium", {}, "the encoder-decoder and image inputs"),
-    ("internvl2-2b", {}, "the encoder-decoder and image inputs"),
+    ("seamless-m4t-medium", {"attn_logit_softcap": 50.0},
+     "attention logit softcapping"),
     ("mixtral-8x22b", {"moe": base.MoEConfig(num_experts=4, top_k=2,
+                                             d_ff_expert=256,
+                                             dispatch="ragged")},
+     "ragged MoE dispatch"),
+    ("mixtral-8x22b", {"mesh_shape": (1, 4),
+                       "moe": base.MoEConfig(num_experts=4, top_k=2,
                                              d_ff_expert=256,
                                              dispatch="ragged")},
      "ragged MoE dispatch"),
     ("jamba-1.5-large-398b", {"sequence_parallel": True},
      "Mamba under sequence parallelism"),
-    ("stablelm-1.6b", {"vocab_size": 131_072, "seq_len": 2048},
-     "the chunked loss over an untied head")])
+    ("internvl2-2b", {"kind": "prefill"}, "a prefill step"),
+    ("seamless-m4t-medium", {"kind": "decode"}, "a decode step")])
 def test_the_executing_rules_name_what_they_do_not_run(arch, over, item):
     with pytest.raises(NotImplementedError, match="ROADMAP A18") as err:
         _executing(arch, **over)
@@ -333,6 +375,21 @@ def test_int8_compression_on_shards_is_refused(how):
         else:
             compression.make_compressing_train_step(model, AdamWConfig())
     assert "int8 gradient compression on shards" in str(err.value)
+
+
+@pytest.mark.parametrize("arch, mesh_shape", [
+    ("seamless-m4t-medium", (2, 2)), ("internvl2-2b", (1, 4))])
+def test_int8_compression_is_refused_on_the_modal_configs(arch, mesh_shape):
+    """The encoder-decoder and the image inputs execute over many ranks,
+    but not with the int8 gradient compression."""
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.parallel import compression
+    rules = _executing(arch, mesh_shape)
+    sharding.check_executable(rules)
+    with pytest.raises(NotImplementedError, match="ROADMAP A18") as err:
+        compression.make_compressing_train_step(
+            build_model(rules.cfg, rules), AdamWConfig())
+    assert sharding.COMPRESSION_ITEM in str(err.value)
 
 
 def test_the_per_head_leaves_sum_their_gradient_over_model():

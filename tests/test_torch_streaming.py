@@ -414,6 +414,66 @@ def test_pipeline_runs_back_to_back(cluster):
     assert rep["learner"]["steps"] == 21
 
 
+def _small_pipeline():
+    cfg = StreamConfig(dim=4, batch=8, seed=3, interval_s=0.0)
+    return StreamingPipeline(cfg, publish_every=2, serve_per_batch=1,
+                             max_ahead=2, engine_base_s=0.0,
+                             engine_per_req_s=0.0)
+
+
+def test_pipeline_run_starts_with_a_full_collection(cluster):
+    """A run collects the oldest generation before its first pass: the
+    garbage promoted there before the run is gone when the stream starts,
+    and no other collection of that generation falls due inside the run."""
+    import gc
+    import weakref
+
+    class Cyclic:
+        pass
+    seen = []
+
+    def on_gc(phase, info):
+        if phase == "stop" and info["generation"] == 2:
+            seen.append("collection")
+    p = _small_pipeline()
+    cycle = Cyclic()
+    cycle.me = cycle
+    ref = weakref.ref(cycle)
+    gc.collect()        # it survives into the oldest generation
+    del cycle
+    gone_at_first_pass = []
+
+    def mid_run(consumed):
+        if not gone_at_first_pass:
+            gone_at_first_pass.append(ref() is None)
+            seen.append("pass")
+    gc.callbacks.append(on_gc)
+    try:
+        p.run(5, pump_chunk=4, mid_run=mid_run)
+    finally:
+        gc.callbacks.remove(on_gc)
+    p.close()
+    assert gone_at_first_pass == [True]
+    assert seen == ["collection", "pass"]
+
+
+def test_pipeline_run_leaves_the_callers_freeze(cluster):
+    """The objects a caller froze (`gc.freeze`, as a server does before it
+    forks) stay frozen through a run and after it."""
+    import gc
+    p = _small_pipeline()
+    mine = [[] for _ in range(3)]
+    gc.freeze()
+    try:
+        p.run(5, pump_chunk=4)
+        tracked = {id(o) for o in gc.get_objects()}
+        assert gc.get_freeze_count() > 0
+        assert not any(id(o) in tracked for o in mine)
+    finally:
+        gc.unfreeze()
+        p.close()
+
+
 def test_streaming_pure_pieces_import_without_the_frontdoor():
     """The package resolves learner and pipeline lazily, so the DES's
     streaming scenario runs without importing the FrontDoor or torch."""
