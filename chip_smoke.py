@@ -225,10 +225,12 @@ Phases, each of which raises (and so exits non-zero) on any failure:
               single-pod plan, none of which may initialize CUDA.
   10. sharded the sharded training step (`launch.train.train` over a
               process group, the reference's ShardingRules executing), the
-              nine cases of SHARDED_TRAIN at full width, cut by depth:
+              twelve cases of SHARDED_TRAIN, cut by depth:
               stablelm-1.6b cut to 2 of its 24 layers over a (2, 2) mesh,
-              batch 2 x 2048; phi3-medium-14b cut to 2 layers over (1, 4),
-              batch 1 x 2048 (KV heads expanded); mixtral-8x22b cut to 1
+              batch 2 x 2048; phi3-medium-14b cut to 1 layer over (1, 16),
+              16 ranks, batch 1 x 2048 (40 heads over 16: 320 columns, flash
+              on 3 whole heads a rank; each rank draws only its blocks, its
+              peak during the init printed); mixtral-8x22b cut to 1
               layer over (1, 4), batch 2 x 2048 (2 of its 8 experts and
               12(2) heads a rank, the `dropping` dispatch, window 4096,
               "dots"); jamba at its smoke config in fp32 over (2, 2), batch
@@ -241,7 +243,11 @@ Phases, each of which raises (and so exits non-zero) on any failure:
               layers over (2, 2), batch 2 x 2048 (the encoder, cross-
               attention, the untied head's chunked loss); internvl2-2b cut
               to 2 layers over (1, 4), batch 1 x 2048 (the image rows rank
-              0's). 1 warm-up + 2 steps each, as
+              0's); stablelm-1.6b cut to 2 layers in fp32 over (2, 2)
+              through the int8 compressing step (each leaf's scale, and the
+              error feedback residual's blocks, held to the one card's); jamba smoke fp32 over (2, 2) with
+              sequence parallelism; mixtral smoke fp32 over (1, 4) with the
+              `ragged` dispatch. 1 warm-up + 2 steps each, as
               gloo ranks spawned on this card (their collectives through
               host memory: no measure of the plan's speed). Each rank held
               to the one-card step from the same weights and batches, at
@@ -926,32 +932,18 @@ def _launch_flash_shapes() -> list:
              ("deepseek smoke serve", launch_config("deepseek-v2-236b", True),
               8, 32)]
     out = []
-    # a rank's heads in phase 10: its rows of the batch, H / model query
-    # heads, its own KV heads or those expanded to its query heads, the
-    # layer's window
+    # a rank's heads in phase 10: its rows of the batch, its query heads
+    # (each count the ranks of the model axis take), its own KV heads or
+    # those expanded to its query heads, the layer's window
     for sc in SHARDED_TRAIN:
         cfg = _sharded_config(sc)
         (data, model), s = sc.mesh, sc.seq_len
-        heads, hkv = _rank_heads(cfg, model)
         dt, b = getattr(torch, cfg.param_dtype), sc.batch // data
-        for kind in dict.fromkeys(cfg.pattern):
-            label = f"{sc.arch} rank of {sc.mesh} (phase 10)"
-            if kind == MLA:
-                m = cfg.mla
-                out.append((f"{label} MLA", dt, b, heads, heads, s, s,
-                            m.nope_head_dim + m.rope_head_dim, m.v_head_dim,
-                            True, 0))
-            elif kind in (SWA, "attn"):
-                window = cfg.window_size if kind == SWA else 0
-                out.append((label + (f" window {window}" if window else ""),
-                            dt, b, heads, hkv, s, s, cfg.head_dim,
-                            cfg.head_dim, True, window))
-        if cfg.encoder_layers:
-            out += [(f"{label} encoder", dt, b, heads, hkv, s, s,
-                     cfg.head_dim, cfg.head_dim, False, 0),
-                    (f"{label} cross {s} over {s} frames", dt, b, heads, hkv,
-                     s, s, cfg.head_dim, cfg.head_dim, False, 0)]
+        for heads, hkv in dict.fromkeys(_rank_heads(cfg, model, m)
+                                        for m in range(model)):
+            out += _rank_flash_shapes(sc, cfg, dt, b, heads, hkv, s)
     for what, cfg, b, s in runs:
+
         dt = getattr(torch, cfg.param_dtype)
         h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
         for kind in dict.fromkeys(cfg.pattern):
@@ -970,6 +962,34 @@ def _launch_flash_shapes() -> list:
             out += [(f"{what} encoder", dt, b, h, hkv, s, s, hd, hd, False, 0),
                      (f"{what} cross {s} over {s} frames", dt, b, h, hkv, s,
                       s, hd, hd, False, 0)]
+    # a shape two cases hand flash is held once
+    seen = set()
+    return [c for c in out if c[1:] not in seen and not seen.add(c[1:])]
+
+
+def _rank_flash_shapes(sc, cfg, dt, b: int, heads: int, hkv: int,
+                       s: int) -> list:
+    """The flash calls of a phase 10 rank of `heads` query heads over
+    `hkv` KV heads, in `_launch_flash_shapes`' form."""
+    from repro_torch.configs.base import MLA, SWA
+    out = []
+    label = f"{sc.arch} rank of {sc.mesh}, {heads} heads (phase 10)"
+    for kind in dict.fromkeys(cfg.pattern):
+        if kind == MLA:
+            m = cfg.mla
+            out.append((f"{label} MLA", dt, b, heads, heads, s, s,
+                        m.nope_head_dim + m.rope_head_dim, m.v_head_dim,
+                        True, 0))
+        elif kind in (SWA, "attn"):
+            window = cfg.window_size if kind == SWA else 0
+            out.append((label + (f" window {window}" if window else ""),
+                        dt, b, heads, hkv, s, s, cfg.head_dim,
+                        cfg.head_dim, True, window))
+    if cfg.encoder_layers:
+        out += [(f"{label} encoder", dt, b, heads, hkv, s, s,
+                 cfg.head_dim, cfg.head_dim, False, 0),
+                (f"{label} cross {s} over {s} frames", dt, b, heads, hkv,
+                 s, s, cfg.head_dim, cfg.head_dim, False, 0)]
     return out
 
 
@@ -1364,7 +1384,7 @@ def check_ssm_scan(gen):
         ("jamba smoke rank of (2, 2) (phase 10)", 1, 64, 128, 8, f32, f32,
          False, True),
     ]
-    main = decode = None
+    main = decode = rank = None
     for label, b, s, di, ds, x_dt, p_dt, with_state, views in cases:
         args, h0 = _ssm_case(gen, b, s, di, ds, x_dt, p_dt, with_state,
                                views)
@@ -1379,6 +1399,8 @@ def check_ssm_scan(gen):
             main = (args, None, err)
         elif label.startswith("jamba decode"):
             decode = (args, h0, err)
+        elif label.startswith("jamba smoke rank"):
+            rank = (args, h0, err)
 
     # chained: the state out of one call feeds the next, against one call
     # over the whole sequence
@@ -1404,6 +1426,8 @@ def check_ssm_scan(gen):
         **_ssm_times(*main, clock_mhz),
         # the 315 decode launches of phase 4b run at this shape
         "at_decode": _ssm_times(*decode, clock_mhz),
+        # a jamba smoke rank's calls in phase 10, with and without SP
+        "at_phase10_rank": _ssm_times(*rank, clock_mhz),
     }
     return entry
 
@@ -3415,6 +3439,10 @@ class ShardedCase(NamedTuple):
     # card, and takes their expert choices (`_route`'s top-k, every call in
     # order), its own logged beside them
     routes_from_ranks: bool = False
+    # config overrides, (field, value) pairs ("moe": pairs of MoEConfig's)
+    over: tuple = ()
+    # the int8 compressing step (`launch.train(grad_compression=True)`)
+    compress: bool = False
 
 
 # Widths are never cut. stablelm is cut from 24 layers to 2 for the phase's
@@ -3453,11 +3481,24 @@ class ShardedCase(NamedTuple):
 # internvl2-2b is cut from 24 layers to 2: over (1, 4) a rank holds 4 of
 # 16 query heads over 2 of 8 KV heads, and rank 0's 512 positions of the
 # 2048 hold the 256 image rows and the first 256 tokens.
+# phi3-medium-14b runs over the production plan's model = 16, cut from 40
+# layers to 1 (1,368,407,040 params): its 40 heads of 128 split 320
+# columns a rank, 2.5 heads, so each of the 16 ranks runs flash on the 3
+# whole heads its columns reach into over 3 KV heads expanded from the 10,
+# and draws only its blocks of the seeded weights (the (1, 4) KV-expand
+# layout stays with the CPU tests).
+# The compressing step runs stablelm cut to 2 layers in fp32: in bf16 the
+# two sides' whole-leaf scales differ by the rounding of the leaf's
+# largest gradient (about 0.4%), which moves an entry at int8 level k by k
+# times that, up to half a quantization step, so a residual could not be
+# held entry by entry. In fp32 an entry within its rounding of a half-way
+# point still takes either level (COMPRESS_GATES). jamba (sequence
+# parallel) and mixtral (ragged dispatch) run their smoke configs in fp32.
 SHARDED_TRAIN = (
     ShardedCase("stablelm-1.6b cut to 2 layers", "stablelm-1.6b", 2, (2, 2),
                 2, 2048),
-    ShardedCase("phi3-medium-14b cut to 2 layers, KV heads expanded",
-                "phi3-medium-14b", 2, (1, 4), 1, 2048),
+    ShardedCase("phi3-medium-14b cut to 1 layer, 40 heads over model = 16",
+                "phi3-medium-14b", 1, (1, 16), 1, 2048),
     ShardedCase("mixtral-8x22b cut to 1 layer, experts over model",
                 "mixtral-8x22b", 1, (1, 4), 2, 2048),
     ShardedCase("jamba smoke fp32, Mamba and experts over model",
@@ -3474,6 +3515,15 @@ SHARDED_TRAIN = (
                 2, 2048),
     ShardedCase("internvl2-2b cut to 2 layers, image tokens on rank 0",
                 "internvl2-2b", 2, (1, 4), 1, 2048),
+    ShardedCase("stablelm-1.6b cut to 2 layers fp32, int8 gradient "
+                "compression", "stablelm-1.6b", 2, (2, 2), 2, 2048,
+                over=(("param_dtype", "float32"),), compress=True),
+    ShardedCase("jamba smoke fp32, Mamba under sequence parallelism",
+                "jamba-1.5-large-398b", None, (2, 2), 2, 64, smoke=True,
+                over=(("sequence_parallel", True),)),
+    ShardedCase("mixtral smoke fp32, the ragged dispatch, experts over "
+                "model", "mixtral-8x22b", None, (1, 4), 2, 64, smoke=True,
+                over=(("moe", (("dispatch", "ragged"),)),)),
 )
 # 1 warm-up step, then the timed ones, on both sides
 SHARDED_STEPS = 3
@@ -3517,6 +3567,26 @@ SHARDED_GATES = {
     torch.float32: {"loss": 1e-4, "leaf": 1e-4, "norm": 1e-3, "m": 1e-3,
                     "m_table": 1e-3},
 }
+# The compressing step (fp32) against the one-card compressing step: the
+# losses and every updated leaf to 1e-3, each compressed leaf's scale
+# (max |g + e| / 127 over the whole leaf) to 1e-3 of the one card's; the
+# residual's blocks to 5e-2 of the leaf's largest residual entry but for
+# LEVEL_CHANGES_MAX of a block's entries: a gradient entry within its
+# rounding of the half-way point between two int8 levels takes either on
+# the two sides (1 or 2 entries of 65,536 in the CPU tests), which moves
+# its residual by a whole step (and the next step's by that step over the
+# next one's scale, no whole number of steps) and AdamW's m by a step's
+# share, up to 1/127 of the leaf's largest gradient over m's largest
+# entry (hence m at bf16's 5e-2). A scale taken over a rank's block
+# instead of the whole leaf is off by far more than 1e-3 on every block
+# that lacks the leaf's largest entry, and moves every entry of its
+# residual.
+COMPRESS_GATES = {"loss": 1e-3, "leaf": 1e-3, "norm": 1e-3, "m": 5e-2,
+                  "m_table": 5e-2, "scale": 1e-3, "residual": 5e-2}
+LEVEL_CHANGES_MAX = 1e-3
+# the compressing step's size threshold (`make_compressing_train_step`'s
+# default), in whole-leaf elements
+COMPRESS_THRESHOLD = 4096
 # the leaf whose gradient the lookup accumulates in bf16
 EMBED_TABLE = "embed/table"
 # a bf16 leaf block that starts at 0, logged where the one-card step's m
@@ -3527,10 +3597,15 @@ SHARDED_DIR = ROOT / "build" / "chip_smoke_sharded"
 
 
 def _sharded_config(case: ShardedCase):
+    import dataclasses
     from repro_torch.configs.registry import get_config
     from repro_torch.launch.train import launch_config
     cfg = launch_config(case.arch, True) if case.smoke \
         else get_config(case.arch)
+    for field, value in case.over:
+        if field == "moe":
+            value = dataclasses.replace(cfg.moe, **dict(value))
+        cfg = cfg.scaled(**{field: value})
     if not case.layers:
         return cfg
     if cfg.encoder_layers:
@@ -3538,11 +3613,15 @@ def _sharded_config(case: ShardedCase):
     return cfg.scaled(num_layers=case.layers)
 
 
-def _rank_heads(cfg, model: int) -> tuple:
-    """(query heads, KV heads) of a rank's flash calls: H / model query
-    heads over its own KV heads, or over KV heads expanded to its query
-    heads where `model` does not divide them."""
-    heads = cfg.num_heads // model
+def _rank_heads(cfg, model: int, m: int = 0) -> tuple:
+    """(query heads, KV heads) of the flash calls of the rank at `m` on
+    the model axis: the whole heads its block of `w_q`'s columns reaches
+    into (H / model where `model` divides them; 3 for phi3's 40 over 16),
+    over its own KV heads, or over KV heads expanded to its query heads
+    where `model` does not divide them (`ShardingRules.head_span`)."""
+    cols = cfg.num_heads * cfg.head_dim
+    c0, c1 = m * cols // model, (m + 1) * cols // model
+    heads = -(-c1 // cfg.head_dim) - c0 // cfg.head_dim
     return heads, (heads if cfg.num_kv_heads % model
                    else cfg.num_kv_heads // model)
 
@@ -3581,10 +3660,13 @@ def _sharded_rank(rank: int, world: int, backend: str, case: int,
     (`go`) and compares once its state is written (`ref_done`); where the
     one-card step runs after the ranks (`routes_from_ranks`), a rank trains
     at once, moves its blocks to the host, frees the card and says so
-    (`trained<r>`) before it waits for `ref_done`."""
+    (`trained<r>`) before it waits for `ref_done`. A rank draws only its
+    blocks of the seeded weights (`launch.train`'s init over many ranks);
+    its peak during the init is written too. Where the case compresses,
+    its residual's blocks and every compressed leaf's scale are held to
+    the one card's (COMPRESS_GATES)."""
     import torch.distributed as dist
     from datetime import timedelta
-    from repro_torch.bridge import init_params
     from repro_torch.launch.mesh import Mesh
     from repro_torch.launch.train import train
     from repro_torch.models import attention, moe, ssm, xlstm
@@ -3640,6 +3722,7 @@ def _sharded_rank(rank: int, world: int, backend: str, case: int,
     attention.flash_attention, ssm.ssm_scan = flash, ssm_scan
     xlstm.mlstm_scan = mlstm_scan
     routes = _recording_routes(moe)
+    q_scales = _recording_scales() if sc.compress else []
     wrapper.launches = scan.launches = mlstm.launches = 0
     ends, per_step, held, norms = [], [], {}, []
 
@@ -3653,19 +3736,23 @@ def _sharded_rank(rank: int, world: int, backend: str, case: int,
     # the blocks that start at 0 everywhere (SHARDED_GATES)
     zero = set()
 
-    def on_state(p, o):
+    def on_state(p, o, *residual):
+        marks["initialized"] = time.time()
+        # the peak of this rank's init: the largest part of the tree drawn
+        # whole, beside the blocks kept
+        marks["init_peak"] = torch.cuda.max_memory_allocated()
         held.update(params=p, m=o["m"])
+        if residual:
+            held["residual"] = residual[0]
         zero.update(path for path, t in zip(_paths(p), _tree_leaves(p))
                     if not bool(t.any()))
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     losses = train(cfg, steps=SHARDED_STEPS, batch=sc.batch,
-                   seq_len=sc.seq_len,
-                   params=init_params(cfg, torch.Generator(
-                       device="cuda").manual_seed(SEED + 40 + case)),
+                   seq_len=sc.seq_len, seed=SEED + 40 + case,
                    mesh=mesh, comm=comm, log_every=SHARDED_STEPS,
-                   on_step=on_step,
-                   on_state=on_state)
+                   on_step=on_step, on_state=on_state,
+                   grad_compression=sc.compress)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     marks["trained"] = time.time()
@@ -3710,6 +3797,11 @@ def _sharded_rank(rank: int, world: int, backend: str, case: int,
             elif part == "m" and path in zero and bf16:
                 zero_m[path].append(err)
             worst[key] = max(worst[key], (err, path))
+    compressed = (_compressed_against(held["residual"], q_scales, ref,
+                                      scales["residual"], json.loads(
+                                          (work / "ref_scales.json")
+                                          .read_text()), rules)
+                  if sc.compress else {})
     # the experts the first forward's MoE layers chose for this rank's rows
     rows, n_rows = rules.batch_split()
     moe_layers = cfg.num_groups * cfg.ffn_pattern.count("moe")
@@ -3732,8 +3824,63 @@ def _sharded_rank(rank: int, world: int, backend: str, case: int,
         "mlstm_shapes": sorted(set(mlstm_seen)), "batch_block": rows,
         "bytes": per_step, "step_ms": step_ms, "wall_s": wall_s,
         "zero_m": zero_m, "max_memory_allocated": peak,
+        "init_peak": marks.pop("init_peak"), "compressed": compressed,
         "marks": dict(marks, compared=time.time())}))
     dist.destroy_process_group()
+
+
+def _recording_scales() -> list:
+    """Wraps `compression.quantize_int8` to keep every scale it returns,
+    on the host, in call order: a compressing step's leaves of
+    COMPRESS_THRESHOLD elements and up, in `tree_leaves` order."""
+    from repro_torch.parallel import compression
+    real, seen = compression.quantize_int8, []
+
+    def quantize(x, top=None):
+        q, scale = real(x, top)
+        seen.append(float(scale))
+        return q, scale
+    compression.quantize_int8 = quantize
+    return seen
+
+
+def _last_scales(scales: list, paths: list, wholes: list) -> dict:
+    """path -> the last step's scale of each leaf the step compressed (the
+    leaves of COMPRESS_THRESHOLD whole elements and up, in order)."""
+    done = [p for p, n in zip(paths, wholes) if n >= COMPRESS_THRESHOLD]
+    return dict(zip(done, scales[len(scales) - len(done):]))
+
+
+def _compressed_against(residual, scales: list, ref, ref_max: dict,
+                        ref_scales: dict, rules) -> dict:
+    """A rank's compressing step against the one card's: each compressed
+    leaf's scale (relative); each block of the residual against the one
+    card's, the share of its entries more than COMPRESS_GATES["residual"]
+    of the leaf's largest residual entry (`ref_max`) apart (entries on
+    another int8 level), and the largest difference as a share of that
+    entry. The worst of each, with its leaf."""
+    from repro_torch.parallel.sharding import _block, leaf_specs
+    paths = _paths(residual)
+    wholes = [t.numel() for t in _ref_leaves(ref["residual"], paths)]
+    mine = _last_scales(scales, paths, wholes)
+    worst = {"scale": (0.0, ""), "level_changes": (0.0, ""),
+             "residual_max": (0.0, "")}
+    for path in mine:
+        err = abs(mine[path] - ref_scales[path]) / ref_scales[path]
+        worst["scale"] = max(worst["scale"], (err, path))
+    for (block, spec), path, whole in zip(
+            leaf_specs(residual, rules.param_specs()), paths,
+            _ref_leaves(ref["residual"], paths)):
+        want = whole[_block(spec, rules.comm.coords, rules.mesh,
+                            whole.shape)].cuda()
+        diff = (block.float() - want.float()).abs()
+        top = ref_max[path] or 1.0
+        past = (diff > COMPRESS_GATES["residual"] * top).float().mean()
+        worst["level_changes"] = max(worst["level_changes"],
+                                     (float(past), path))
+        worst["residual_max"] = max(worst["residual_max"],
+                                    (float(diff.max()) / top, path))
+    return {k: list(v) for k, v in worst.items()}
 
 
 def _paths(tree, prefix=""):
@@ -3765,6 +3912,7 @@ def _sharded_reference(case: int, work: Path) -> dict:
     `ref_max.json`)."""
     from repro_torch.launch.train import train
     from repro_torch.models import moe
+    from repro_torch.parallel import compression
     from repro_torch.tree import tree_map
     sc = SHARDED_TRAIN[case]
     cfg = _sharded_config(sc)
@@ -3772,6 +3920,11 @@ def _sharded_reference(case: int, work: Path) -> dict:
     t0 = time.perf_counter()
     params, n_params = _init_full(cfg, SEED + 40 + case)
     ends, norms, held = [], [], {}
+
+    def on_state(p, o, *residual):
+        held.update(m=o["m"])
+        if residual:
+            held["residual"] = residual[0]
 
     def on_step(step, metrics):
         ends.append(torch.cuda.Event(enable_timing=True))
@@ -3784,14 +3937,17 @@ def _sharded_reference(case: int, work: Path) -> dict:
                   for d in range(sc.mesh[0])]
         replay = [torch.cat(calls) for calls in zip(*blocks)]
     routes = _recording_routes(moe, replay)
+    real_quantize = compression.quantize_int8
+    q_scales = _recording_scales() if sc.compress else []
     reset_launch_counts()
     try:
         losses = train(cfg, steps=SHARDED_STEPS, batch=sc.batch,
                        seq_len=sc.seq_len, params=params,
                        log_every=SHARDED_STEPS, on_step=on_step,
-                       on_state=lambda p, o: held.update(m=o["m"]))
+                       on_state=on_state, grad_compression=sc.compress)
     finally:
         moe._route = real_route
+        compression.quantize_int8 = real_quantize
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     launches = launch_counts()
@@ -3807,6 +3963,12 @@ def _sharded_reference(case: int, work: Path) -> dict:
     torch.save([r.reshape(sc.batch, sc.seq_len, -1)
                 for r in routes[:moe_layers]], work / "routes.pt")
     both = {"params": params, "m": held.pop("m")}
+    if sc.compress:
+        both["residual"] = held.pop("residual")
+        paths = _paths(both["residual"])
+        (work / "ref_scales.json").write_text(json.dumps(_last_scales(
+            q_scales, paths, [t.numel() for t in
+                              _tree_leaves(both["residual"])])))
     (work / "ref_max.json").write_text(json.dumps({
         part: {path: float(t.float().abs().max())
                for path, t in zip(_paths(tree), _tree_leaves(tree))}
@@ -3975,19 +4137,25 @@ def _check_sharded(case: int, ref: dict, ranks: list, mesh_shape: tuple,
     from repro_torch.launch.mesh import Mesh
     sc = SHARDED_TRAIN[case]
     cfg = _sharded_config(sc)
-    gates = SHARDED_GATES[getattr(torch, cfg.param_dtype)]
+    gates = COMPRESS_GATES if sc.compress \
+        else SHARDED_GATES[getattr(torch, cfg.param_dtype)]
     mesh = Mesh(mesh_shape, ("data", "model"))
     world = mesh.size
-    plan = dryrun.trace_cell(cfg, ShapeConfig("10", "train", sc.seq_len,
-                                              sc.batch),
-                             mesh)["collective_by_kind"]
+    shape = ShapeConfig("10", "train", sc.seq_len, sc.batch)
+    plan = dryrun.trace_cell(cfg, shape, mesh)["collective_by_kind"]
+    if sc.compress:
+        plan["all-reduce"] = plan.get("all-reduce", 0.0) + _scale_bytes(
+            cfg, shape, mesh)
     launches = {k: n * SHARDED_STEPS for k, n in _train_launches(cfg).items()}
     calls, scans = launches["flash_attention"], launches["ssm_scan"]
     mlstms = launches["mlstm_scan"]
-    heads = _rank_heads(cfg, mesh.shape["model"])
     windows = sorted({cfg.window_size if k == "swa" else 0
                       for k in cfg.pattern if k in ("attn", "swa", "mla")})
-    want_heads = [[*heads, w] for w in windows]
+
+    def want_heads(r):       # (q heads, k heads, window) of rank r's calls
+        heads = _rank_heads(cfg, mesh.shape["model"],
+                            r["rank"] % mesh.shape["model"])
+        return [[*heads, w] for w in windows]
     channels = (cfg.mamba.expand * cfg.d_model // mesh.shape["model"]
                 if cfg.mamba else 0)
     # mlstm_scan on the rank's rows and heads: (B, H, S, hd)
@@ -4018,11 +4186,18 @@ def _check_sharded(case: int, ref: dict, ranks: list, mesh_shape: tuple,
                 failed.append(f"{what}: {key} {r[key][1]} off by "
                               f"{r[key][0]} of its largest entry (> {tol})")
         if r["flash_launches"] != calls or r["flash_calls"] != calls or \
-                r["flash_heads"] != want_heads:
+                r["flash_heads"] != want_heads(r):
             failed.append(f"{what}: flash launched {r['flash_launches']} "
                           f"times on (q, k heads, window) "
                           f"{r['flash_heads']}, want {calls} on "
-                          f"{want_heads}")
+                          f"{want_heads(r)}")
+        for key, tol in ((("scale", gates["scale"]),
+                          ("level_changes", LEVEL_CHANGES_MAX))
+                         if sc.compress else ()):
+            err, path = r["compressed"][key]
+            if err > tol:
+                failed.append(f"{what}: compression {key} {path} "
+                              f"{err} (> {tol})")
         if r["ssm_launches"] != scans or r["ssm_calls"] != scans or (
                 scans and {s[-1] for s in r["ssm_shapes"]} != {channels}):
             failed.append(f"{what}: ssm_scan launched {r['ssm_launches']} "
@@ -4067,16 +4242,28 @@ def _check_sharded(case: int, ref: dict, ranks: list, mesh_shape: tuple,
         f"{SHARDED_STEPS} steps: losses {ranks[0]['losses']}, one card "
         f"{ref['losses']}; worst leaf {max(r['worst_leaf'] for r in ranks)} "
         f"of its largest entry; flash {calls} launches a rank on (q, k "
-        f"heads, window) {want_heads} ({ref['flash_launches']} on one "
+        f"heads, window) {want_heads(ranks[0])} ({ref['flash_launches']} "
+        f"on one "
         f"card); ssm_scan {scans} a rank on {channels} channels "
         f"({ref['ssm_launches']} on one card); mlstm_scan {mlstms} a rank "
         f"on (B, H, S, hd) {mlstm_shape} ({ref['mlstm_launches']} on one "
         f"card)")
+    if sc.compress:
+        log(f"[sharded] {sc.label}: the compressing step against the one "
+            f"card's, worst over ranks (share, leaf): scale "
+            f"{max(r['compressed']['scale'] for r in ranks)}; residual "
+            f"entries more than {gates['residual']} of the leaf's largest "
+            f"apart (on another int8 level) "
+            f"{max(r['compressed']['level_changes'] for r in ranks)} of a "
+            f"block (gate {LEVEL_CHANGES_MAX}); the residual's largest "
+            f"difference {max(r['compressed']['residual_max'] for r in ranks)}"
+            f" of the leaf's largest entry")
     start = (work / "start").stat().st_mtime
     for r in ranks:
         marks = {k: round(t - start, 1) for k, t in r["marks"].items()}
         log(f"[sharded]   rank {r['rank']} card {r['card']}: "
-            f"max_memory_allocated {r['max_memory_allocated']} bytes; step "
+            f"max_memory_allocated {r['max_memory_allocated']} bytes, "
+            f"{r['init_peak']} by the end of its init; step "
             f"ms (CUDA events between step ends) {r['step_ms']}; train() "
             f"{r['wall_s']:.1f} s; s from the case's start {marks}")
     log(f"[sharded]   bytes a step a rank by kind (ring model), each rank: "
@@ -4106,7 +4293,28 @@ def _check_sharded(case: int, ref: dict, ranks: list, mesh_shape: tuple,
             "bytes_by_kind": ranks[0]["bytes"][-1], "dry_run_bytes": plan,
             "step_ms": {r["rank"]: r["step_ms"] for r in ranks},
             "max_memory_allocated": {r["rank"]: r["max_memory_allocated"]
-                                     for r in ranks}}
+                                     for r in ranks},
+            "init_peak": {r["rank"]: r["init_peak"] for r in ranks},
+            "compressed": {r["rank"]: r["compressed"] for r in ranks}}
+
+
+def _scale_bytes(cfg, shape, mesh) -> float:
+    """The ring-model bytes a step of the compressing step's scales: an
+    fp32 all-reduce (max) of one element for each leaf of
+    COMPRESS_THRESHOLD elements and up over the axes of size above 1 its
+    spec splits it over (`compression._compress`)."""
+    from repro_torch.analysis.trace import collective_transfer
+    from repro_torch.bridge import param_shapes
+    from repro_torch.parallel.sharding import (_flat_axes, leaf_specs,
+                                               make_rules)
+    total = 0.0
+    specs = make_rules(mesh, cfg, shape).param_specs()
+    for leaf, spec in leaf_specs(param_shapes(cfg), specs):
+        n = math.prod(mesh.shape[a] for axes in spec
+                      for a in _flat_axes(axes))
+        if leaf.numel() >= COMPRESS_THRESHOLD and n > 1:
+            total += collective_transfer("all-reduce", n, 4, 4)
+    return total
 
 
 def _spawn_case(case: int) -> tuple:
@@ -4158,7 +4366,7 @@ def _sharded_case(case: int, work: Path, procs: list, count: int,
     ranks = _join_ranks(case, procs, "gloo", work)
     out[sc.label] = _check_sharded(case, ref, ranks, sc.mesh, "gloo",
                                    work)
-    if sc.mesh[0] > 1 and not sc.smoke:
+    if sc.mesh[0] > 1 and _sharded_config(sc).param_dtype == "bfloat16":
         out[sc.label]["embed_grad_rounding"] = r = _embed_grad_rounding(
             _sharded_config(sc), sc.mesh[0], sc.batch, sc.seq_len)
         log(f"[sharded] {sc.label}: the embedding table's bf16 gradient "

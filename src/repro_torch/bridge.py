@@ -15,7 +15,7 @@ as meta tensors, drawn from no generator.
 """
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
@@ -68,25 +68,45 @@ def params_to(tree: Any, device) -> Any:
     return tree_map(lambda t: t.to(device), tree)
 
 
+Keep = Optional[Callable[[str, torch.Tensor], torch.Tensor]]
+
+
+def _kept(keep: Keep, path: str, tree):
+    """`tree` (a leaf or a dict of them) as `keep(path, leaf)` leaves it,
+    each leaf named by its path in the params; itself without `keep`."""
+    if keep is None:
+        return tree
+    if isinstance(tree, dict):
+        return {k: _kept(keep, f"{path}/{k}", v) for k, v in tree.items()}
+    return keep(path, tree)
+
+
 def _init_layer(cfg: ModelConfig, generator: torch.Generator, kind: str,
-                ffn: str, with_cross: bool, lead, device) -> dict:
+                ffn: str, with_cross: bool, lead, device, keep: Keep = None,
+                path: str = "") -> dict:
     """One layer subtree with the reference's nesting (`_init_layer`):
-    pre_norm, mixer, then cross_norm and cross, then post_norm and ffn."""
+    pre_norm, mixer, then cross_norm and cross, then post_norm and ffn;
+    each part through `keep` as soon as it is drawn (`path`: the layer's
+    in the params)."""
     dt = torch_dtype(cfg.param_dtype)
     mixer_init = {ATTN: attention_init, SWA: attention_init, MLA: mla_init,
                   MAMBA: mamba_init, MLSTM: mlstm_init, SLSTM: slstm_init}
-    layer = {"pre_norm": rmsnorm_init(cfg.d_model, dt, device, lead),
-             "mixer": mixer_init[kind](generator, cfg, lead)}
+    layer = {}
+
+    def put(name, sub):
+        layer[name] = _kept(keep, f"{path}/{name}", sub)
+    put("pre_norm", rmsnorm_init(cfg.d_model, dt, device, lead))
+    put("mixer", mixer_init[kind](generator, cfg, lead))
     if with_cross:
-        layer["cross_norm"] = rmsnorm_init(cfg.d_model, dt, device, lead)
-        layer["cross"] = cross_attention_init(generator, cfg, lead)
+        put("cross_norm", rmsnorm_init(cfg.d_model, dt, device, lead))
+        put("cross", cross_attention_init(generator, cfg, lead))
     if ffn in (DENSE, MOE):
-        layer["post_norm"] = rmsnorm_init(cfg.d_model, dt, device, lead)
+        put("post_norm", rmsnorm_init(cfg.d_model, dt, device, lead))
     if ffn == DENSE:
-        layer["ffn"] = swiglu_init(generator, cfg.d_model,
-                                   cfg.d_ff or 4 * cfg.d_model, dt, lead)
+        put("ffn", swiglu_init(generator, cfg.d_model,
+                               cfg.d_ff or 4 * cfg.d_model, dt, lead))
     elif ffn == MOE:
-        layer["ffn"] = moe_init(generator, cfg, lead)
+        put("ffn", moe_init(generator, cfg, lead))
     return layer
 
 
@@ -109,7 +129,7 @@ def param_shapes(cfg: ModelConfig) -> Any:
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
-                device=None) -> Any:
+                device=None, keep: Keep = None) -> Any:
     """Random params with the reference's distributions (`Model.init`):
     dense weights normal * 1/sqrt(d_in), the embedding normal * 0.02, norm
     scales ones; for xLSTM layers the conv normal * 1/sqrt(kernel), the
@@ -131,7 +151,15 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     (frame_dim or d_model, d_model), `tokens+image` `img_proj` (d_model,
     d_model). Drawn in fp32 on `device`, which must be the generator's
     (default), and stored there in `cfg.param_dtype`. Tied embeddings have
-    no `lm_head`."""
+    no `lm_head`.
+
+    `keep(path, leaf)`, where given, takes each leaf as soon as its part
+    of the tree is drawn (a norm, a mixer, an FFN, the table, a
+    projection; "groups/0/mixer/w_q" names a leaf as
+    `sharding._map_with_path` does) and returns what the tree holds of it:
+    a rank's block (`sharding.block_keeper`), the whole leaf freed. The
+    draws are the same, in the same order, so the blocks are the whole
+    tree's bit for bit, and the init's peak is the largest part drawn."""
     check_supported(cfg)
     device = generator.device if device is None else torch.device(device)
     if device.type != generator.device.type:
@@ -140,32 +168,39 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     dt = torch_dtype(cfg.param_dtype)
     vp = padded_vocab(cfg)
     with_cross = cfg.encoder_layers > 0
-    p = {"embed": embedding_init(generator, vp, cfg.d_model, dt),
-         "final_norm": rmsnorm_init(cfg.d_model, dt, device)}
+    p = {}
+
+    def put(name, sub):
+        p[name] = _kept(keep, name, sub)
+    put("embed", embedding_init(generator, vp, cfg.d_model, dt))
+    put("final_norm", rmsnorm_init(cfg.d_model, dt, device))
     if not cfg.tie_embeddings:
-        p["lm_head"] = dense_init(generator, cfg.d_model, vp, dt)
+        put("lm_head", dense_init(generator, cfg.d_model, vp, dt))
     if cfg.input_mode == "frames":
-        p["frame_proj"] = dense_init(generator, cfg.frame_dim or cfg.d_model,
-                                     cfg.d_model, dt)
+        put("frame_proj", dense_init(generator, cfg.frame_dim or cfg.d_model,
+                                     cfg.d_model, dt))
     if cfg.input_mode == "tokens+image":
-        p["img_proj"] = dense_init(generator, cfg.d_model, cfg.d_model, dt)
+        put("img_proj", dense_init(generator, cfg.d_model, cfg.d_model, dt))
     p["groups"] = tuple(
         _init_layer(cfg, generator, kind, ffn, with_cross, (cfg.num_groups,),
-                    device)
-        for kind, ffn in zip(cfg.pattern, cfg.ffn_pattern))
+                    device, keep, f"groups/{i}")
+        for i, (kind, ffn) in enumerate(zip(cfg.pattern, cfg.ffn_pattern)))
     if cfg.first_k_dense:
         first = []
-        for _ in range(cfg.first_k_dense):
+        for j in range(cfg.first_k_dense):
             layer = _init_layer(cfg, generator, cfg.pattern[0], NONE,
-                                with_cross, (), device)
-            layer["post_norm"] = rmsnorm_init(cfg.d_model, dt, device)
-            layer["ffn"] = swiglu_init(generator, cfg.d_model,
-                                       _dense_ffn_width(cfg), dt)
+                                with_cross, (), device, keep, f"first/{j}")
+            layer["post_norm"] = _kept(keep, f"first/{j}/post_norm",
+                                       rmsnorm_init(cfg.d_model, dt, device))
+            layer["ffn"] = _kept(keep, f"first/{j}/ffn", swiglu_init(
+                generator, cfg.d_model, _dense_ffn_width(cfg), dt))
             first.append(layer)
         p["first"] = first
     if cfg.encoder_layers:
         p["encoder"] = {
             "layers": _init_layer(cfg, generator, ATTN, DENSE, False,
-                                  (cfg.encoder_layers,), device),
-            "final_norm": rmsnorm_init(cfg.d_model, dt, device)}
+                                  (cfg.encoder_layers,), device, keep,
+                                  "encoder/layers"),
+            "final_norm": _kept(keep, "encoder/final_norm",
+                                rmsnorm_init(cfg.d_model, dt, device))}
     return p

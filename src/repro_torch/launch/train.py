@@ -21,23 +21,26 @@ over `parallel.collectives.Comm`): one rank a card over `nccl` at
 `multi` are the production plans and run when the world has their 256 or
 512 ranks (`repro_torch.launch.dryrun` traces a step under either plan
 without devices). Over more than one rank every arch runs on a mesh
-whose model axis splits its heads whole (`sharding.check_executable`;
-phi3's 40 heads do not split over the production plans' 16): the dense
-decoders, mixtral (MoE, sliding window), jamba (Mamba, MoE, no sequence
-parallelism), deepseek-v2 (MLA), xlstm-125m (the xLSTM cells), gemma3-12b
-(the tied, chunked head), seamless (the encoder, cross-attention and
+whose model axis splits its heads or their columns
+(`sharding.check_executable`; phi3's 40 heads over the production plans'
+16 run as 320 columns, 2.5 heads, a rank): the dense decoders, mixtral
+(MoE, sliding window, any dispatch), jamba (Mamba, MoE, with or without
+sequence parallelism), deepseek-v2 (MLA), xlstm-125m (the xLSTM cells),
+gemma3-12b (the tied, chunked head), seamless (the encoder, cross-attention and
 `frames`, the untied chunked head) and internvl2 (image rows before the
 tokens); a rank takes its rows of every input of the batch (`tokens`,
 `frames`, `image_embeds`). The config's `remat_policy` and
 `train_microbatch` hold as the model and the step read them; `--smoke`
-takes the reduced config in fp32 without microbatches.
+takes the reduced config in fp32 without microbatches;
+`--grad-compression` the int8 compressing step. A rank draws only its
+blocks of the seeded weights.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import os
-from typing import Any, Callable, List, Optional
+from typing import Callable, List, Optional
 
 import torch
 import torch.distributed as dist
@@ -53,8 +56,11 @@ from repro_torch.launch.mesh import (Mesh, make_host_mesh,
 from repro_torch.models import build_model
 from repro_torch.optim.adamw import AdamWConfig, adamw_init
 from repro_torch.parallel.collectives import Comm
-from repro_torch.parallel.sharding import (ShardingRules, check_executable,
-                                           make_rules, shard_tree)
+from repro_torch.parallel.compression import (init_error_feedback,
+                                              make_compressing_train_step)
+from repro_torch.parallel.sharding import (ShardingRules, block_keeper,
+                                           check_executable, make_rules,
+                                           shard_tree)
 from repro_torch.train.train_step import make_train_step
 from repro_torch.train.trainer import _to_device
 
@@ -83,25 +89,57 @@ def _sharded(cfg: ModelConfig, mesh: Mesh, batch: int, seq_len: int, comm):
     return rules, cfg
 
 
+def _draw(cfg: ModelConfig, dev: torch.device, seed: int,
+          rules: Optional[ShardingRules]):
+    """`init_params` from a generator seeded `seed` on `dev`: the whole
+    tree, or under executing rules the rank's blocks alone
+    (`block_keeper`). Ranks over gloo on a card share the host's cards:
+    they draw one at a time, each giving back what its allocator cached
+    of the whole leaves before the next draws, so the card holds one
+    rank's largest leaf drawn whole at a time."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if rules is None:
+        return init_params(cfg, gen)
+    comm = rules.comm
+    keep = block_keeper(rules.param_specs(), rules.mesh, comm.coords)
+    if dev.type != "cuda" or comm.backend != "gloo":
+        return init_params(cfg, gen, keep=keep)
+    params = None
+    for r in range(comm.world):
+        if r == comm.rank:
+            params = init_params(cfg, gen, keep=keep)
+            torch.cuda.synchronize(dev)
+            torch.cuda.empty_cache()
+        dist.barrier()
+    return params
+
+
 def train(cfg: ModelConfig, *, steps: int, batch: int, seq_len: int,
           device: DeviceLike = None, ckpt_dir: str = "", log_every: int = 10,
           params=None, mesh: Optional[Mesh] = None,
           on_step: Optional[Callable[[int, dict], None]] = None,
-          on_state: Optional[Callable[[Any, Any], None]] = None,
-          comm=None) -> List[float]:
+          on_state: Optional[Callable[..., None]] = None,
+          comm=None, seed: int = 0,
+          grad_compression: bool = False) -> List[float]:
     """The launcher's loop on `mesh` (`make_host_mesh()` by default: the
     ranks of the process group, or this process): `Prefetcher` batches,
     `make_train_step`, AdamW moments in `cfg.opt_state_dtype`, a log line
     every `log_every` steps and at the last (rank 0 prints), an async
     checkpoint every 50 steps (gathered to rank 0 over many ranks).
     `params` (whole leaves) default to `init_params` from a generator
-    seeded 0 on the device; at world size 1 they are updated in place,
-    over more ranks each rank takes its blocks of them (`shard_tree`) and
-    updates those, on its rows of each global batch. `on_step(step,
-    metrics)`, if given, is called after each step is queued, with the
-    metrics still on the device; `on_state(params, opt_state)` once before
-    the first step, with the state the loop holds (a rank's blocks over
-    many ranks). `comm`, a `collectives.Comm` over `mesh`, is the caller's
+    seeded `seed` on the device, of which a rank over many draws only its
+    blocks (`_draw`: each leaf's block kept as it is drawn, bit for bit the
+    whole tree's; gloo ranks on a card one at a time); at world size 1 they are updated in
+    place, over more ranks each rank takes its blocks of them
+    (`shard_tree`) and updates those, on its rows of each global batch.
+    `grad_compression` takes `compression.make_compressing_train_step`'s
+    step (int8 gradients with an error feedback residual, a rank's blocks
+    of it over many ranks). `on_step(step, metrics)`, if given, is called
+    after each step is queued, with the metrics still on the device;
+    `on_state(params, opt_state)` once before the first step, with the
+    state the loop holds (a rank's blocks over many ranks), and the
+    residual third where the step compresses (all updated in place).
+    `comm`, a `collectives.Comm` over `mesh`, is the caller's
     where it wants the collectives' counts (`comm.stats`); without one the
     loop makes its own and closes it at the end. Returns every step's loss
     (the global batch's), read from the device once at the end: only the
@@ -122,7 +160,8 @@ def train(cfg: ModelConfig, *, steps: int, batch: int, seq_len: int,
             return train(cfg, steps=steps, batch=batch, seq_len=seq_len,
                          device=device, ckpt_dir=ckpt_dir,
                          log_every=log_every, params=params, mesh=mesh,
-                         on_step=on_step, on_state=on_state, comm=comm)
+                         on_step=on_step, on_state=on_state, comm=comm,
+                         seed=seed, grad_compression=grad_compression)
         finally:
             comm.close()
     dev = resolve_device(device)
@@ -130,17 +169,26 @@ def train(cfg: ModelConfig, *, steps: int, batch: int, seq_len: int,
     if world > 1:
         rules, cfg = _sharded(cfg, mesh, batch, seq_len, comm)
     model = build_model(cfg, rules)
+    specs = None if rules is None else rules.param_specs()
     if params is None:
-        params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
-    specs = None
-    if rules is not None:
-        specs = rules.param_specs()
+        params = _draw(cfg, dev, seed, rules)
+    elif rules is not None:
         params = shard_tree(params, specs, mesh, rules.comm.coords)
     opt_state = adamw_init(params, cfg.opt_state_dtype)
-    step_fn = make_train_step(model, AdamWConfig(
-        state_dtype=cfg.opt_state_dtype))
+    opt_cfg = AdamWConfig(state_dtype=cfg.opt_state_dtype)
+    residual = ()
+    if grad_compression:
+        residual = (init_error_feedback(params),)
+        compressing = make_compressing_train_step(model, opt_cfg)
+
+        def step_fn(params, opt_state, batch):
+            params, opt_state, _, metrics = compressing(
+                params, opt_state, residual[0], batch)
+            return params, opt_state, metrics
+    else:
+        step_fn = make_train_step(model, opt_cfg)
     if on_state is not None:
-        on_state(params, opt_state)
+        on_state(params, opt_state, *residual)
     comm = rules.comm if rules is not None else None
     printer = comm is None or comm.rank == 0
     ckpt = Checkpointer(ckpt_dir, comm=comm) if ckpt_dir else None
@@ -205,6 +253,8 @@ def main(argv=None):
                     help="reduced config (CPU-sized)")
     ap.add_argument("--mesh", choices=["host", "single", "multi"],
                     default="host")
+    ap.add_argument("--grad-compression", action="store_true",
+                    help="int8 gradients with error feedback")
     ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default=None,
@@ -233,7 +283,7 @@ def main(argv=None):
         losses = train(cfg, steps=args.steps, batch=args.batch,
                        seq_len=args.seq_len, device=device,
                        ckpt_dir=args.ckpt_dir, log_every=args.log_every,
-                       mesh=mesh)
+                       mesh=mesh, grad_compression=args.grad_compression)
         if world > 1 and dist.get_rank() == 0:
             print(f"losses {json.dumps(losses)}", flush=True)
     finally:

@@ -129,13 +129,12 @@ def _self_attention(cfg: ModelConfig, q, k, v, *, window: int,
 
 def _qkv(params: Params, cfg: ModelConfig, x, positions, tp=None):
     """q, k, v as heads, normed and rotated; `tp` (`Local` by default)
-    gives a rank its query heads and the KV heads they read."""
-    B, S, _ = x.shape
+    gives a rank its query heads (`q_heads`: whole heads, also where
+    `model` cuts through them) and the KV heads they read."""
     tp = Local(cfg.head_dim) if tp is None else tp
-    h = cfg.num_heads // tp.tp_size
-    q = tp.linear(x, params["w_q"], "w_q").reshape(B, S, h, cfg.head_dim)
-    k = tp.kv_heads(tp.linear(x, params["w_k"], "w_k"), h)
-    v = tp.kv_heads(tp.linear(x, params["w_v"], "w_v"), h)
+    q = tp.q_heads(tp.linear(x, params["w_q"], "w_q"))
+    k = tp.kv_heads(tp.linear(x, params["w_k"], "w_k"))
+    v = tp.kv_heads(tp.linear(x, params["w_v"], "w_v"))
     if cfg.qk_norm:
         q, k = l2norm(q), l2norm(k)
     q = apply_rope(q, positions, cfg.rope_theta, cfg.partial_rotary_factor)
@@ -166,18 +165,21 @@ def attention_forward(params: Params, cfg: ModelConfig, x, *, window: int = 0,
     """Self-attention over the whole sequence. `tp` places it: all heads
     (`Local`, the default), or under executing `ShardingRules` a rank's:
     the residual stream in (`tp.enter`), the rank's columns of w_q, w_k,
-    w_v (each gathered over its FSDP axes), its KV heads or, where the
-    model axis does not divide them, those its query heads read
-    (`tp.kv_heads`), flash on the local heads, the rank's rows of w_o, the
-    partial sums out (`tp.exit`). `expand_kv` and `shard_fn` are the dry
-    run's plan of the same (`_group_for_tp`)."""
+    w_v (each gathered over its FSDP axes), its query heads (where the
+    model axis cuts through them, every head its columns reach into,
+    `tp.q_heads`), its KV heads or, where the model axis does not divide
+    them, those its query heads read (`tp.kv_heads`), flash on the local
+    heads, the rank's own columns of their output (`tp.head_cols`) into
+    its rows of w_o, the partial sums out (`tp.exit`). `expand_kv` and
+    `shard_fn` are the dry run's plan of the same (`_group_for_tp`)."""
     tp = Local(cfg.head_dim) if tp is None else tp
     x = tp.enter(x)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)
     q, k, v = _qkv(params, cfg, x, positions, tp)
     q, k, v = _group_for_tp(q, k, v, cfg, expand_kv, shard_fn)
-    out = _self_attention(cfg, q, k, v, window=window, causal=causal)
+    out = tp.head_cols(_self_attention(cfg, q, k, v, window=window,
+                                       causal=causal))
     return tp.exit(tp.linear(out, params["w_o"], "w_o"))
 
 
@@ -262,11 +264,10 @@ def cross_attention_forward(params: Params, cfg: ModelConfig, x,
     tp = Local(cfg.head_dim) if tp is None else tp
     x = tp.enter(x)
     B, S, _ = x.shape
-    h = cfg.num_heads // tp.tp_size
-    q = tp.linear(x, params["w_q"], "w_q").reshape(B, S, h, cfg.head_dim)
+    q = tp.q_heads(tp.linear(x, params["w_q"], "w_q"))
     out = flash_attention(q.transpose(1, 2), enc_kv["k"].transpose(1, 2),
                           enc_kv["v"].transpose(1, 2), causal=False)
-    out = out.transpose(1, 2).reshape(B, S, h * cfg.head_dim)
+    out = tp.head_cols(out.transpose(1, 2).reshape(B, S, -1))
     return tp.exit(tp.linear(out, params["w_o"], "w_o"))
 
 
@@ -295,8 +296,7 @@ def encode_cross_kv(params: Params, cfg: ModelConfig, enc_out,
     rank's query heads (`tp.kv_heads`), from the encoder output whole
     along its sequence."""
     tp = Local(cfg.head_dim) if tp is None else tp
-    h = cfg.num_heads // tp.tp_size
-    return {name: tp.kv_heads(tp.linear(enc_out, params[w], w), h)
+    return {name: tp.kv_heads(tp.linear(enc_out, params[w], w))
             for name, w in (("k", "w_k"), ("v", "w_v"))}
 
 

@@ -28,17 +28,18 @@ def torch_dtype(name: str) -> torch.dtype:
 
 def dense_init(gen: torch.Generator, in_dim: int, out_dim: int, dtype,
                lead: Tuple[int, ...] = ()):
-    """normal * 1/sqrt(in_dim), drawn in fp32, stored in `dtype`."""
+    """normal * 1/sqrt(in_dim), drawn in fp32 (scaled in place: one fp32
+    copy at a time), stored in `dtype`."""
     w = torch.randn(*lead, in_dim, out_dim, generator=gen,
                     device=gen.device, dtype=torch.float32)
-    return (w / math.sqrt(in_dim)).to(dtype)
+    return w.div_(math.sqrt(in_dim)).to(dtype)
 
 
 def embed_init(gen: torch.Generator, vocab: int, dim: int, dtype):
     """normal * 0.02 (GPT-style)."""
     w = torch.randn(vocab, dim, generator=gen, device=gen.device,
                     dtype=torch.float32)
-    return (w * 0.02).to(dtype)
+    return w.mul_(0.02).to(dtype)
 
 
 # ---------------------------------------------------------------- norms
@@ -121,8 +122,9 @@ class Local:
     columns, as executing `ShardingRules` (`parallel.sharding`) give a
     rank's layer its part: the residual stream in (`enter`) and the sums
     out (`exit`) as they are, a product with the whole weight (`linear`),
-    its output already whole (`cols`), the keys' or values' columns as
-    their heads (`kv_heads`)."""
+    its output already whole (`cols`), the queries', keys' or values'
+    columns as their heads (`q_heads`, `kv_heads`), every head's output
+    column its own (`head_cols`)."""
     tp_size = 1
 
     def __init__(self, head_dim: int = 0):
@@ -144,8 +146,15 @@ class Local:
     def cols(y: torch.Tensor) -> torch.Tensor:
         return y
 
-    def kv_heads(self, t: torch.Tensor, heads: int) -> torch.Tensor:
+    def q_heads(self, t: torch.Tensor) -> torch.Tensor:
         return t.reshape(*t.shape[:-1], -1, self.head_dim)
+
+    def kv_heads(self, t: torch.Tensor) -> torch.Tensor:
+        return t.reshape(*t.shape[:-1], -1, self.head_dim)
+
+    @staticmethod
+    def head_cols(y: torch.Tensor) -> torch.Tensor:
+        return y
 
 
 LOCAL = Local()

@@ -25,7 +25,9 @@ and drops exactly the tokens the reference drops; the rank runs its own
 experts (expert parallel: the model axis divides E) or every expert's
 block of `d_ff` columns (the expert-internal TP fallback), and the shared
 experts' columns, each expert weight gathered over its FSDP axes at the
-product; the partial sums leave through `tp.exit`. The aux losses are the
+product; the `ragged` dispatch sorts every token-expert pair by expert and
+takes the rows of the rank's experts; the partial sums leave through
+`tp.exit`. The aux losses are the
 global batch's: each rank sums its counts, probabilities and squared
 log-normalizers over its own block of positions, and one all-reduce over
 every rank adds them up, so each token's gradient is counted once.
@@ -198,15 +200,8 @@ def _ragged_moe(params: Params, mc: MoEConfig, x2d, gates, idx):
     tok = torch.arange(t, device=x2d.device).repeat_interleave(mc.top_k)[order]
     w = gates.reshape(-1)[order]
     xs = x2d[tok]                                  # (T*k, d) sorted by expert
-    if x2d.device.type == "meta":
-        # no data to count: a balanced split (any split of the T*k rows
-        # costs the same products)
-        q, r = divmod(t * mc.top_k, mc.num_experts)
-        sizes = [q + (ex < r) for ex in range(mc.num_experts)]
-    else:
-        sizes = _expert_counts(flat_e, mc.num_experts).tolist()
     ys = []
-    for ex, rows in enumerate(torch.split(xs, sizes)):
+    for ex, rows in enumerate(torch.split(xs, _ragged_sizes(mc, flat_e, t))):
         h = _swiglu_act(rows @ params["w_gate"][ex], rows @ params["w_up"][ex])
         ys.append(h @ params["w_down"][ex])
     y = torch.cat(ys) * w[:, None].to(xs.dtype)
@@ -289,6 +284,48 @@ def _rank_dropping(params: Params, mc: MoEConfig, x3d, gates, idx, e0: int,
     return torch.einsum("gnec,egcd->gnd", combine.to(x3d.dtype), h_out)
 
 
+def _ragged_sizes(mc: MoEConfig, flat_e: torch.Tensor, t: int) -> list:
+    """Rows of each expert among `t` tokens' top-k choices `flat_e`,
+    counted on the host; on `meta` (no data to count) a balanced split:
+    any split of the T*k rows costs the same products."""
+    if flat_e.device.type == "meta":
+        q, r = divmod(t * mc.top_k, mc.num_experts)
+        return [q + (ex < r) for ex in range(mc.num_experts)]
+    return _expert_counts(flat_e, mc.num_experts).tolist()
+
+
+def _rank_ragged(params: Params, mc: MoEConfig, x2d, gates, idx, e0: int,
+                 tp):
+    """`_ragged_moe` on a rank: every token-expert pair sorted by expert,
+    the contiguous rows of its experts [e0, e0 + E_l) (or of every
+    expert, on its block of columns) through one product an expert, each
+    expert's block gathered over its FSDP axes at the product
+    (`gathered_mm`, as ZeRO-3 gathers: again in the backward, its gradient
+    reduce-scattered), partial sums out. Dropless, as on one card."""
+    t = x2d.shape[0]
+    el = params["w_gate"].shape[0]
+    flat_e = idx.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    sizes = _ragged_sizes(mc, flat_e, t)
+    lo = sum(sizes[:e0])
+    mine = sizes[e0:e0 + el]
+    rows = order[lo:lo + sum(mine)]
+    tok = torch.arange(t, device=x2d.device).repeat_interleave(
+        mc.top_k)[rows]
+    w = gates.reshape(-1)[rows]
+
+    def mm(xs, name, j):                 # expert j's (d_in, d_out) block
+        dim, axes = tp.gather_dim(name)
+        return c.gathered_mm(tp.comm, xs, params[name][j], dim - 1,
+                             axes if dim > 0 else ())
+    ys = []
+    for j, xs in enumerate(torch.split(x2d[tok], mine)):
+        h = _swiglu_act(mm(xs, "w_gate", j), mm(xs, "w_up", j))
+        ys.append(mm(h, "w_down", j))
+    y = torch.cat(ys) * w[:, None].to(x2d.dtype)
+    return torch.zeros_like(x2d).index_add(0, tok, y)
+
+
 def _rank_moe(params: Params, cfg: ModelConfig, x: torch.Tensor, tp
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """`moe_apply` as a rank of the sharded step runs it (module
@@ -309,8 +346,10 @@ def _rank_moe(params: Params, cfg: ModelConfig, x: torch.Tensor, tp
         y = _rank_dropping(params, mc, x2d.reshape(g_, n, d),
                            gates.reshape(g_, n, -1), idx.reshape(g_, n, -1),
                            e0, tp).reshape(b * s, d)
+    elif mc.dispatch == "ragged":
+        y = _rank_ragged(params, mc, x2d, gates, idx, e0, tp)
     else:
-        raise NotImplementedError(f"{mc.dispatch} dispatch on a rank")
+        raise ValueError(f"unknown moe dispatch {mc.dispatch!r}")
     if mc.num_shared_experts:
         y = y + swiglu(params["shared"], x2d, tp.at("shared", inner=True))
     return tp.exit(y.reshape(b, s, d)), aux

@@ -43,17 +43,22 @@ the model runs rank-local (`models.model`, `models.attention`,
     (`to_seq`), where each rank takes the loss of its positions;
   * KV heads the model axis does not divide (`_group_for_tp`'s expand
     case) are all-gathered, and the rank takes those its query heads read
-    (`kv_heads`);
+    (`kv_heads`); query heads it does not divide while it divides their
+    columns (phi3's 40 over 16) are all-gathered too, the rank runs flash
+    on every head its columns reach into and keeps its own columns of
+    their output for its rows of `w_o` (`q_heads`, `head_cols`);
   * a MoE layer takes its tokens in (`enter`: every model rank routes the
     same whole groups) and runs the rank's experts (expert parallel) or
     every expert's `d_ff` columns (the expert-internal TP fallback), its
     partial sums out through `exit`; the aux losses are sums over each
     rank's own block of positions, all-reduced over every rank
     (`models.moe`);
-  * a Mamba mixer runs the rank's block of `d_inner` channels: `in_proj`'s
-    column blocks all-gathered over `model` for the rank's x and z
-    channels, `x_proj` and `dt_proj` gathered whole (`whole`), its
-    `x_proj` partial sums all-reduced (`models.ssm`);
+  * a Mamba mixer runs the rank's block of `d_inner` channels over the
+    whole sequence (under SP too: `enter` gathers it, so no scan passes
+    its state between ranks): `in_proj`'s column blocks all-gathered over
+    `model` for the rank's x and z channels, `x_proj` and `dt_proj`
+    gathered whole (`whole`), its `x_proj` partial sums all-reduced
+    (`models.ssm`);
   * an xLSTM cell runs the rank's heads from column blocks all-gathered
     over `model` (`cols`) and `w_if` gathered whole (`models.xlstm`); an
     MLA layer gathers its latents whole and runs the rank's heads
@@ -99,8 +104,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import (MAMBA, MLSTM, SLSTM, ModelConfig,
-                                      ShapeConfig)
+from repro_torch.configs.base import MLSTM, SLSTM, ModelConfig, ShapeConfig
 from repro_torch.parallel import collectives as c
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -596,9 +600,50 @@ class ShardingRules:
         `logits` layout."""
         return self.comm.index(self.tp) * s_local
 
-    def kv_heads(self, t, heads_local: int):
+    @property
+    def heads_cut(self) -> bool:
+        """Whether `model` cuts through query heads: it divides their
+        columns, not the heads (phi3's 40 over 16: 320 columns, 2.5 heads
+        a rank)."""
+        return self.cfg.num_heads % self.tp_size != 0
+
+    def head_span(self) -> Tuple[int, int]:
+        """This rank's query heads [first, stop): those its block of
+        `w_q`'s columns touches, whole. Where `model` divides the heads,
+        its own H / M; where it cuts through them, every head its columns
+        reach into (3 a rank for phi3 over 16)."""
+        hd = self.cfg.head_dim
+        c0, c1 = self.tp_block(self.cfg.num_heads * hd)
+        return c0 // hd, -(-c1 // hd)
+
+    def q_heads(self, t):
+        """This rank's queries (B, S, cols), its block of `w_q`'s columns,
+        as whole heads (B, S, h, hd): where `model` cuts through heads,
+        every rank's columns all-gathered over `model` and the heads of
+        `head_span` taken (the backward reduce-scatters the gradient, so
+        a head two ranks share sums their parts)."""
+        b, s = t.shape[:2]
+        h0, h1 = self.head_span()
+        hd = self.cfg.head_dim
+        if self.heads_cut:
+            t = c.all_gather(self.comm, t, 2, self.tp)[..., h0 * hd:h1 * hd]
+        return t.reshape(b, s, h1 - h0, hd)
+
+    def head_cols(self, y):
+        """The attention output of this rank's heads (B, S, h * hd) to its
+        own block of columns (B, S, cols), the rows of `w_o` it holds:
+        itself where `model` divides the heads; else the columns of
+        `head_span`'s heads that are the rank's, so the output needs no
+        second gather."""
+        if not self.heads_cut:
+            return y
+        c0, c1 = self.tp_block(self.cfg.num_heads * self.cfg.head_dim)
+        start = c0 - self.head_span()[0] * self.cfg.head_dim
+        return y[..., start:start + c1 - c0]
+
+    def kv_heads(self, t):
         """This rank's keys or values (B, S, cols) as heads (B, S, kv, hd)
-        for its `heads_local` query heads: its own KV heads where `model`
+        for its query heads (`head_span`): its own KV heads where `model`
         divides them; else (`_group_for_tp`'s expand case, a column block
         cutting through a head) every KV head all-gathered over `model`
         and the ones its query heads read taken, one a query head."""
@@ -609,9 +654,8 @@ class ShardingRules:
                              cfg.head_dim)
         full = c.all_gather(self.comm, t, 2, self.tp).reshape(
             b, s, cfg.num_kv_heads, cfg.head_dim)
-        first = self.comm.index(self.tp) * heads_local
-        idx = torch.arange(first, first + heads_local,
-                           device=t.device) // cfg.q_per_kv
+        first, stop = self.head_span()
+        idx = torch.arange(first, stop, device=t.device) // cfg.q_per_kv
         return full.index_select(2, idx)
 
     def reduce_loss(self, total, count: int):
@@ -747,11 +791,7 @@ def _map_specs(fn, specs, path=()):
                        for i, v in enumerate(specs))
 
 
-# What executing the plan does not cover yet, each under its ROADMAP item
-COMPRESSION_ITEM = "int8 gradient compression on shards"
-RAGGED_ITEM = "the ragged MoE dispatch over many ranks"
-MAMBA_SP_ITEM = ("Mamba under sequence parallelism (a scan split over "
-                 "ranks passes its state between them)")
+# What executing the plan does not cover yet, under its ROADMAP item
 SOFTCAP_ITEM = "attention logit softcapping"
 # leaves each rank holds a block of along `model` and uses as its own part
 # of the layer (x_proj, dt_proj and w_if are gathered whole: `whole`)
@@ -770,23 +810,20 @@ def _unsupported(cfg: ModelConfig, mesh, item: str) -> str:
 def check_executable(rules: ShardingRules) -> None:
     """Raise `NotImplementedError`, naming its ROADMAP item, for a config
     or step the executing rules do not run: a train step of anything but
-    models of GQA/MHA, sliding-window or MLA attention, Mamba mixers
-    (without SP) and xLSTM cells, SwiGLU or MoE FFNs (`dense` or
-    `dropping` dispatch, shared experts), an encoder of attention layers
-    that every decoder layer cross-attends to (`frames` inputs) or image
-    embeddings before the tokens (`tokens+image`), their vocabulary head
-    tied or not, its loss whole or chunked; and `ValueError` for a step
-    whose shapes the mesh does not split evenly (a head, the sequence, the
-    batch, or a leaf a rank takes its block of along `model`)."""
+    models of GQA/MHA, sliding-window or MLA attention, Mamba mixers and
+    xLSTM cells, SwiGLU or MoE FFNs (`dense`, `dropping` or `ragged`
+    dispatch, shared experts), an encoder of attention layers that every
+    decoder layer cross-attends to (`frames` inputs) or image embeddings
+    before the tokens (`tokens+image`), their vocabulary head tied or not,
+    its loss whole or chunked, the residual stream sequence-parallel or
+    not; and `ValueError` for a step whose shapes the mesh does not split
+    evenly (attention heads whose columns do not split either, an xLSTM
+    cell's heads, the sequence, the batch, or a leaf a rank takes its
+    block of along `model`)."""
     cfg, mesh = rules.cfg, rules.mesh
     kinds = set(cfg.pattern) | set(cfg.ffn_pattern)
-    for hit, item in (
-            (cfg.moe is not None and cfg.moe.dispatch == "ragged",
-             RAGGED_ITEM),
-            (MAMBA in kinds and rules.sequence_parallel, MAMBA_SP_ITEM),
-            (bool(cfg.attn_logit_softcap), SOFTCAP_ITEM)):
-        if hit:
-            raise NotImplementedError(_unsupported(cfg, mesh, item))
+    if cfg.attn_logit_softcap:
+        raise NotImplementedError(_unsupported(cfg, mesh, SOFTCAP_ITEM))
     if rules.shape.kind != "train":
         raise NotImplementedError(_unsupported(
             cfg, mesh, f"a {rules.shape.kind} step"))
@@ -794,14 +831,15 @@ def check_executable(rules: ShardingRules) -> None:
     b, s = rules.shape.global_batch, rules.shape.seq_len
     problems = []
     # an xLSTM cell's heads may also be cut over a multiple of them
-    # (`models.xlstm`); attention's must split whole
+    # (`models.xlstm`); attention's split whole, or their columns do
+    # (`head_span`: a rank runs every head its columns reach into)
     cells = [(kind, n) for kind, n in (
         (MLSTM, cfg.num_heads),
         (SLSTM, cfg.xlstm and cfg.xlstm.num_heads_slstm)) if kind in kinds]
     for kind, n in cells:
         if n % m and m % n:
             problems.append(f"{n} {kind} heads over model={m}")
-    if not cells and cfg.num_heads % m:
+    if not cells and cfg.num_heads % m and cfg.num_heads * cfg.head_dim % m:
         problems.append(f"{cfg.num_heads} heads over model={m}")
     if m > 1 and s % m:
         problems.append(f"sequence {s} over model={m}")
@@ -837,6 +875,16 @@ def shard_tree(tree, specs, mesh, coords: Dict[str, int]):
     copies."""
     return tree_map(lambda t, spec: t[_block(spec, coords, mesh, t.shape)]
                     .contiguous().clone(), tree, specs)
+
+
+def block_keeper(specs, mesh, coords: Dict[str, int]):
+    """`bridge.init_params`'s `keep` for the device at `coords`: the block
+    of each whole leaf, by its path, that `shard_tree` cuts (a contiguous
+    copy; the whole leaf is the caller's to free)."""
+    by_path: Dict[str, PartitionSpec] = {}
+    _map_specs(lambda path, spec: by_path.setdefault(path, spec), specs)
+    return lambda path, t: t[_block(by_path[path], coords, mesh, t.shape)] \
+        .contiguous().clone()
 
 
 def gather_leaf(t, spec, comm, dst: Optional[int] = None):

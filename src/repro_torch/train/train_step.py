@@ -42,14 +42,11 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig,
     """fwd+bwd+clip+AdamW. If cfg.train_microbatch is set, the global batch
     is split and gradients accumulate over the microbatches in
     `opt_state_dtype` (activation memory scales with the microbatch, not
-    the global batch)."""
+    the global batch). `grad_compression(grads) -> grads` runs on the
+    accumulated gradients before the clip; under executing rules on a
+    rank's synced blocks (`compression.compress_grads(..., rules=)`)."""
     micro = model.cfg.train_microbatch
     tp = model.tp
-    if tp is not None and grad_compression is not None:
-        from repro_torch.parallel.sharding import (COMPRESSION_ITEM,
-                                                   _unsupported)
-        raise NotImplementedError(_unsupported(model.cfg, tp.mesh,
-                                               COMPRESSION_ITEM))
 
     def grads_of(params, batch):
         out, g = value_and_grad(model, params, batch)

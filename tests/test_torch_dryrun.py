@@ -151,12 +151,23 @@ def test_modal_train_cells_trace_the_executed_step(arch, mesh):
 
 
 @pytest.mark.parametrize("mesh", ["single", "multi"])
-def test_phi3_train_cells_take_the_plan(mesh):
-    """phi3's 40 heads do not split over model = 16 (ROADMAP A18 (b)): its
-    train cells take the plan's model of the collectives."""
+def test_phi3_train_cells_trace_the_executed_step(mesh):
+    """phi3's 40 heads over model = 16 split their columns, 320 a rank
+    (2.5 heads): its train cells are traced as rank 0 runs the executed
+    step, flash on the 3 whole heads its columns reach into, and fit a
+    card."""
+    from repro_torch.parallel.collectives import PlanComm
     cfg = registry.get_config("phi3-medium-14b")
     plan = make_production_mesh(multi_pod=mesh == "multi")
-    assert not dryrun.executes(make_rules(plan, cfg, TRAIN_4K))
+    assert dryrun.executes(make_rules(plan, cfg, TRAIN_4K))
+    rank0 = make_rules(plan, cfg, TRAIN_4K, comm=PlanComm(plan))
+    assert rank0.heads_cut and rank0.head_span() == (0, 3)
+    rec = dryrun.run_cell("phi3-medium-14b", TRAIN_4K, mesh)
+    assert rec["ok"], rec.get("traceback")
+    assert rec["collectives_from"] == "executed step"
+    assert rec["divisor"] == 1 and rec["fits_80gb"]
+    assert rec["collective_by_kind"]["all-gather"] > 0
+    assert not rec["cuda_initialized"] and not torch.cuda.is_initialized()
 
 
 def test_a_failed_cell_is_recorded_with_its_error():

@@ -341,17 +341,6 @@ def test_the_production_plans_of_seamless_and_internvl2_execute(arch, kind):
      "attention logit softcapping"),
     ("seamless-m4t-medium", {"attn_logit_softcap": 50.0},
      "attention logit softcapping"),
-    ("mixtral-8x22b", {"moe": base.MoEConfig(num_experts=4, top_k=2,
-                                             d_ff_expert=256,
-                                             dispatch="ragged")},
-     "ragged MoE dispatch"),
-    ("mixtral-8x22b", {"mesh_shape": (1, 4),
-                       "moe": base.MoEConfig(num_experts=4, top_k=2,
-                                             d_ff_expert=256,
-                                             dispatch="ragged")},
-     "ragged MoE dispatch"),
-    ("jamba-1.5-large-398b", {"sequence_parallel": True},
-     "Mamba under sequence parallelism"),
     ("internvl2-2b", {"kind": "prefill"}, "a prefill step"),
     ("seamless-m4t-medium", {"kind": "decode"}, "a decode step")])
 def test_the_executing_rules_name_what_they_do_not_run(arch, over, item):
@@ -360,36 +349,121 @@ def test_the_executing_rules_name_what_they_do_not_run(arch, over, item):
     assert item in str(err.value)
 
 
-@pytest.mark.parametrize("how", ["make_train_step",
-                                 "make_compressing_train_step"])
-def test_int8_compression_on_shards_is_refused(how):
-    from repro_torch.optim.adamw import AdamWConfig
+@pytest.mark.parametrize("arch, over", [
+    ("mixtral-8x22b", {"moe": base.MoEConfig(num_experts=4, top_k=2,
+                                             d_ff_expert=256,
+                                             dispatch="ragged")}),
+    ("mixtral-8x22b", {"mesh_shape": (1, 4),
+                       "moe": base.MoEConfig(num_experts=4, top_k=2,
+                                             d_ff_expert=256,
+                                             dispatch="ragged")}),
+    ("jamba-1.5-large-398b", {"sequence_parallel": True})])
+def test_the_executing_rules_run_ragged_dispatch_and_mamba_under_sp(
+        arch, over):
+    """The ragged dispatch (expert parallel over (2, 2) and (1, 4)) and
+    Mamba under sequence parallelism pass `check_executable`: a Mamba
+    mixer takes the whole sequence (`enter`), so no scan passes its state
+    between ranks, and under SP every leaf `model` does not split sums
+    its gradient over `model`."""
+    rules = _executing(arch, **over)
+    sharding.check_executable(rules)
+    assert rules.executing
+    if arch.startswith("jamba"):
+        assert rules.sequence_parallel
+        for leaf in ("groups/0/pre_norm/scale", "final_norm/scale",
+                     "groups/1/mixer/x_proj", "groups/1/post_norm/scale"):
+            assert "model" in rules.sync_axes(leaf) or "model" in \
+                sharding._flat_axes(rules._leaf_spec(leaf)[-1]), leaf
+
+
+def _compressing_run(rules, how):
+    """Rank 0's compressing step under `rules` on `meta` (a `PlanComm`: its
+    collectives move nothing), under the dry run's cost trace (the kernels
+    record their cost there), from blocks of the params' shapes and the
+    rank's rows of the cell's inputs: the reference's
+    `make_compressing_train_step`, or `make_train_step` with a hook that
+    compresses the rank's blocks (`compress_grads(..., rules=)`). Returns
+    (the residual, the blocks, the shapes `quantize_int8` took)."""
+    from repro_torch.analysis.trace import Trace
+    from repro_torch.bridge import param_shapes
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
     from repro_torch.parallel import compression
     from repro_torch.train.train_step import make_train_step
-    rules = _executing("stablelm-1.6b")
+    from repro_torch.tree import tree_map
     model = build_model(rules.cfg, rules)
-    with pytest.raises(NotImplementedError, match="ROADMAP A18") as err:
-        if how == "make_train_step":
-            make_train_step(model, AdamWConfig(),
-                            grad_compression=compression.compress_grads)
-        else:
-            compression.make_compressing_train_step(model, AdamWConfig())
-    assert "int8 gradient compression on shards" in str(err.value)
+    blocks = tree_map(lambda t, s: torch.empty(
+        sharding.shard_shape(t.shape, s, rules.mesh), dtype=t.dtype,
+        device="meta"), param_shapes(rules.cfg), rules.param_specs())
+    efb = compression.init_error_feedback(blocks)
+    batch = rules.local_batch(model.input_specs(rules.shape))
+    seen, real = [], compression.quantize_int8
+
+    def quantize(x, top=None):
+        seen.append(tuple(x.shape))
+        return real(x, top)
+    compression.quantize_int8 = quantize
+    opt = adamw_init(blocks)
+    try:
+        with Trace(rules, args=(blocks, opt, batch)):
+            if how == "make_compressing_train_step":
+                _, _, efb, metrics = compression.make_compressing_train_step(
+                    model, AdamWConfig())(blocks, opt, efb, batch)
+            else:
+                def hook(g):
+                    g, hook.efb = compression.compress_grads(g, efb,
+                                                             rules=rules)
+                    return g
+                _, _, metrics = make_train_step(
+                    model, AdamWConfig(), grad_compression=hook)(
+                        blocks, opt, batch)
+                efb = hook.efb
+    finally:
+        compression.quantize_int8 = real
+    assert "loss" in metrics and "grad_norm" in metrics
+    return efb, blocks, seen
+
+
+@pytest.mark.parametrize("how", ["make_train_step",
+                                 "make_compressing_train_step"])
+def test_int8_compression_runs_on_shards(how):
+    """Both compressing steps build under executing rules and run rank 0's
+    step of stablelm's smoke config over (2, 2): the residual comes back in
+    fp32 blocks of the params' shapes; the reference's hook compresses
+    every leaf, its step every leaf of 4096 elements and up, each scale
+    one all-reduce (max) over the axes its leaf's spec splits."""
+    from repro_torch.bridge import param_shapes
+    rules = _executing("stablelm-1.6b")
+    efb, blocks, seen = _compressing_run(rules, how)
+    assert [tuple(e.shape) for e in tree_leaves(efb)] == \
+        [tuple(b.shape) for b in tree_leaves(blocks)]
+    assert all(e.dtype == torch.float32 for e in tree_leaves(efb))
+    want = [tuple(b.shape) for b, w in zip(tree_leaves(blocks),
+                                           tree_leaves(param_shapes(
+                                               rules.cfg)))
+            if how == "make_train_step" or w.numel() >= 4096]
+    assert seen == want
+    assert rules.comm.stats.snapshot()["all-reduce"] > 0
 
 
 @pytest.mark.parametrize("arch, mesh_shape", [
-    ("seamless-m4t-medium", (2, 2)), ("internvl2-2b", (1, 4))])
-def test_int8_compression_is_refused_on_the_modal_configs(arch, mesh_shape):
-    """The encoder-decoder and the image inputs execute over many ranks,
-    but not with the int8 gradient compression."""
-    from repro_torch.optim.adamw import AdamWConfig
-    from repro_torch.parallel import compression
+    ("seamless-m4t-medium", (2, 4)), ("internvl2-2b", (2, 4))])
+def test_int8_compression_runs_on_the_modal_configs(arch, mesh_shape):
+    """The encoder-decoder and the image inputs take the compressing step
+    over many ranks too, and its threshold counts a whole leaf's elements:
+    over 8 ranks `frame_proj`'s or `img_proj`'s block holds fewer than
+    4096, the whole leaf more, and it is compressed."""
+    from repro_torch.bridge import param_shapes
     rules = _executing(arch, mesh_shape)
     sharding.check_executable(rules)
-    with pytest.raises(NotImplementedError, match="ROADMAP A18") as err:
-        compression.make_compressing_train_step(
-            build_model(rules.cfg, rules), AdamWConfig())
-    assert sharding.COMPRESSION_ITEM in str(err.value)
+    _, blocks, seen = _compressing_run(rules,
+                                       "make_compressing_train_step")
+    name = "frame_proj" if arch.startswith("seamless") else "img_proj"
+    whole, block = param_shapes(rules.cfg)[name], blocks[name]
+    assert block.numel() < 4096 <= whole.numel()
+    assert seen == [tuple(b.shape) for b, w in zip(
+        tree_leaves(blocks), tree_leaves(param_shapes(rules.cfg)))
+        if w.numel() >= 4096]
+    assert tuple(block.shape) in seen
 
 
 def test_the_per_head_leaves_sum_their_gradient_over_model():
