@@ -14,8 +14,14 @@ Phases, each of which raises (and so exits non-zero) on any failure:
               tensor-core path and most in fp32 on the CUDA-core path;
               mixtral-8x22b's 1x8192 prefill past its 4096 window and its
               2x2048, against the plain version a chunk of query rows at a
-              time; the recompute backward, `_FlashAttention`, against
-              autograd through the plain version; gemma3-12b's bf16
+              time; the backward kernels through `_FlashAttention` (dq, dk,
+              dv and the forward's lse) against the plain blockwise
+              backward and autograd through the plain version, at every
+              head_dim on both dtypes, with and without softcap, windows,
+              S != T cross-attention, gemma3's, MLA's and mixtral's
+              training shapes, timed at mixtral's 2x2048 beside its bound,
+              SDPA's forward + backward and the recompute backward it
+              replaced, and its peak memory at 1x8192; gemma3-12b's bf16
               2x16(8)x2048 at head_dim 256, windowed to 1024 and global,
               and its 1x8192 windowed; deepseek-v2's MLA prefill, bf16
               2x128x2048 at head_dim 192 with the values zero-padded from
@@ -48,7 +54,10 @@ Phases, each of which raises (and so exits non-zero) on any failure:
               decode steps, greedy tokens, flash launched once a
               full-sequence attention; gemma3's chunked loss over 2x2048
               tokens and every gradient leaf, card vs CPU, and chunked vs
-              unchunked on the card.
+              unchunked on the card; stablelm-1.6b's smoke config with its
+              attention logits softcapped at 2.0 (fp32): prefill logits,
+              loss and every gradient leaf, the flash kernels' tanh forward
+              and backward.
   4. serve    stablelm-1.6b at full width and depth (24 layers, bf16,
               random weights from a seed) serves requests drawn from the
               load module's length mix plus two 2048-token prompts through
@@ -140,9 +149,11 @@ Phases, each of which raises (and so exits non-zero) on any failure:
               internvl2-2b and seamless-m4t-medium whole, gemma3-12b cut to
               one 6-layer group, phi3-medium-14b to 4 layers, mistral-large
               to 2, deepseek-v2 to 2 (its dense first layer and one MoE
-              layer), xlstm-125m to 2 at 2x128; jamba at its smoke config
-              (a full-width group does not fit). Finite losses, and each
-              kernel launched once a layer a step, twice inside the remat.
+              layer), xlstm-125m to 2 at 2x128; stablelm-1.6b again with its
+              attention logits softcapped at 50.0; jamba at its smoke
+              config (a full-width group does not fit). Finite losses, and
+              each kernel launched once a layer a step, twice inside the
+              remat, flash's backward once a layer a step.
               (b) `_SSMScan` at jamba's full-width layer (B=1 S=2048
               di=16,384, x bf16): y against the plain version, every
               gradient against autograd through `ssm_scan_ref` on the card;
@@ -225,7 +236,7 @@ Phases, each of which raises (and so exits non-zero) on any failure:
               single-pod plan, none of which may initialize CUDA.
   10. sharded the sharded training step (`launch.train.train` over a
               process group, the reference's ShardingRules executing), the
-              twelve cases of SHARDED_TRAIN, cut by depth:
+              thirteen cases of SHARDED_TRAIN, cut by depth:
               stablelm-1.6b cut to 2 of its 24 layers over a (2, 2) mesh,
               batch 2 x 2048; phi3-medium-14b cut to 1 layer over (1, 16),
               16 ranks, batch 1 x 2048 (40 heads over 16: 320 columns, flash
@@ -247,22 +258,26 @@ Phases, each of which raises (and so exits non-zero) on any failure:
               through the int8 compressing step (each leaf's scale, and the
               error feedback residual's blocks, held to the one card's); jamba smoke fp32 over (2, 2) with
               sequence parallelism; mixtral smoke fp32 over (1, 4) with the
-              `ragged` dispatch. 1 warm-up + 2 steps each, as
+              `ragged` dispatch; stablelm smoke fp32 over (2, 2) with its
+              attention logits softcapped at 2.0. 1 warm-up + 2 steps
+              each, as
               gloo ranks spawned on this card (their collectives through
               host memory: no measure of the plan's speed). Each rank held
               to the one-card step from the same weights and batches, at
               the gates of its dtype (bf16: losses and every updated leaf
               to 1e-3, gradient norms 2e-2, AdamW m 5e-2 of the leaf's
               largest entry, the embedding table's 0.25; fp32 no looser),
-              flash launched on its local heads (with the layer's window)
-              and ssm_scan on its channels as often as the remat implies,
+              flash launched on its local heads (with the layer's window),
+              its backward once a layer a step, and ssm_scan on its
+              channels as often as the remat implies,
               its bytes a step by kind equal to the dry run's at the same
               mesh; the top-k assignments of the first forward that differ
               from the one card's counted and printed; backend, ranks,
               cards, each rank's peak memory and step ms printed. With 2
               cards or more, stablelm also over nccl, one rank a card.
-The line before the last is a JSON object with one entry per kernel; the
-last line is {"ok": true, "device": {...}}. Without a card it exits 1.
+The line before the last is a JSON object with one entry per kernel (flash's
+backward under flash's entry, "backward"); the last line is {"ok": true,
+"device": {...}}. Without a card it exits 1.
 """
 from __future__ import annotations
 
@@ -382,14 +397,20 @@ def _wrappers() -> dict:
 
 
 def reset_launch_counts() -> None:
-    """Every kernel wrapper's launch count to 0, just before a main path."""
-    for wrapper in _wrappers().values():
+    """Every kernel wrapper's launch count to 0, flash's backward launches
+    too, just before a main path."""
+    wrappers = _wrappers()
+    for wrapper in wrappers.values():
         wrapper.launches = 0
+    wrappers["flash_attention"].bwd_launches = 0
 
 
 def launch_counts() -> dict:
-    """Every kernel wrapper's launch count."""
-    return {name: w.launches for name, w in _wrappers().items()}
+    """Every kernel wrapper's launch count, and flash's backward launches
+    ("flash_attention_bwd")."""
+    wrappers = _wrappers()
+    return {**{name: w.launches for name, w in wrappers.items()},
+            "flash_attention_bwd": wrappers["flash_attention"].bwd_launches}
 
 
 def remat_runs(cfg) -> int:
@@ -570,11 +591,16 @@ MIXTRAL_HEADS, MIXTRAL_WINDOW = (48, 8), 4096
 # Query rows a chunk of the plain version at mixtral's shapes: the whole
 # 8192 x 8192 fp32 score matrix of 48 heads would take 12.9 GB.
 PLAIN_ROW_CHUNK = 1024
-# `_FlashAttention`'s backward against autograd through `attention_ref` on
-# the card: both recompute `attention_ref` on the same inputs, so fp32
-# grads to 1e-5 (the same sums, the card free to reorder them) and bf16's
-# to 2e-2, one bf16 rounding each.
+# The backward kernels' dq, dk, dv against the plain blockwise backward and
+# against autograd through `attention_ref`, |a - b| <= tol + tol |b|: fp32
+# to 1e-5 (full fp32 on both sides, sums in other orders), bf16 to 2e-2 (P
+# and dS rounded to bf16 as product operands, the grads to bf16 once).
 FLASH_GRAD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+# The forward's lse (fp32 whatever the inputs) against the plain version's.
+FLASH_LSE_TOL = 1e-5
+# Forward + backward at mixtral's 1x48(8)x8192, above its tensors: 1/16 of
+# one fp32 (B,H,S,T) score matrix (12.9 GB).
+FLASH_BWD_PEAK_MAX = 0.8e9
 
 
 def check_flash_mixtral(gen) -> dict:
@@ -582,8 +608,7 @@ def check_flash_mixtral(gen) -> dict:
     1x8192 prefill (past the window) and 2x2048 (the serve waves and the
     training step), each against the plain version computed a chunk of
     query rows at a time; their times, bound and SDPA yardstick; whether
-    the kernel skips the key tiles outside the window; then the recompute
-    backward."""
+    the kernel skips the key tiles outside the window."""
     from repro_torch.kernels.flash_attention import attention_ref, flash_attention
     h, hkv = MIXTRAL_HEADS
     out = {}
@@ -607,7 +632,6 @@ def check_flash_mixtral(gen) -> dict:
         f"{long['ms']:.4f} ms against {long['no_window_ms']:.4f} ms causal "
         f"without one ({long['ms'] / long['no_window_ms']:.3f}; valid pairs "
         f"{long['valid_pairs'] / long['no_window_pairs']:.3f})")
-    out["backward"] = check_flash_backward(gen)
     return out
 
 
@@ -674,53 +698,270 @@ def _flash_window_times(q, k, v, window: int) -> dict:
     return times
 
 
-def check_flash_backward(gen) -> dict:
-    """`_FlashAttention` on the card: a call that needs grads launches the
-    kernel once, its output carries the function's grad_fn, and dq, dk, dv
-    from its recompute backward equal autograd's through `attention_ref`
-    (FLASH_GRAD_TOL); at mixtral's training shape also the time of the
-    forward and backward."""
-    from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+MIXTRAL_TRAIN_LABEL = "mixtral training 2x2048"
+
+
+def _bwd_cases() -> list:
+    """The shapes `check_flash_backward` holds the backward at: (label, B,
+    H, Hkv, S, T, q/k hd, v hd, causal, window, softcap, dtypes)."""
+    from repro_torch.kernels.flash_attention.ops import HEAD_DIMS
+    f32, bf16 = torch.float32, torch.bfloat16
     h, hkv = MIXTRAL_HEADS
+    gh, ghkv = GEMMA3_HEADS
+    cases = [
+        ("GQA 4:1 window 64", 1, 8, 2, 256, 256, 64, 64, True, 64, 0.0,
+         (f32,)),
+        *[(f"head_dim {hd}, GQA 2:1, ragged S=200", 1, 4, 2, 200, 200, hd,
+           hd, True, 0, 0.0, (f32, bf16)) for hd in HEAD_DIMS],
+        *[(f"head_dim {hd}, softcap 2, window 50, S=130", 1, 4, 2, 130, 130,
+           hd, hd, True, 50, 2.0, (f32, bf16)) for hd in HEAD_DIMS],
+        ("non-causal window 64 S=100 T=160", 1, 4, 4, 100, 160, 32, 32,
+         False, 64, 0.0, (f32, bf16)),
+        ("seamless cross 2x16x32 over 512 frames", 2, 16, 16, 32, 512, 64,
+         64, False, 0, 0.0, (f32, bf16)),
+        ("seamless cross 2048 over 2048", 1, 16, 16, 2048, 2048, 64, 64,
+         False, 0, 0.0, (bf16,)),
+        *[(f"gemma3 1x16(8)x2048x256 {what}, softcap {cap:g}", 1, gh, ghkv,
+           2048, 2048, GEMMA3_HD, GEMMA3_HD, True, window, cap, (bf16,))
+          for what, window in (("window 1024", GEMMA3_WINDOW),
+                               ("global", 0))
+          for cap in (LAUNCH_SOFTCAP, 0.0)],
+        (f"MLA 1x128x2048x192, v padded from {MLA_V}", 1, MLA_HEADS,
+         MLA_HEADS, 2048, 2048, MLA_QK, MLA_V, True, 0, 0.0, (bf16,)),
+        ("deepseek smoke hd 48 through the wrapper's padding", 2, 4, 4, 64,
+         64, 48, 48, True, 0, 0.0, (f32, bf16)),
+        (MIXTRAL_TRAIN_LABEL, 2, h, hkv, 2048, 2048, 128, 128, True,
+         MIXTRAL_WINDOW, 0.0, (bf16,)),
+    ]
+    return cases
+
+
+def _bwd_case_inputs(gen, b, h, hkv, s, t, hd, v_hd, dt):
+    """q, k, v as `_attn_inputs` makes them (v zero-padded from v_hd to hd,
+    as MLA pads it) and dout (B,H,S,hd), 0 in the padded columns as the
+    cropped output gives it."""
+    import torch.nn.functional as F
+    q, k, v = _attn_inputs(gen, b, h, hkv, s, t, hd, dt)
+    if v_hd != hd:
+        v = F.pad(v[..., :v_hd], (0, hd - v_hd))
+    dout = torch.randn(q.shape, generator=gen, device="cuda").to(dt)
+    dout[..., v_hd:] = 0
+    return q, k, v, dout
+
+
+def _flash_bwd_times(q, k, v, dout, window: int) -> dict:
+    """At one training shape: the forward, forward + backward and the
+    backward alone (a call, and on the card alone) through the kernels;
+    the plain backward; SDPA's forward + backward causal without the
+    window (the library call nearest the function; it takes no window);
+    the recompute backward the port ran before the kernel (the forward
+    kernel, then autograd through `attention_ref`), once; the backward's
+    bound (`ops.bwd_cost`); each of its three kernels' device time in one
+    call (`torch.profiler`)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (attention_bwd_ref,
+                                                     attention_ref, ops)
+    b, h, s, hd = q.shape
+    hkv = k.shape[1]
+    mask = {"causal": True, "window": window, "softcap": 0.0}
+    xs = [x.detach().requires_grad_() for x in (q, k, v)]
+
+    def fwd_bwd():
+        return torch.autograd.grad(
+            ops.flash_attention(*xs, **mask), xs, dout)
+    out, lse = ops._launch(q, k, v, with_lse=True, **mask)
+
+    def bwd():
+        return ops._launch_bwd(q, k, v, out, lse, dout, **mask)
+    ref_out, ref_lse = attention_ref(q, k, v, return_lse=True,
+                                     row_chunk=PLAIN_ROW_CHUNK, **mask)
+
+    def recompute():
+        ops._launch(q, k, v, **mask)
+        ys = [x.detach().requires_grad_() for x in (q, k, v)]
+        return torch.autograd.grad(attention_ref(*ys, **mask), ys, dout)
+    gqa = {"enable_gqa": True} if hkv != h else {}
+
+    def sdpa():
+        return torch.autograd.grad(F.scaled_dot_product_attention(
+            *xs, is_causal=True, **gqa), xs, dout)
+    times = {
+        "fwd_ms": cuda_ms(lambda: ops.flash_attention(q, k, v, **mask), 10),
+        "fwd_bwd_ms": cuda_ms(fwd_bwd, 10),
+        "ms": cuda_ms(bwd, 10),
+        "alone_ms": queued_ms(bwd),
+        "plain_ms": cuda_ms(lambda: attention_bwd_ref(
+            q, k, v, ref_out, ref_lse, dout, **mask), 3, warmup=1),
+        "sdpa_fwd_bwd_ms": cuda_ms(sdpa, 10),
+        "recompute_fwd_bwd_ms": cuda_ms(recompute, 1, warmup=1),
+    }
+    times["kernels_ms"] = _bwd_kernel_split(bwd)
+    flops, nbytes, _ = ops.bwd_cost(q, k, v, **mask)
+    t_ops, t_bytes = flops / PEAK_FLOPS[q.dtype], nbytes / PEAK_BYTES_PER_S
+    times.update(
+        shape=f"{str(q.dtype)[6:]} B={b} H={h} Hkv={hkv} S=T={s} hd={hd} "
+              f"causal window={window}",
+        bound_ms=max(t_ops, t_bytes) * 1e3,
+        bound_by="operations" if t_ops >= t_bytes else "bytes",
+        flops=flops, bytes=nbytes)
+    times["share_of_bound"] = times["bound_ms"] / times["ms"]
+    log(f"[kernels] flash_attention backward at {times['shape']}: forward "
+        f"{times['fwd_ms']:.4f} ms, forward + backward "
+        f"{times['fwd_bwd_ms']:.4f} ms, backward alone {times['ms']:.4f} ms "
+        f"a call and {times['alone_ms']:.4f} ms on the card alone, bound "
+        f"{times['bound_ms']:.4f} ms ({times['bound_by']}: {flops} flop, "
+        f"{nbytes} bytes; {times['share_of_bound']:.3f} of it); plain "
+        f"backward {times['plain_ms']:.4f} ms; SDPA forward + backward "
+        f"causal without the window {times['sdpa_fwd_bwd_ms']:.4f} ms; the "
+        f"recompute backward (forward kernel + autograd through "
+        f"attention_ref) {times['recompute_fwd_bwd_ms']:.4f} ms once; its "
+        f"kernels' device ms in one call {times['kernels_ms']}")
+    return times
+
+
+def _bwd_kernel_split(call) -> dict:
+    """Device ms of each CUDA kernel `call` launches, by the name's
+    `flash_bwd_*` part (one profiled call after a synchronize)."""
+    import re
+    from torch.profiler import ProfilerActivity, profile
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and \
+                e.self_device_time_total > 0:
+            m = re.search(r"flash_bwd_\w+", e.key)
+            name = m.group(0) if m else e.key[:60]
+            out[name] = out.get(name, 0.0) + e.self_device_time_total / 1e3
+    return out
+
+
+def _bwd_peak_8192(gen) -> dict:
+    """Forward + backward at mixtral's 1x48(8)x8192x128, window 4096: the
+    peak of `max_memory_allocated` above the bytes of q, k, v, dout, out
+    and the three grads, at most FLASH_BWD_PEAK_MAX."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    h, hkv = MIXTRAL_HEADS
+    q, k, v, dout = _bwd_case_inputs(gen, 1, h, hkv, 8192, 8192, 128, 128,
+                                     torch.bfloat16)
+    xs = [x.detach().requires_grad_() for x in (q, k, v)]
+    del q, k, v
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = flash_attention(*xs, causal=True, window=MIXTRAL_WINDOW)
+    grads = torch.autograd.grad(out, xs, dout)
+    torch.cuda.synchronize()
+    own = sum(x.numel() * x.element_size() for x in (out, *grads))
+    extra = torch.cuda.max_memory_allocated() - base - own
+    tensors = own + sum(x.numel() * x.element_size() for x in (*xs, dout))
+    score_bytes = 4 * h * 8192 * 8192
+    log(f"[kernels] flash_attention forward + backward at bf16 B=1 H={h} "
+        f"Hkv={hkv} S=T=8192 hd=128 window {MIXTRAL_WINDOW}: "
+        f"max_memory_allocated {extra} bytes above q, k, v, dout, out and "
+        f"the grads ({tensors} bytes; one fp32 (B,H,S,T) score matrix "
+        f"{score_bytes}); limit {FLASH_BWD_PEAK_MAX}")
+    if not extra <= FLASH_BWD_PEAK_MAX:
+        raise AssertionError(f"flash forward + backward at 1x8192 took "
+                             f"{extra} bytes beside its tensors")
+    return {"peak_above_tensors": extra, "tensor_bytes": tensors,
+            "score_matrix_bytes": score_bytes}
+
+
+def check_flash_backward(gen) -> dict:
+    """`_FlashAttention` on the card at every `_bwd_cases` shape: a call
+    that needs grads launches the forward kernel once, its output carries
+    the function's grad_fn, and its backward launches the backward kernels
+    once; dq, dk, dv against `attention_bwd_ref` (from the plain version's
+    out and lse) and against autograd through `attention_ref`
+    (FLASH_GRAD_TOL), the output against the plain version (TOL), and the
+    forward's lse against the plain version's (FLASH_LSE_TOL; for the
+    shapes the wrapper does not pad). At mixtral's training shape the
+    times (`_flash_bwd_times`); at its 1x8192 the peak memory
+    (`_bwd_peak_8192`). Returns the backward's entry of the kernels line
+    (its launches are the main paths', filled in by `main`)."""
+    from repro_torch.kernels.flash_attention import (attention_bwd_ref,
+                                                     attention_ref,
+                                                     flash_attention, ops)
     res = {}
-    for label, b, h_, hkv_, s, hd, window, dt in (
-            ("mixtral training 2x2048", 2, h, hkv, 2048, 128, MIXTRAL_WINDOW,
-             torch.bfloat16),
-            ("GQA 4:1 window 64", 1, 8, 2, 256, 64, 64, torch.float32)):
-        q, k, v = (x.detach().requires_grad_() for x in
-                   _attn_inputs(gen, b, h_, hkv_, s, s, hd, dt))
-        dout = torch.randn(q.shape, generator=gen, device="cuda").to(dt)
-        before = flash_attention.launches
-        out = flash_attention(q, k, v, causal=True, window=window)
-        if flash_attention.launches != before + 1 or \
-                type(out.grad_fn).__name__ != "_FlashAttentionBackward":
-            raise AssertionError(f"flash backward {label}: launches "
-                                 f"{flash_attention.launches - before}, "
-                                 f"grad_fn {out.grad_fn}")
-        grads = torch.autograd.grad(out, (q, k, v), dout)
-        xs = [x.detach().clone().requires_grad_() for x in (q, k, v)]
-        ref = attention_ref(*xs, causal=True, window=window)
-        want = torch.autograd.grad(ref, xs, dout)
-        errs = {"out": _err_within(f"flash backward {label} out", out.detach(),
-                                   ref.detach(), TOL[dt])}
-        for name, g, w in zip(("dq", "dk", "dv"), grads, want):
-            errs[name] = _err_within(f"flash backward {label} {name}", g, w,
-                                     FLASH_GRAD_TOL[dt])
-        entry = {"max_abs_err": errs}
-        if dt == torch.bfloat16:
-            entry["fwd_bwd_ms"] = cuda_ms(lambda: torch.autograd.grad(
-                flash_attention(q, k, v, causal=True, window=window),
-                (q, k, v), dout), 3, warmup=1)
-            entry["fwd_ms"] = cuda_ms(lambda: flash_attention(
-                q, k, v, causal=True, window=window), 10)
-        res[label] = entry
-        log(f"[kernels] flash_attention backward (recompute of "
-            f"attention_ref) {label} {str(dt)[6:]} B={b} H={h_} Hkv={hkv_} "
-            f"S={s} hd={hd} window={window}: max abs err {errs} (out tol "
-            f"{TOL[dt]}, grads tol {FLASH_GRAD_TOL[dt]}) ok"
-            + (f"; forward {entry['fwd_ms']:.4f} ms, forward + backward "
-               f"{entry['fwd_bwd_ms']:.4f} ms" if "fwd_ms" in entry else ""))
-    return res
+    main = None
+    for (label, b, h, hkv, s, t, hd, v_hd, causal, window, cap,
+         dtypes) in _bwd_cases():
+        for dt in dtypes:
+            q, k, v, dout = _bwd_case_inputs(gen, b, h, hkv, s, t, hd, v_hd,
+                                             dt)
+            mask = {"causal": causal, "window": window, "softcap": cap}
+            xs = [x.detach().requires_grad_() for x in (q, k, v)]
+            before = (flash_attention.launches, flash_attention.bwd_launches)
+            out = flash_attention(*xs, **mask)
+            own_grad_fn = (hd not in ops.HEAD_DIMS or   # padded: cropped
+                           type(out.grad_fn).__name__
+                           == "_FlashAttentionBackward")
+            if flash_attention.launches != before[0] + 1 or not own_grad_fn:
+                raise AssertionError(f"flash backward {label}: launches "
+                                     f"{flash_attention.launches - before[0]}"
+                                     f", grad_fn {out.grad_fn}")
+            grads = torch.autograd.grad(out, xs, dout)
+            torch.cuda.synchronize()
+            if flash_attention.bwd_launches != before[1] + 1:
+                raise AssertionError(
+                    f"flash backward {label}: backward launches "
+                    f"{flash_attention.bwd_launches - before[1]}")
+            ref_out, ref_lse = attention_ref(q, k, v, return_lse=True,
+                                             row_chunk=PLAIN_ROW_CHUNK,
+                                             **mask)
+            blockwise = attention_bwd_ref(q, k, v, ref_out, ref_lse, dout,
+                                          **mask)
+            ys = [x.detach().requires_grad_() for x in (q, k, v)]
+            autograd = torch.autograd.grad(attention_ref(*ys, **mask), ys,
+                                           dout)
+            what = f"flash backward {label} {str(dt)[6:]}"
+            errs = {"out": _err_within(f"{what} out", out.detach(), ref_out,
+                                       TOL[dt])}
+            for name, g, w1, w2 in zip(("dq", "dk", "dv"), grads, blockwise,
+                                       autograd):
+                errs[name] = _err_within(f"{what} {name}", g, w1,
+                                         FLASH_GRAD_TOL[dt])
+                errs[f"{name} vs autograd"] = _err_within(
+                    f"{what} {name} vs autograd", g, w2, FLASH_GRAD_TOL[dt])
+            if hd in ops.HEAD_DIMS:
+                _, lse = ops._launch(q, k, v, with_lse=True, **mask)
+                errs["lse"] = _err_within(f"{what} lse", lse, ref_lse,
+                                          FLASH_LSE_TOL)
+            res[f"{label} {str(dt)[6:]}"] = errs
+            log(f"[kernels] flash_attention backward {label} {str(dt)[6:]} "
+                f"B={b} H={h} Hkv={hkv} S={s} T={t} hd={hd} v hd={v_hd} "
+                f"causal={causal} window={window} softcap={cap:g}: max abs "
+                f"err {errs} (out tol {TOL[dt]}, grads tol "
+                f"{FLASH_GRAD_TOL[dt]}, lse tol {FLASH_LSE_TOL}) ok")
+            if label == MIXTRAL_TRAIN_LABEL:
+                main = (q, k, v, dout, window,
+                        max(errs[n] for n in ("dq", "dk", "dv")))
+            del q, k, v, dout, xs, ys, out, grads, blockwise, autograd
+            del ref_out, ref_lse
+        release_memory()
+    q, k, v, dout, window, err = main
+    entry = {
+        "name": "flash_attention_bwd",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention_bwd.cu",
+        # the Pallas kernel is a forward only; the reference differentiates
+        # `blockwise_sdpa` by this custom VJP
+        "replaces": "src/repro/models/attention.py:153",
+        "launches": None,
+        "max_abs_err": err,
+        **_flash_bwd_times(q, k, v, dout, window),
+        "library_ms": None,
+        "cases": res,
+    }
+    del q, k, v, dout
+    release_memory()
+    entry["at_1x8192"] = _bwd_peak_8192(gen)
+    return entry
 
 
 # gemma3-12b's attention: 16 heads over 8 KV heads, head_dim 256, five
@@ -1517,6 +1758,52 @@ def check_card_vs_cpu():
         f"logits max "
         f"abs err card vs cpu {err} (tol {PARITY_TOL}); greedy tokens equal "
         f"for prompt lengths {lengths}; 2x64 tokens: {figures}")
+
+
+SOFTCAP_PARITY = 2.0
+
+
+def check_softcap_card_vs_cpu():
+    """stablelm-1.6b's smoke config in fp32 with its attention logits
+    softcapped at SOFTCAP_PARITY: prefill logits (PARITY_TOL), the loss and
+    every gradient leaf (`_grads_card_vs_cpu`), card vs CPU; the loss runs
+    flash's forward and backward kernels on the card, once a layer each."""
+    from repro_torch.bridge import init_params, params_to
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import build_model
+
+    cfg = get_smoke_config("stablelm-1.6b").scaled(
+        param_dtype="float32", attn_logit_softcap=SOFTCAP_PARITY)
+    model = build_model(cfg)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        SEED + 3))
+    cpu_params = params_to(params, "cpu")
+    rng = np.random.default_rng(SEED + 3)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(2, 32)))
+    with torch.inference_mode():
+        card_logits, _ = model.prefill(params, {"tokens": tokens.cuda()},
+                                       max_seq=40)
+        cpu_logits, _ = model.prefill(cpu_params, {"tokens": tokens},
+                                      max_seq=40)
+    err = float((card_logits.cpu() - cpu_logits).abs().max())
+    if not err <= PARITY_TOL:
+        raise AssertionError(f"softcap prefill logits card vs cpu: {err} > "
+                             f"{PARITY_TOL}")
+    before = (flash_attention.launches, flash_attention.bwd_launches)
+    figures = _grads_card_vs_cpu("stablelm softcap", model, params,
+                                 cpu_params, _train_tokens(cfg.vocab_size, 64))
+    launched = (flash_attention.launches - before[0],
+                flash_attention.bwd_launches - before[1])
+    want = (_train_launches(cfg)["flash_attention"],
+            _train_launches(cfg)["flash_attention_bwd"])
+    if launched != want:
+        raise AssertionError(f"softcap loss: flash launched {launched} "
+                             f"(forward, backward), want {want}")
+    log(f"[parity] stablelm-1.6b smoke d={cfg.d_model} {cfg.num_layers} "
+        f"layers fp32, attn_logit_softcap {SOFTCAP_PARITY}: prefill logits "
+        f"max abs err card vs cpu {err} (tol {PARITY_TOL}); 2x64 tokens: "
+        f"{figures}; flash launches (forward, backward) {launched}")
 
 
 def _grads_card_vs_cpu(what: str, model, params, cpu_params, tokens) -> str:
@@ -2637,7 +2924,8 @@ def profiled(desc: str, fn) -> None:
 
 
 # each port kernel's wrapper -> a substring of its CUDA kernels' names
-PORT_KERNELS = {"flash_attention": "flash_fwd", "mlstm_scan": "mlstm_fwd",
+PORT_KERNELS = {"flash_attention": "flash_fwd",
+                "flash_attention_bwd": "flash_bwd", "mlstm_scan": "mlstm_fwd",
                 "ssm_scan": "ssm_scan_kernel", "int8_matmul": "int8_"}
 
 
@@ -2828,8 +3116,9 @@ def train_mixtral() -> dict:
     async checkpoints at steps 2 and 4; (b) a fresh `Trainer` restores
     step 2 and runs steps 2-3, with (a)'s losses; (c) `AsyncTrainer` on a
     cluster of a cpu node and a gpu node, 4 steps, backup loads and one
-    checkpoint task, with (a)'s losses. flash_attention must launch in each.
-    Returns its launches by run."""
+    checkpoint task, with (a)'s losses. flash_attention must launch in each,
+    forward and backward. Returns its launches by run: {"flash": ...,
+    "flash_bwd": ...}."""
     from repro_torch import core
     from repro_torch.checkpoint import Checkpointer
     from repro_torch.configs.registry import get_config
@@ -2847,7 +3136,7 @@ def train_mixtral() -> dict:
     opt = AdamWConfig(state_dtype=cfg.opt_state_dtype)
     seed, steps = SEED + 6, 4
     shutil.rmtree(CKPT_DIR, ignore_errors=True)
-    launches = {}
+    launches, bwd = {}, {}
 
     # (a) the Trainer, uninterrupted
     trainer = Trainer(model, data, TrainerConfig(
@@ -2857,6 +3146,7 @@ def train_mixtral() -> dict:
     reset_launch_counts()
     res = trainer.run(seed=seed)
     launches["Trainer"] = flash_attention.launches
+    bwd["Trainer"] = flash_attention.bwd_launches
     n_params = sum(x.numel() for x in tree_leaves(res["params"]))
     state_bytes = sum(x.numel() * x.element_size() for x in
                       tree_leaves((res["params"], res["opt"])))
@@ -2873,7 +3163,8 @@ def train_mixtral() -> dict:
         f"{res['losses']}; step ms (host clock, each step waits for its "
         f"loss) {[round(x, 3) for x in res['step_ms']]}; "
         f"max_memory_allocated {torch.cuda.max_memory_allocated()} bytes; "
-        f"flash_attention launches {launches['Trainer']}")
+        f"flash_attention launches {launches['Trainer']}, backward "
+        f"{bwd['Trainer']}")
     _ckpt_log("(a)", trainer.ckpt.timings)
     del res, trainer
     release_memory()
@@ -2886,6 +3177,7 @@ def train_mixtral() -> dict:
     reset_launch_counts()
     res = trainer.run(seed=seed + 1)
     launches["Trainer resumed"] = flash_attention.launches
+    bwd["Trainer resumed"] = flash_attention.bwd_launches
     rel = _check_losses("(b) resumed", res["losses"], want)
     if [s for s, _ in res["losses"]] != [2, 3]:
         raise AssertionError(f"resumed at {res['losses']}")
@@ -2910,6 +3202,7 @@ def train_mixtral() -> dict:
             backup_tasks=True).run(seed=seed)
         wall_s = time.perf_counter() - t0
         launches["AsyncTrainer"] = flash_attention.launches
+        bwd["AsyncTrainer"] = flash_attention.bwd_launches
         # the run ends waiting for its checkpoint task, the last to finish
         events = cluster.gcs.events()
         end = [e for e in events if e[1] == "finish"][-1]
@@ -2930,19 +3223,22 @@ def train_mixtral() -> dict:
         f"{torch.cuda.max_memory_allocated()} bytes")
     shutil.rmtree(CKPT_DIR)
     for what, n in launches.items():
-        if n < 1:
-            raise AssertionError(f"flash_attention never launched in {what}")
-    log(f"[train mixtral] flash_attention launches {launches}")
-    return launches
+        if n < 1 or bwd[what] < 1:
+            raise AssertionError(f"flash_attention launched {n} times, its "
+                                 f"backward {bwd[what]}, in {what}")
+    log(f"[train mixtral] flash_attention launches {launches}, backward "
+        f"{bwd}")
+    return {"flash": launches, "flash_bwd": bwd}
 
 
 # ----------------------------------------------------------------- phase 5c
 
 # 5c(a): each arch through `launch.train.train` at its config's own
 # remat_policy: (arch, depth cut or None, global batch, seq_len, params).
-# Widths are never cut. B x S is chosen to fit the card beside the state:
-# flash's recompute backward holds (B,H,S,S) fp32 scores a layer (MLA's 128
-# heads: 2.1 GB a 1x2048); xlstm runs short (its eager sLSTM loop, A4), and
+# Widths are never cut. B x S is chosen to fit the card beside the state
+# (flash's backward kernel holds only O(S) beside a layer's activations,
+# where autograd through the plain version held (B,H,S,S) fp32 scores);
+# xlstm runs short (its eager sLSTM loop, A4), and
 # is cut from 12 layers to 2 (one sLSTM, one mLSTM) for the run's time, as
 # phases 5 and 7 are: whole, its 4 steps took about 10 s.
 LAUNCH_TRAIN = (
@@ -2955,6 +3251,10 @@ LAUNCH_TRAIN = (
     ("deepseek-v2-236b", 2, 1, 2048, 5_327_221_760),
     ("xlstm-125m", 2, 2, 128, 56_064_776),
 )
+# 5c(a) also trains stablelm-1.6b whole at 2x2048 with its attention
+# logits softcapped at Gemma 2's published `attn_logit_softcapping`, 50.0:
+# the flash kernels' tanh in both directions.
+LAUNCH_SOFTCAP = 50.0
 # 1 warm-up step, then the timed ones
 LAUNCH_STEPS = 4
 # jamba-1.5-large-398b trains at its smoke config: one full-width group
@@ -2977,7 +3277,9 @@ def _train_launches(cfg) -> dict:
     """Each kernel's launches a training step: one a layer the forward
     runs, the layers inside the remat (the groups, the encoder) twice
     under `"dots"` and `"nothing"`; the `first` layers once. Cross-
-    attention is one more flash call a decoder layer."""
+    attention is one more flash call a decoder layer. Flash's backward
+    ("flash_attention_bwd") runs once a flash call of the forward, whatever
+    the remat recomputes."""
     from repro_torch.configs.base import ATTN, MAMBA, MLA, MLSTM, SWA
     r = remat_runs(cfg)
     attn, cross = (ATTN, SWA, MLA), int(cfg.encoder_layers > 0)
@@ -2985,6 +3287,7 @@ def _train_launches(cfg) -> dict:
     group = cfg.num_groups * (sum(k in attn for k in cfg.pattern)
                               + cross * len(cfg.pattern))
     return {"flash_attention": first + r * (group + cfg.encoder_layers),
+            "flash_attention_bwd": first + group + cfg.encoder_layers,
             "mlstm_scan": r * cfg.num_groups * cfg.pattern.count(MLSTM),
             "ssm_scan": r * cfg.num_groups * cfg.pattern.count(MAMBA),
             "int8_matmul": 0}
@@ -3048,10 +3351,23 @@ def _launch_train_one(what: str, cfg, params, batch: int, seq_len: int,
     return out
 
 
+def _softcap_train_config() -> tuple:
+    """(name in phase 5c's record, config, global batch, seq_len) of
+    stablelm-1.6b whole with its attention logits softcapped at
+    LAUNCH_SOFTCAP, at LAUNCH_TRAIN's stablelm batch."""
+    from repro_torch.configs.registry import get_config
+    arch, _, batch, seq_len, _ = LAUNCH_TRAIN[0]
+    return (f"{arch} softcap {LAUNCH_SOFTCAP:g}",
+            get_config(arch).scaled(attn_logit_softcap=LAUNCH_SOFTCAP),
+            batch, seq_len)
+
+
 def launch_train_zoo() -> dict:
     """5c(a): every arch but mixtral (phase 5b) through the launcher's
-    loop at full width, cut by depth where LAUNCH_TRAIN says; jamba at its
-    smoke config (`launch_config(..., smoke=True)`, fp32)."""
+    loop at full width, cut by depth where LAUNCH_TRAIN says, and
+    stablelm-1.6b again with softcapped attention logits
+    (`_softcap_train_config`); jamba at its smoke config
+    (`launch_config(..., smoke=True)`, fp32)."""
     from repro_torch.configs.registry import get_config
     from repro_torch.launch.train import launch_config
     out = {}
@@ -3066,6 +3382,14 @@ def launch_train_zoo() -> dict:
                                       want)
         del params
         release_memory()
+    name, cfg, batch, seq_len = _softcap_train_config()
+    want = LAUNCH_TRAIN[0][4]
+    params = _init_checked(cfg, SEED + 28, want)
+    out[name] = _launch_train_one(
+        f"stablelm-1.6b whole, attn_logit_softcap {LAUNCH_SOFTCAP}", cfg,
+        params, batch, seq_len, want)
+    del params
+    release_memory()
     cfg = launch_config("jamba-1.5-large-398b", smoke=True)
     params, n = _init_full(cfg, SEED + 30)
     out["jamba-1.5-large-398b smoke"] = _launch_train_one(
@@ -3157,8 +3481,12 @@ def check_remat_on_the_card() -> dict:
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated() - base
         flash = launch_counts()["flash_attention"]
-        if flash != _train_launches(model.cfg)["flash_attention"]:
-            raise AssertionError(f"remat {policy}: flash launched {flash}")
+        flash_bwd = launch_counts()["flash_attention_bwd"]
+        want = _train_launches(model.cfg)
+        if (flash, flash_bwd) != (want["flash_attention"],
+                                  want["flash_attention_bwd"]):
+            raise AssertionError(f"remat {policy}: flash launched {flash}, "
+                                 f"its backward {flash_bwd}")
         if full is None:
             full, equal, worst = (float(loss), grads), len(grads), 0.0
         else:
@@ -3177,12 +3505,13 @@ def check_remat_on_the_card() -> dict:
             del grads
         out[policy] = {"peak_bytes": peak, "leaves_bit_equal": equal,
                        "leaves": len(full[1]), "max_rel_err": worst,
-                       "flash_launches": flash}
+                       "flash_launches": flash,
+                       "flash_bwd_launches": flash_bwd}
         log(f"[launch] remat {policy!r}, gemma3-12b cut to 6 layers, 1x2048 "
             f"bf16: loss {float(loss)}; peak memory above the params "
             f"{peak} bytes; {equal} of {len(full[1])} gradient leaves "
             f"bit-equal to 'full''s, max err / max |g| {worst} (tol "
-            f"{GRAD_RTOL}); flash launches {flash}")
+            f"{GRAD_RTOL}); flash launches {flash}, backward {flash_bwd}")
         release_memory()
     return out
 
@@ -3323,6 +3652,7 @@ def _phase_5c_configs():
         cfg = get_config(arch)
         out.append((arch, cfg.scaled(num_layers=layers) if layers else cfg,
                     batch, seq_len))
+    out.append(_softcap_train_config())
     out.append(("jamba-1.5-large-398b smoke",
                 launch_config("jamba-1.5-large-398b", smoke=True),
                 *JAMBA_SMOKE_TRAIN))
@@ -3493,7 +3823,9 @@ class ShardedCase(NamedTuple):
 # times that, up to half a quantization step, so a residual could not be
 # held entry by entry. In fp32 an entry within its rounding of a half-way
 # point still takes either level (COMPRESS_GATES). jamba (sequence
-# parallel) and mixtral (ragged dispatch) run their smoke configs in fp32.
+# parallel) and mixtral (ragged dispatch) run their smoke configs in fp32,
+# as does stablelm with its attention logits softcapped (each rank's heads
+# through the flash kernels' tanh, forward and backward).
 SHARDED_TRAIN = (
     ShardedCase("stablelm-1.6b cut to 2 layers", "stablelm-1.6b", 2, (2, 2),
                 2, 2048),
@@ -3524,6 +3856,9 @@ SHARDED_TRAIN = (
     ShardedCase("mixtral smoke fp32, the ragged dispatch, experts over "
                 "model", "mixtral-8x22b", None, (1, 4), 2, 64, smoke=True,
                 over=(("moe", (("dispatch", "ragged"),)),)),
+    ShardedCase("stablelm smoke fp32, attention logits softcapped at 2.0",
+                "stablelm-1.6b", None, (2, 2), 2, 64, smoke=True,
+                over=(("attn_logit_softcap", 2.0),)),
 )
 # 1 warm-up step, then the timed ones, on both sides
 SHARDED_STEPS = 3
@@ -3723,7 +4058,8 @@ def _sharded_rank(rank: int, world: int, backend: str, case: int,
     xlstm.mlstm_scan = mlstm_scan
     routes = _recording_routes(moe)
     q_scales = _recording_scales() if sc.compress else []
-    wrapper.launches = scan.launches = mlstm.launches = 0
+    wrapper.launches = wrapper.bwd_launches = 0
+    scan.launches = mlstm.launches = 0
     ends, per_step, held, norms = [], [], {}, []
 
     def on_step(step, metrics):
@@ -3817,6 +4153,7 @@ def _sharded_rank(rank: int, world: int, backend: str, case: int,
         "worst_m_table": worst["m_table"],
         "worst_leaf_from_zero": worst["params_from_zero"],
         "flash_launches": wrapper.launches,
+        "flash_bwd_launches": wrapper.bwd_launches,
         "flash_heads": sorted(set(seen)), "flash_calls": len(seen),
         "ssm_launches": scan.launches, "ssm_calls": len(scan_seen),
         "ssm_shapes": sorted(set(scan_seen)),
@@ -3978,6 +4315,7 @@ def _sharded_reference(case: int, work: Path) -> dict:
            "step_ms": step_ms, "params": n_params,
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
            "flash_launches": launches["flash_attention"],
+           "flash_bwd_launches": launches["flash_attention_bwd"],
            "ssm_launches": launches["ssm_scan"],
            "mlstm_launches": launches["mlstm_scan"]}
     del params, both
@@ -4148,6 +4486,7 @@ def _check_sharded(case: int, ref: dict, ranks: list, mesh_shape: tuple,
             cfg, shape, mesh)
     launches = {k: n * SHARDED_STEPS for k, n in _train_launches(cfg).items()}
     calls, scans = launches["flash_attention"], launches["ssm_scan"]
+    bwds = launches["flash_attention_bwd"]
     mlstms = launches["mlstm_scan"]
     windows = sorted({cfg.window_size if k == "swa" else 0
                       for k in cfg.pattern if k in ("attn", "swa", "mla")})
@@ -4191,6 +4530,9 @@ def _check_sharded(case: int, ref: dict, ranks: list, mesh_shape: tuple,
                           f"times on (q, k heads, window) "
                           f"{r['flash_heads']}, want {calls} on "
                           f"{want_heads(r)}")
+        if r["flash_bwd_launches"] != bwds:
+            failed.append(f"{what}: flash's backward launched "
+                          f"{r['flash_bwd_launches']} times, want {bwds}")
         for key, tol in ((("scale", gates["scale"]),
                           ("level_changes", LEVEL_CHANGES_MAX))
                          if sc.compress else ()):
@@ -4243,8 +4585,8 @@ def _check_sharded(case: int, ref: dict, ranks: list, mesh_shape: tuple,
         f"{ref['losses']}; worst leaf {max(r['worst_leaf'] for r in ranks)} "
         f"of its largest entry; flash {calls} launches a rank on (q, k "
         f"heads, window) {want_heads(ranks[0])} ({ref['flash_launches']} "
-        f"on one "
-        f"card); ssm_scan {scans} a rank on {channels} channels "
+        f"on one card), its backward {bwds} ({ref['flash_bwd_launches']} "
+        f"on one card); ssm_scan {scans} a rank on {channels} channels "
         f"({ref['ssm_launches']} on one card); mlstm_scan {mlstms} a rank "
         f"on (B, H, S, hd) {mlstm_shape} ({ref['mlstm_launches']} on one "
         f"card)")
@@ -4285,6 +4627,9 @@ def _check_sharded(case: int, ref: dict, ranks: list, mesh_shape: tuple,
             "worst_leaf": max(r["worst_leaf"] for r in ranks),
             "flash_launches": sum(r["flash_launches"] for r in ranks),
             "one_card_flash_launches": ref["flash_launches"],
+            "flash_bwd_launches": sum(r["flash_bwd_launches"]
+                                      for r in ranks),
+            "one_card_flash_bwd_launches": ref["flash_bwd_launches"],
             "ssm_launches": sum(r["ssm_launches"] for r in ranks),
             "one_card_ssm_launches": ref["ssm_launches"],
             "mlstm_launches": sum(r["mlstm_launches"] for r in ranks),
@@ -5469,6 +5814,11 @@ def main() -> int:
         "kernels flash_attention mixtral", check_flash_mixtral,
         torch.Generator(device="cuda").manual_seed(SEED + 7))
     release_memory()
+    flash_bwd = timed(
+        "kernels flash_attention backward", check_flash_backward,
+        torch.Generator(device="cuda").manual_seed(SEED + 19))
+    flash["backward"] = flash_bwd
+    release_memory()
     flash["at_new_head_dims"] = timed(
         "kernels flash_attention hd 256 and 192", check_flash_new_head_dims,
         torch.Generator(device="cuda").manual_seed(SEED + 11))
@@ -5478,6 +5828,7 @@ def main() -> int:
         torch.Generator(device="cuda").manual_seed(SEED + 17))
     release_memory()
     timed("parity stablelm", check_card_vs_cpu)
+    timed("parity stablelm softcap", check_softcap_card_vs_cpu)
     timed("parity xlstm", check_xlstm_card_vs_cpu)
     timed("parity mixtral", check_mixtral_card_vs_cpu)
     timed("parity jamba", check_jamba_card_vs_cpu)
@@ -5511,7 +5862,9 @@ def main() -> int:
     launch_paths = {
         **{f"launch.train {a} (phase 5c a)": r["launches"]
            for a, r in launch["train"].items()},
-        **{f"remat {p} (phase 5c c)": {"flash_attention": r["flash_launches"]}
+        **{f"remat {p} (phase 5c c)": {
+            "flash_attention": r["flash_launches"],
+            "flash_attention_bwd": r["flash_bwd_launches"]}
            for p, r in launch["remat"].items()},
         "compressing step (phase 5c d)": launch["compression"]["launches"],
         **{f"launch.serve {a} (phase 5c e)": r["launches"]
@@ -5531,10 +5884,15 @@ def main() -> int:
         **{f"serve {name} (phase 4g)": r["flash"]
            for name, r in dense.items()},
         **{f"train mixtral-8x22b cut, {what} (phase 5b)": n
-           for what, n in mixtral_train.items()},
+           for what, n in mixtral_train["flash"].items()},
         **{p: n["flash_attention"] for p, n in launch_paths.items()
            if n["flash_attention"]}}
     flash["launches"] = sum(flash["launches_by_path"].values())
+    flash_bwd["launches_by_path"] = {
+        **{f"train mixtral-8x22b cut, {what} (phase 5b)": n
+           for what, n in mixtral_train["flash_bwd"].items()},
+        **{p: n["flash_attention_bwd"] for p, n in launch_paths.items()
+           if n.get("flash_attention_bwd")}}
     ssm["launches_by_path"] = {
         "serve jamba cut (phase 4b)": jamba["ssm_scan"],
         "_SSMScan at the train shape (phase 5c b)": 1,
@@ -5564,8 +5922,9 @@ def main() -> int:
     release_memory()
     sharded = timed("sharded", sharded_phase)
     for label, r in sharded.items():
-        for entry, key in ((flash, "flash_launches"), (ssm, "ssm_launches"),
-                           (mlstm, "mlstm_launches")):
+        for entry, key in ((flash, "flash_launches"),
+                           (flash_bwd, "flash_bwd_launches"),
+                           (ssm, "ssm_launches"), (mlstm, "mlstm_launches")):
             if r[key]:
                 entry["launches_by_path"][
                     f"sharded train {label}, {r['backend']} {r['ranks']} "
@@ -5573,8 +5932,11 @@ def main() -> int:
                 entry["launches_by_path"][
                     f"one-card step of {label} (phase 10)"] = \
                     r[f"one_card_{key}"]
-    for entry in (flash, ssm, mlstm):
+    for entry in (flash, flash_bwd, ssm, mlstm):
         entry["launches"] = sum(entry["launches_by_path"].values())
+    if not flash_bwd["launches"]:
+        raise AssertionError("flash's backward kernels never launched on a "
+                             "main path")
 
     print(json.dumps({"kernels": [flash, mlstm, ssm, int8]}), flush=True)
     print(json.dumps({"ok": True, "device": {

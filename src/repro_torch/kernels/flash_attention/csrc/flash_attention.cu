@@ -1,14 +1,24 @@
-// Flash attention forward for Hopper (sm_90a), written by hand in CUDA C++.
+// Flash attention for Hopper (sm_90a), forward and backward, written by hand
+// in CUDA C++.
 //
-// Replaces the Pallas TPU kernel `_flash_kernel` in
+// The forward replaces the Pallas TPU kernel `_flash_kernel` in
 // src/repro/kernels/flash_attention/kernel.py:27 (wrapper `flash_attention`
 // :84, `pl.pallas_call` :98), and computes what it computes:
-//   out = softmax(q k^T / sqrt(hd) + mask) v
+//   out = softmax(z + mask) v,  z = q k^T / sqrt(hd)
 // with causal and sliding-window masks from absolute indices (masked scores
 // are -1e30, keys past T -inf), GQA (q-head h reads kv-head h / (H / Hkv)),
 // an online softmax whose running max m, sum l and accumulator acc are
 // fp32, l floored at 1e-30, P rounded to v's type before P.V (kernel.py:72),
-// and the output in the input type (fp32 or bf16).
+// and the output in the input type (fp32 or bf16). Two things the Pallas
+// kernel lacks and the reference's `blockwise_sdpa`
+// (src/repro/models/attention.py:76) has: logit softcapping, z = c tanh(z /
+// c) for a softcap c > 0, taken after the scale and before the mask
+// (attention.py:114), and the log-sum-exp of each row, lse = m + log(l) in
+// fp32 (attention.py:139), written where the caller asks for it (training)
+// and not otherwise (serving).
+//
+// The backward, the reference's `_blockwise_bwd` (attention.py:153) written
+// for the card, is flash_attention_bwd.cu (the Pallas kernel has none).
 //
 // What bounds it on the H100. At stablelm-1.6b prefill (B=2, H=32, S=2048,
 // hd=64, causal, bf16) the function does 34.4 GFLOP over the causal pairs
@@ -57,12 +67,15 @@
 //     the pointers and strides and raises otherwise).
 //   wgmma, TMA and warp specialisation are the next step.
 //
-// fp32: `flash_fwd_kernel`, the first design, unchanged. The card-vs-CPU
+// fp32: `flash_fwd_kernel`, the first design. The card-vs-CPU
 //   parity runs the model in fp32 and needs full fp32 products (no TF32),
 //   so q, K and V are staged in shared memory as fp32 with a padded row
 //   stride, scores and P.V are fp32 FMAs on the CUDA cores, 4 rows x 8
 //   columns a thread (2 rows at hd 192 and 256, `F32Rows`), and P goes
 //   through shared memory. It runs at the fp32 CUDA-core rate.
+//
+// Softcapping takes the accurate `tanhf` on both paths (not tanh.approx,
+// whose 2^-11 relative error would move a logit capped at 50 by 0.02).
 //
 // Both take ragged S and T (the serve path's prompts are 8 to 64 tokens):
 // rows past S are not stored and keys past T get weight exactly 0, where the
@@ -77,6 +90,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_common.cuh"
 #include "hopper_mma.cuh"
 
 namespace {
@@ -100,31 +114,15 @@ struct Args {
   const void* k;
   const void* v;
   void* o;
+  float* lse;   // (B, H, S) fp32, natural log; null: not written
   int64_t q_sb, q_sh, q_ss;
   int64_t k_sb, k_sh, k_st;
   int64_t v_sb, v_sh, v_st;
   int64_t o_sb, o_sh, o_ss;
   int B, H, Hkv, S, T;
   int causal, window;
+  float softcap;   // > 0: z = softcap tanh(z / softcap)
 };
-
-template <typename T> __device__ __forceinline__ float to_float(T x);
-template <> __device__ __forceinline__ float to_float<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ float to_float<__nv_bfloat16>(
-    __nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T> __device__ __forceinline__ T from_float(float x);
-template <> __device__ __forceinline__ float from_float<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(
-    float x) {
-  return __float2bfloat16_rn(x);
-}
 
 template <int HD>
 constexpr size_t smem_bytes() {
@@ -223,6 +221,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(Args a) {
         if (kj >= a.T) {
           x = -INFINITY;  // past the end of the keys: weight exactly 0
         } else {
+          if (a.softcap > 0.f) x = a.softcap * tanhf(x / a.softcap);
           bool valid = true;
           if (a.causal) valid = valid && kj <= qi;
           if (a.window > 0) valid = valid && (qi - kj) < a.window;
@@ -276,6 +275,8 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(Args a) {
 #pragma unroll
       for (int c = 0; c < NC; ++c)
         op[qi * a.o_ss + tx + 8 * c] = from_float<T>(acc[i][c] / denom);
+      if (a.lse != nullptr && tx == 0)
+        a.lse[(int64_t(b) * a.H + h) * a.S + qi] = m[i] + logf(denom);
     }
   }
 }
@@ -314,7 +315,6 @@ cudaError_t dispatch_head_dim(const Args& a, int hd, cudaStream_t stream) {
 namespace tc {
 
 using bf16 = __nv_bfloat16;
-constexpr float kLog2e = 1.4426950408889634f;
 
 // Tile shapes by head dim: each warp owns MI m16-tiles (16 MI whole rows),
 // a block WARPS warps (BQ = 16 MI WARPS q rows), a KV tile BKV keys. Q_REGS
@@ -399,6 +399,13 @@ __global__ void __launch_bounds__(Layout<HD>::THREADS,
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const float sl2 = kLog2e / sqrtf(float(HD));   // scale * log2(e)
+  // Under softcap the raw score s becomes z log2(e) = softcap log2(e)
+  // tanh(s scale / softcap) in place, and `mul` takes it into the exp2
+  // domain as it is; without, `mul` is scale log2(e).
+  const bool capped = a.softcap > 0.f;
+  const float cap_in = capped ? 1.f / (sqrtf(float(HD)) * a.softcap) : 0.f;
+  const float cap_out = a.softcap * kLog2e;
+  const float mul = capped ? 1.f : sl2;
 
   const bf16* qp = static_cast<const bf16*>(a.q) + b * a.q_sb + h * a.q_sh;
   const bf16* kp = static_cast<const bf16*>(a.k) + b * a.k_sb + hk * a.k_sh;
@@ -507,6 +514,16 @@ __global__ void __launch_bounds__(Layout<HD>::THREADS,
         }
       }
 
+      if (capped) {
+#pragma unroll
+        for (int i = 0; i < MI; ++i)
+#pragma unroll
+          for (int j = 0; j < NS; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              s[i][j][e] = cap_out * tanhf(s[i][j][e] * cap_in);
+      }
+
       // masks, only where the tile needs them
       const bool need_mask =
           k0 + BKV > a.T || (a.causal && k0 + BKV - 1 > q0) ||
@@ -526,7 +543,7 @@ __global__ void __launch_bounds__(Layout<HD>::THREADS,
             }
       }
 
-      // online softmax in the exp2 domain: p = 2^(s sl2 - m sl2)
+      // online softmax in the exp2 domain: p = 2^(s mul - m mul)
 #pragma unroll
       for (int i = 0; i < MI; ++i) {
 #pragma unroll
@@ -538,8 +555,8 @@ __global__ void __launch_bounds__(Layout<HD>::THREADS,
           mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
           mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
           // a row that has seen no key yet keeps weights and sums at 0
-          const float ms = mx == -INFINITY ? 0.f : mx * sl2;
-          const float corr = repro_ptx::exp2_approx(m[i][r] * sl2 - ms);
+          const float ms = mx == -INFINITY ? 0.f : mx * mul;
+          const float corr = repro_ptx::exp2_approx(m[i][r] * mul - ms);
           m[i][r] = mx;
           float sum = 0.f;
 #pragma unroll
@@ -547,7 +564,7 @@ __global__ void __launch_bounds__(Layout<HD>::THREADS,
 #pragma unroll
             for (int e = 2 * r; e < 2 * r + 2; ++e) {
               const float p =
-                  repro_ptx::exp2_approx(fmaf(s[i][j][e], sl2, -ms));
+                  repro_ptx::exp2_approx(fmaf(s[i][j][e], mul, -ms));
               s[i][j][e] = p;
               sum += p;
             }
@@ -611,6 +628,11 @@ __global__ void __launch_bounds__(Layout<HD>::THREADS,
                                      2 * t) =
             repro_ptx::pack_bf16x2(o[i][j][2 * r] / denom,
                                    o[i][j][2 * r + 1] / denom);
+      const int qi = row_a + i * 16 + 8 * r;
+      if (a.lse != nullptr && t == 0 && qi < a.S)
+        a.lse[(int64_t(b) * a.H + h) * a.S + qi] =
+            m[i][r] == -INFINITY ? -INFINITY
+                                 : (m[i][r] * mul + log2f(denom)) * kLn2;
     }
   }
   __syncwarp();
@@ -656,20 +678,21 @@ extern "C" {
 
 // dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores; every row
 // start 16-byte aligned). Strides are in elements, for the (B, H, S|T, hd)
-// view of each tensor; the hd axis has stride 1.
+// view of each tensor; the hd axis has stride 1. `lse` (B, H, S) fp32 is
+// written where it is not null; softcap > 0 caps the scaled scores.
 // Returns cudaGetLastError() after the launch (0 on success).
 int repro_flash_attention_fwd(
     int dtype, const void* q, const void* k, const void* v, void* o,
-    int B, int H, int Hkv, int S, int T, int hd,
+    float* lse, int B, int H, int Hkv, int S, int T, int hd,
     int64_t q_sb, int64_t q_sh, int64_t q_ss,
     int64_t k_sb, int64_t k_sh, int64_t k_st,
     int64_t v_sb, int64_t v_sh, int64_t v_st,
     int64_t o_sb, int64_t o_sh, int64_t o_ss,
-    int causal, int window, void* stream) {
-  Args a{q, k, v, o,
+    int causal, int window, float softcap, void* stream) {
+  Args a{q, k, v, o, lse,
          q_sb, q_sh, q_ss, k_sb, k_sh, k_st, v_sb, v_sh, v_st,
          o_sb, o_sh, o_ss,
-         B, H, Hkv, S, T, causal, window};
+         B, H, Hkv, S, T, causal, window, softcap};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return int(dispatch_head_dim<float>(a, hd, s));
   if (dtype == 1) return int(tc::dispatch_head_dim(a, hd, s));

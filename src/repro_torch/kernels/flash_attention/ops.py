@@ -1,25 +1,34 @@
-"""Public wrapper of the flash attention kernel.
+"""Public wrapper of the flash attention kernels.
 
-A CPU tensor goes to the plain version (`ref.attention_ref`). A CUDA tensor
-launches the Hopper kernel (`csrc/flash_attention.cu`) or raises: there is
-no fallback on the card. bf16 runs on the tensor cores (`mma.sync`, every
-row start 16-byte aligned for its `cp.async` copies), fp32 on the CUDA
-cores, each at head_dim 32, 64, 128, 192 (MLA's queries and keys) and 256
-(gemma3). A smaller head_dim between these (deepseek's smoke MLA, 48) is
-zero-padded on the card to the next one, q scaled to keep the softmax
-scale 1/sqrt(head_dim), and the output cropped back (`_padded`); one above
-256 raises. q, k and v share one head_dim: MLA pads its values to it.
-`flash_attention.launches` counts kernel launches.
+A CPU tensor goes to the plain version (`ref.attention_ref`, under
+autograd where a gradient is wanted). A CUDA tensor launches the Hopper
+kernels (`csrc/flash_attention.cu`, and `csrc/flash_attention_bwd.cu` for
+the gradient) or raises: there is no fallback on the card. bf16 runs on
+the tensor cores (`mma.sync`, every row start 16-byte aligned for its
+`cp.async` copies), fp32 on the CUDA cores, each at head_dim 32, 64, 128,
+192 (MLA's queries and keys) and 256 (gemma3). A smaller head_dim between
+these (deepseek's smoke MLA, 48) is zero-padded on the card to the next
+one, q scaled to keep the softmax scale 1/sqrt(head_dim), and the output
+cropped back (`_padded`); one above 256 raises. q, k and v share one
+head_dim: MLA pads its values to it.
+`softcap` > 0 caps the scaled scores, c tanh(s / c), before the mask.
+`flash_attention.launches` counts forward launches,
+`flash_attention.bwd_launches` backward ones.
+
+Where autograd needs a gradient on the card, `_FlashAttention` runs the
+forward kernel with its log-sum-exp (lse) and saves (q, k, v, out, lse); its
+backward launches the backward kernels (delta, dK/dV, dQ), the reference's
+blockwise backward (`repro.models.attention._blockwise_bwd`) for the card.
+Without a gradient the forward writes no lse. The plain versions of the
+pair are `ref.attention_ref(..., return_lse=True)` and
+`ref.attention_bwd_ref`.
 
 A `meta` tensor under the dry run's cost trace is a third device: the
 wrapper runs the card's checks (so the trace refuses what the card would),
-returns an empty output of the kernel's shape and dtype, and records one
-call with its `cost` in the active trace (`analysis.trace`). It launches
-nothing and counts no launch.
-
-The kernel is a forward only, as the Pallas kernel is. Where autograd needs
-a gradient on the card, `_FlashAttention` runs the kernel forward and gets
-dq, dk, dv by recomputing `attention_ref` under autograd in its backward.
+returns empty outputs of the kernels' shapes and dtypes, and records each
+call with its cost in the active trace (`analysis.trace`): the forward as
+"flash_attention" (`cost`), the backward as "flash_attention_bwd"
+(`bwd_cost`). It launches nothing and counts no launch.
 """
 from __future__ import annotations
 
@@ -27,6 +36,7 @@ import ctypes
 import functools
 import math
 import threading
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -39,12 +49,12 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128, 192, 256)
 # The paths each dtype takes on the card (chip_smoke.py names them); each
-# takes every head dim of HEAD_DIMS.
+# takes every head dim of HEAD_DIMS, forward and backward.
 PATHS = {torch.float32: "cuda-core fp32", torch.bfloat16: "mma.sync bf16"}
-# q rows a block for the grid check below: the bf16 kernel's q-tiles of 128
-# rows are its grid's z axis, at most 65535, and 64 keeps the check on the
-# safe side (the fp32 kernel's tiles, 64 rows or 32 above hd 128, are its
-# grid's x axis, unbounded here)
+# rows a block for the grid check below: the bf16 kernels' tiles of 64 or
+# 128 q rows (and the backward's 64 keys) are their grids' z axis, at most
+# 65535, and 64 keeps the check on the safe side (the fp32 kernels' tiles
+# are their grids' x axis, unbounded here)
 BQ = 64
 
 _LAUNCHES_LOCK = threading.Lock()
@@ -55,15 +65,46 @@ def _entry():
     lib = _build.load("flash_attention")
     fn = lib.repro_flash_attention_fwd
     i32, i64, ptr = ctypes.c_int, ctypes.c_int64, ctypes.c_void_p
-    fn.argtypes = ([i32, ptr, ptr, ptr, ptr] + [i32] * 6 + [i64] * 12
-                   + [i32, i32, ptr])
+    fn.argtypes = ([i32] + [ptr] * 5 + [i32] * 6 + [i64] * 12
+                   + [i32, i32, ctypes.c_float, ptr])
     fn.restype = i32
     lib.repro_cuda_error_string.argtypes = [i32]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
     return fn, lib.repro_cuda_error_string
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int):
+@functools.lru_cache(maxsize=None)
+def _bwd_entry():
+    """The backward's C entry point (its own source, built with the rest)."""
+    fn = _build.load("flash_attention_bwd").repro_flash_attention_bwd
+    i32, i64, ptr = ctypes.c_int, ctypes.c_int64, ctypes.c_void_p
+    fn.argtypes = ([i32] + [ptr] * 10 + [i32] * 6 + [i64] * 24
+                   + [i32, i32, ctypes.c_float, ptr])
+    fn.restype = i32
+    return fn
+
+
+def _row_problem(name: str, x: torch.Tensor) -> Optional[str]:
+    """Why the kernels cannot read `x` by its strides, or None: the head_dim
+    axis must be contiguous and, for bf16 (cp.async copies 16 bytes from
+    each row start), the data pointer and every batch, head and sequence
+    stride 16-byte aligned."""
+    if x.stride(-1) != 1:
+        return (f"{name} needs a contiguous head_dim axis; strides "
+                f"{x.stride()}")
+    if x.dtype == torch.bfloat16:
+        step = 16 // x.element_size()
+        strides = [st for st, n in zip(x.stride()[:3], x.shape[:3]) if n > 1]
+        if x.data_ptr() % 16 or any(st % step for st in strides):
+            return (f"{name} breaks the bf16 kernel's 16-byte alignment: "
+                    f"data_ptr % 16 = {x.data_ptr() % 16}, strides "
+                    f"{x.stride()} (batch, head and sequence strides must "
+                    f"be multiples of {step} elements)")
+    return None
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int,
+           softcap: float = 0.0):
     if not (q.device == k.device == v.device):
         raise ValueError(f"q, k, v on different devices: "
                          f"{q.device}, {k.device}, {v.device}")
@@ -84,65 +125,128 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int):
         raise ValueError(f"empty sequence: S={s}, T={t}")
     if window < 0:
         raise ValueError(f"window {window} < 0")
+    if not softcap >= 0 or math.isinf(softcap):
+        raise ValueError(f"softcap {softcap}: want a finite value >= 0")
     if window > 0 and s >= t + window:
         raise ValueError(f"S={s} >= T+window={t + window}: the last query "
                          "rows would see no key")
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        if x.stride(-1) != 1:
-            raise ValueError(f"{name} needs a contiguous head_dim axis; "
-                             f"strides {x.stride()}")
-    if max(b, h, s, t) >= 2 ** 31 or max(b, h, -(-s // BQ)) > 65535:
+    if max(b, h, s, t) >= 2 ** 31 or \
+            max(b, h, -(-s // BQ), -(-t // BQ)) > 65535:
         raise ValueError(f"shape {tuple(q.shape)} beyond the launch grid")
-    if q.dtype == torch.bfloat16:
-        # cp.async copies 16 bytes from each row start
-        for name, x in (("q", q), ("k", k), ("v", v)):
-            step = 16 // x.element_size()
-            strides = [st for st, n in zip(x.stride()[:3], x.shape[:3])
-                       if n > 1]
-            if x.data_ptr() % 16 or any(st % step for st in strides):
-                raise ValueError(
-                    f"{name} breaks the bf16 kernel's 16-byte alignment: "
-                    f"data_ptr % 16 = {x.data_ptr() % 16}, strides "
-                    f"{x.stride()} (batch, head and sequence strides must "
-                    f"be multiples of {step} elements)")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        problem = _row_problem(name, x)
+        if problem:
+            raise ValueError(problem)
+
+
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-            causal: bool, window: int) -> torch.Tensor:
-    """One launch of the Hopper kernel on checked inputs."""
+            causal: bool, window: int, softcap: float = 0.0,
+            with_lse: bool = False):
+    """One launch of the forward kernel on checked inputs: out, or (out,
+    lse) with `with_lse`."""
     b, h, s, hd = q.shape
     hkv, t = k.shape[1], k.shape[2]
     out = torch.empty((b, s, h, hd), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
+    lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     fn, err_str = _entry()
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
         err = fn(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 out.data_ptr(), b, h, hkv, s, t, hd,
+                 out.data_ptr(), None if lse is None else lse.data_ptr(),
+                 b, h, hkv, s, t, hd,
                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                 *out.stride()[:3], int(causal), int(window), stream)
+                 *out.stride()[:3], int(causal), int(window),
+                 float(softcap), _stream(q.device))
     if err:
         raise RuntimeError(f"flash_attention kernel launch failed: "
                            f"{err_str(err).decode()} (cudaError {err})")
     with _LAUNCHES_LOCK:   # device lanes and callers may launch at once
         flash_attention.launches += 1
-    return out
+    return (out, lse) if with_lse else out
+
+
+def _bwd_buffers(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """dq, dk, dv as (B,H|Hkv,S|T,hd) views of (B,S|T,H|Hkv,hd) tensors (the
+    layout of the inputs the model hands the kernel), and delta (B,H,S)
+    fp32."""
+    b, h, s, hd = q.shape
+    hkv, t = k.shape[1], k.shape[2]
+    dq = torch.empty((b, s, h, hd), dtype=q.dtype,
+                     device=q.device).transpose(1, 2)
+    dk, dv = (torch.empty((b, t, hkv, hd), dtype=q.dtype,
+                          device=q.device).transpose(1, 2) for _ in range(2))
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    return dq, dk, dv, delta
+
+
+def _launch_bwd(q, k, v, out, lse, dout, *, causal: bool, window: int,
+                softcap: float = 0.0):
+    """The backward kernels (delta, dK/dV, dQ: one call of the C entry
+    point) on the forward's checked inputs, its out and lse: (dq, dk, dv).
+    A `dout` the kernels cannot read by its strides is copied first."""
+    if _row_problem("dout", dout):
+        dout = dout.contiguous()
+    b, h, s, hd = q.shape
+    hkv, t = k.shape[1], k.shape[2]
+    dq, dk, dv, delta = _bwd_buffers(q, k, v)
+    bwd, (_, err_str) = _bwd_entry(), _entry()
+    with torch.cuda.device(q.device):
+        err = bwd(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                  out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+                  delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                  dv.data_ptr(), b, h, hkv, s, t, hd,
+                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                  *out.stride()[:3], *dout.stride()[:3], *dq.stride()[:3],
+                  *dk.stride()[:3], *dv.stride()[:3], int(causal),
+                  int(window), float(softcap), _stream(q.device))
+    if err:
+        raise RuntimeError(f"flash_attention backward launch failed: "
+                           f"{err_str(err).decode()} (cudaError {err})")
+    with _LAUNCHES_LOCK:
+        flash_attention.bwd_launches += 1
+    return dq, dk, dv
 
 
 def cost(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-         causal: bool = True, window: int = 0,
-         v_head_dim: int = 0) -> KernelCost:
+         causal: bool = True, window: int = 0, v_head_dim: int = 0,
+         softcap: float = 0.0) -> KernelCost:
     """One call's useful work: q.k and P.v over the (query, key) pairs the
     mask lets through (2 flop a product each), q, k, v read and the output
-    written once. `v_head_dim` > 0 counts only that many of v's columns
-    (MLA's values, zero-padded to the head_dim of q and k)."""
+    written once; under softcap one tanh a valid score, in `exps`.
+    `v_head_dim` > 0 counts only that many of v's columns (MLA's values,
+    zero-padded to the head_dim of q and k)."""
     b, h, s, hd = q.shape
     hkv, t = k.shape[1], k.shape[2]
     v_hd = v_head_dim or v.shape[-1]
     pairs = valid_pairs(s, t, causal, window)
     nbytes = q.element_size() * (q.numel() + k.numel() + b * hkv * t * v_hd
                                  + b * h * s * v_hd)
-    return KernelCost(2 * b * h * (hd + v_hd) * pairs, nbytes)
+    return KernelCost(2 * b * h * (hd + v_hd) * pairs, nbytes,
+                      b * h * pairs if softcap else 0)
+
+
+def bwd_cost(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+             causal: bool = True, window: int = 0, v_head_dim: int = 0,
+             softcap: float = 0.0) -> KernelCost:
+    """One backward call's useful work over the valid pairs: q.k, dO.v,
+    P^T dO, dS^T q and dS k, 2 flop a product each, 2 (3 hd + 2 hd_v) a
+    pair; q, k, v, out, dout, lse and delta read once, dq, dk, dv written
+    once; under softcap one tanh a valid score, in `exps`."""
+    b, h, s, hd = q.shape
+    hkv, t = k.shape[1], k.shape[2]
+    v_hd = v_head_dim or v.shape[-1]
+    pairs = valid_pairs(s, t, causal, window)
+    elems = (2 * (b * h * s * hd + b * hkv * t * hd)   # q, k; dq, dk
+             + 2 * b * hkv * t * v_hd                  # v, dv
+             + 2 * b * h * s * v_hd)                   # out, dout
+    nbytes = q.element_size() * elems + 4 * 2 * b * h * s   # lse, delta
+    return KernelCost(2 * b * h * (3 * hd + 2 * v_hd) * pairs, nbytes,
+                      b * h * pairs if softcap else 0)
 
 
 def _traced(t: torch.Tensor) -> bool:
@@ -153,75 +257,112 @@ def _traced(t: torch.Tensor) -> bool:
 
 
 def _meta_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                 causal: bool, window: int) -> torch.Tensor:
-    """The kernel's output on `meta`, its call recorded in the trace."""
+                 causal: bool, window: int, softcap: float = 0.0,
+                 with_lse: bool = False):
+    """The forward's outputs on `meta`, its call recorded in the trace."""
     b, h, s, hd = q.shape
-    trace.record_kernel("flash_attention",
-                        cost(q, k, v, causal=causal, window=window))
-    return torch.empty((b, s, h, hd), dtype=q.dtype,
-                       device=q.device).transpose(1, 2)
+    trace.record_kernel("flash_attention", cost(
+        q, k, v, causal=causal, window=window, softcap=softcap))
+    out = torch.empty((b, s, h, hd), dtype=q.dtype,
+                      device=q.device).transpose(1, 2)
+    if not with_lse:
+        return out
+    return out, torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+
+
+def _meta_launch_bwd(q, k, v, out, lse, dout, *, causal: bool, window: int,
+                     softcap: float = 0.0):
+    """The backward's gradients on `meta` (and its scratch, as the card
+    allocates it), its call recorded in the trace."""
+    trace.record_kernel("flash_attention_bwd", bwd_cost(
+        q, k, v, causal=causal, window=window, softcap=softcap))
+    dq, dk, dv, _ = _bwd_buffers(q, k, v)
+    return dq, dk, dv
+
+
+def _card_fwd(q, k, v, **mask):
+    return _launch(q, k, v, with_lse=True, **mask)
+
+
+def _meta_fwd(q, k, v, **mask):
+    return _meta_launch(q, k, v, with_lse=True, **mask)
+
+
+def plain_fwd(q, k, v, **mask):
+    """The plain version of the forward `_FlashAttention` saves from:
+    (out, lse)."""
+    return attention_ref(q, k, v, return_lse=True, **mask)
 
 
 class _FlashAttention(torch.autograd.Function):
-    """Forward by `forward_fn` (the kernel launch on the card); backward by
-    recomputing `attention_ref` under autograd, as the reference
-    differentiates a jnp form and not its Pallas kernel."""
+    """`fwd` (q, k, v -> out, lse) forward and `bwd` (q, k, v, out, lse,
+    dout -> dq, dk, dv) backward: the kernels on the card, their `meta`
+    stand-ins under the trace, or their plain versions (`plain_fwd`,
+    `ref.attention_bwd_ref`), under one mask (causal, window, softcap)."""
 
     @staticmethod
-    def forward(ctx, forward_fn, causal, window, q, k, v):
-        ctx.causal, ctx.window = causal, window
-        ctx.save_for_backward(q, k, v)
-        return forward_fn(q, k, v, causal=causal, window=window)
+    def forward(ctx, fwd, bwd, causal, window, softcap, q, k, v):
+        out, lse = fwd(q, k, v, causal=causal, window=window,
+                       softcap=softcap)
+        ctx.bwd = bwd
+        ctx.mask = {"causal": causal, "window": window, "softcap": softcap}
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
 
     @staticmethod
     def backward(ctx, dout):
-        needs = ctx.needs_input_grad[3:]
-        inputs = [t.detach().requires_grad_(need)
-                  for t, need in zip(ctx.saved_tensors, needs)]
-        wanted = [t for t in inputs if t.requires_grad]
-        with torch.enable_grad():
-            out = attention_ref(*inputs, causal=ctx.causal,
-                                window=ctx.window)
-        grads = iter(torch.autograd.grad(out, wanted, dout))
-        return (None, None, None,
-                *(next(grads) if t.requires_grad else None for t in inputs))
+        grads = ctx.bwd(*ctx.saved_tensors, dout, **ctx.mask)
+        return (None,) * 5 + tuple(
+            g if need else None
+            for g, need in zip(grads, ctx.needs_input_grad[5:]))
 
 
 def _padded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-            causal: bool, window: int) -> torch.Tensor:
+            causal: bool, window: int, softcap: float = 0.0) -> torch.Tensor:
     """`flash_attention` at a head_dim between the kernel's: q, k and v
     zero-padded to the next of HEAD_DIMS, q scaled by sqrt(padded /
-    head_dim) so that the kernel's 1/sqrt(padded) makes 1/sqrt(head_dim);
-    the padded columns add 0 to q.k and give 0 columns of the output, which
-    are cropped. Exact but for the scaling's rounding of q."""
+    head_dim) so that the kernel's 1/sqrt(padded) makes 1/sqrt(head_dim)
+    (the scaled score, and so its softcap, unchanged); the padded columns
+    add 0 to q.k and give 0 columns of the output, which are cropped.
+    Exact but for the scaling's rounding of q."""
     hd = q.shape[-1]
     wide = next(d for d in HEAD_DIMS if d > hd)
     q = F.pad(q * math.sqrt(wide / hd), (0, wide - hd))
     k, v = (F.pad(t, (0, wide - hd)) for t in (k, v))
-    return flash_attention(q, k, v, causal=causal, window=window)[..., :hd]
+    return flash_attention(q, k, v, causal=causal, window=window,
+                           softcap=softcap)[..., :hd]
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0) -> torch.Tensor:
+                    causal: bool = True, window: int = 0,
+                    softcap: float = 0.0) -> torch.Tensor:
     """q: (B,H,S,hd); k,v: (B,Hkv,T,hd) -> (B,H,S,hd) in q.dtype.
 
     Inputs are read by strides, so (B,S,H,hd) activations can be passed as
     `.transpose(1, 2)` views without a copy. On the card the output is a
     (B,H,S,hd) view of a (B,S,H,hd)-contiguous tensor, so
-    `out.transpose(1, 2)` is contiguous again. Differentiable in q, k and
-    v."""
+    `out.transpose(1, 2)` is contiguous again, and so are the gradients.
+    Differentiable in q, k and v."""
     if q.device.type == "cpu" and k.device.type == "cpu" \
             and v.device.type == "cpu":
-        return attention_ref(q, k, v, causal=causal, window=window)
+        return attention_ref(q, k, v, causal=causal, window=window,
+                             softcap=softcap)
     hd = q.shape[-1]
     if hd not in HEAD_DIMS and hd < HEAD_DIMS[-1] and q.dim() == 4 \
             and k.shape[-1] == v.shape[-1] == hd:
-        return _padded(q, k, v, causal=causal, window=window)
-    _check(q, k, v, window)
-    launch = _meta_launch if _traced(q) else _launch
+        return _padded(q, k, v, causal=causal, window=window,
+                       softcap=softcap)
+    _check(q, k, v, window, softcap)
+    traced = _traced(q)
+    mask = {"causal": causal, "window": window, "softcap": softcap}
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return _FlashAttention.apply(launch, causal, window, q, k, v)
-    return launch(q, k, v, causal=causal, window=window)
+        if traced:
+            return _FlashAttention.apply(_meta_fwd, _meta_launch_bwd,
+                                         causal, window, softcap, q, k, v)
+        return _FlashAttention.apply(_card_fwd, _launch_bwd, causal, window,
+                                     softcap, q, k, v)
+    return (_meta_launch if traced else _launch)(q, k, v, **mask)
 
 
 flash_attention.launches = 0
+flash_attention.bwd_launches = 0

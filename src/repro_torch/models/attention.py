@@ -18,8 +18,9 @@ Pallas counterpart and stays plain torch, as the reference computes it
 outside its kernel: `naive_sdpa` over the GQA and cross caches, MLA's
 absorbed einsums over the latent cache. Caches for sliding-window layers
 are ring buffers of size `window` with per-slot absolute positions;
-`slot_pos == -1` marks a free slot. The reference's `blockwise_sdpa` has no
-counterpart: full-sequence attention takes the kernel instead. Under
+`slot_pos == -1` marks a free slot. The reference's `blockwise_sdpa` is the
+kernel pair's counterpart: its forward the flash forward with lse, its
+custom VJP the flash backward (`ref.attention_bwd_ref` in plain torch). Under
 executing sharding rules (`attention_forward(..., tp=)`, `mla_forward(...,
 tp=)`, `cross_attention_forward(..., tp=)` with `encode_cross_kv(...,
 tp=)`) the same body computes a rank's own heads, and flash runs on
@@ -95,8 +96,9 @@ def sdpa(q, k, v, q_pos, kv_pos, *, window: int = 0, causal: bool = True,
          softcap: float = 0.0) -> torch.Tensor:
     """Attention of (B,S,Kv,G,hd) queries over (B,T,Kv,hd) keys with
     absolute positions. The reference switches to its blockwise form above
-    S=2048; the port has one plain form here, and full-sequence attention
-    takes the kernel instead (`_self_attention`)."""
+    S=2048; here full-sequence attention takes the flash kernels instead
+    (`_self_attention`), whose backward is that form's, and this plain one
+    serves the rest."""
     return naive_sdpa(q, k, v, q_pos, kv_pos, window=window, causal=causal,
                       softcap=softcap)
 
@@ -106,22 +108,13 @@ def _self_attention(cfg: ModelConfig, q, k, v, *, window: int,
     """q (B,S,H,hd), k/v (B,S,Kv,hd) at positions 0..S-1 -> (B,S,H*hd)
     (Kv = H where `_group_for_tp` expanded the KV heads; H and Kv a rank's
     under executing sharding rules).
-    Goes through the flash attention wrapper: the Hopper kernel on the
-    card, its plain version on the CPU."""
+    Goes through the flash attention wrapper, with the config's logit
+    softcap: the Hopper kernels on the card, their plain version on the
+    CPU."""
     B, S, H = q.shape[:3]
-    if cfg.attn_logit_softcap:
-        if q.is_cuda:
-            raise NotImplementedError(
-                "attn_logit_softcap != 0 has no Hopper kernel yet: no "
-                "config sets it")
-        pos = torch.arange(S, device=q.device)
-        kv = k.shape[2]
-        qg = q.reshape(B, S, kv, H // kv, cfg.head_dim)
-        out = sdpa(qg, k, v, pos, pos, window=window, causal=causal,
-                   softcap=cfg.attn_logit_softcap)
-        return out.reshape(B, S, H * cfg.head_dim)
     out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                          v.transpose(1, 2), causal=causal, window=window)
+                          v.transpose(1, 2), causal=causal, window=window,
+                          softcap=cfg.attn_logit_softcap)
     return out.transpose(1, 2).reshape(B, S, H * cfg.head_dim)
 
 

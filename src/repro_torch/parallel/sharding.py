@@ -791,8 +791,6 @@ def _map_specs(fn, specs, path=()):
                        for i, v in enumerate(specs))
 
 
-# What executing the plan does not cover yet, under its ROADMAP item
-SOFTCAP_ITEM = "attention logit softcapping"
 # leaves each rank holds a block of along `model` and uses as its own part
 # of the layer (x_proj, dt_proj and w_if are gathered whole: `whole`)
 _TP_LEAVES = {"w_q", "w_k", "w_v", "w_o", "w_gate", "w_up", "w_down",
@@ -810,7 +808,8 @@ def _unsupported(cfg: ModelConfig, mesh, item: str) -> str:
 def check_executable(rules: ShardingRules) -> None:
     """Raise `NotImplementedError`, naming its ROADMAP item, for a config
     or step the executing rules do not run: a train step of anything but
-    models of GQA/MHA, sliding-window or MLA attention, Mamba mixers and
+    models of GQA/MHA (logits softcapped or not), sliding-window or MLA
+    attention, Mamba mixers and
     xLSTM cells, SwiGLU or MoE FFNs (`dense`, `dropping` or `ragged`
     dispatch, shared experts), an encoder of attention layers that every
     decoder layer cross-attends to (`frames` inputs) or image embeddings
@@ -822,8 +821,6 @@ def check_executable(rules: ShardingRules) -> None:
     block of along `model`)."""
     cfg, mesh = rules.cfg, rules.mesh
     kinds = set(cfg.pattern) | set(cfg.ffn_pattern)
-    if cfg.attn_logit_softcap:
-        raise NotImplementedError(_unsupported(cfg, mesh, SOFTCAP_ITEM))
     if rules.shape.kind != "train":
         raise NotImplementedError(_unsupported(
             cfg, mesh, f"a {rules.shape.kind} step"))

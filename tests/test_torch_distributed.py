@@ -6,8 +6,8 @@ against the dry run's (`launch.dryrun.trace_cell`) for the same mesh and
 shape; the dry run's model of the plan against its trace of the executed
 step where no remat recomputes; a sharded run's checkpoint against a
 single-process run's files, gathered to rank 0, and every Comm closed;
-`python -m torch.distributed.run` on the launcher; the configs the executed
-plan does not cover yet. The cases hold the executed plan's parts: query
+`python -m torch.distributed.run` on the launcher. The cases hold the
+executed plan's parts: query
 heads cut over `model`, the int8 compressing step (its residual too),
 Mamba under sequence parallelism and the ragged MoE dispatch.
 
@@ -118,19 +118,6 @@ CKPT_CASE = ("stablelm-1.6b", (2, 2), ("data", "model"))
 # which the plan leaves to the compiler's choice ("bshd" constrains only
 # heads that split whole)
 PLAN_LAYS_OUT_OTHERWISE = ("query heads cut over model (1, 4)",)
-# what the executed plan does not cover yet: case -> (arch, config
-# overrides (a "mesh" entry is the (data, model) shape, (4, 1) by
-# default), the item its error names)
-UNSUPPORTED = {
-    "stablelm softcap": ("stablelm-1.6b", {"attn_logit_softcap": 50.0},
-                         "attention logit softcapping"),
-    "seamless softcap (2, 2)": ("seamless-m4t-medium",
-                                {"attn_logit_softcap": 50.0,
-                                 "mesh": (2, 2)},
-                                "attention logit softcapping"),
-}
-
-
 def _config(arch, over):
     """The smoke config with `over`; its "moe" and "xlstm" entries
     override fields of the config's MoE and xLSTM configs, and a
@@ -219,18 +206,6 @@ def _rank(rank: int, work: Path) -> None:
     arch, mesh_shape, axes = CKPT_CASE
     out["checkpoint"] = run(_config(arch, {}), Mesh(mesh_shape, axes),
                             ckpt_dir=str(work / "ckpt_sharded"))
-    raised = {}
-    for name, (arch, over, _) in UNSUPPORTED.items():
-        over = dict(over)
-        mesh_shape = over.pop("mesh", (WORLD, 1))
-        try:
-            train(_config(arch, over), steps=1, batch=BATCH,
-                  seq_len=SEQ_LEN, device="cpu",
-                  mesh=Mesh(mesh_shape, ("data", "model")))
-            raised[name] = None
-        except NotImplementedError as e:
-            raised[name] = str(e)
-    out["unsupported"] = raised
     out["registry"] = len(collectives._GROUPS)
     torch.save(out, work / f"rank{rank}.pt")
     dist.destroy_process_group()
@@ -410,14 +385,6 @@ def test_checkpoint_gathers_to_rank_zero_and_comms_close(ranks):
     for r in ranks:
         assert set(r["checkpoint"]["saved"]) == {"gather"}, r["checkpoint"]
         assert r["registry"] == 0
-
-
-@pytest.mark.parametrize("arch", list(UNSUPPORTED))
-def test_unsupported_arch_raises_over_many_ranks(ranks, arch):
-    for r in ranks:
-        msg = r["unsupported"][arch]
-        assert msg is not None and "ROADMAP A18" in msg \
-            and UNSUPPORTED[arch][2] in msg, msg
 
 
 class _ThreadComm:

@@ -9,7 +9,10 @@ through `make_train_step` with a compressing hook; jamba's smoke config
 with `sequence_parallel=True` on (2, 2) (Mamba under sequence
 parallelism); mixtral's smoke config with the `ragged` dispatch on (1, 4)
 (expert parallel) and with 3 experts on (2, 2) (the expert-internal TP
-fallback). fp32, batch 4 x 64, two steps.
+fallback); attention logit softcapping (`attn_logit_softcap` 2.0) on
+stablelm's smoke config over (4, 1) and seamless's (its encoder's and
+decoder's self-attention; cross-attention takes none, as in the reference)
+over (2, 2). fp32, batch 4 x 64, two steps.
 
 Each side runs as `tests/test_torch_distributed_modal.py` runs it: the
 reference's step under its rules (`make_rules`, `build_model(cfg, rules)`,
@@ -62,6 +65,10 @@ CASES = {
     "mixtral ragged 3 experts, expert-internal TP (2, 2)": (
         "mixtral-8x22b", (2, 2),
         {"moe": {"dispatch": "ragged", "num_experts": 3}}, "train"),
+    "stablelm softcap (4, 1)": ("stablelm-1.6b", (4, 1),
+                                {"attn_logit_softcap": 2.0}, "train"),
+    "seamless softcap (2, 2)": ("seamless-m4t-medium", (2, 2),
+                                {"attn_logit_softcap": 2.0}, "train"),
 }
 # fp32 on both sides: XLA's and torch's sums over devices and columns
 # round in other orders, carried through two AdamW updates
@@ -145,8 +152,11 @@ def _jax(work: Path) -> None:
             def step(p, o, e, b):
                 p, o, m = fn(p, o, b)
                 return p, o, e, m
+        # the config's inputs (seamless's frames), as the launchers make them
         data = DataConfig(vocab_size=cfg.vocab_size, seq_len=SEQ_LEN,
-                          global_batch=BATCH)
+                          global_batch=BATCH, input_mode=cfg.input_mode,
+                          d_model=cfg.d_model,
+                          num_image_tokens=cfg.num_image_tokens)
         losses, norms = [], []
         for s in range(STEPS):
             params, opt, efb, metrics = step(params, opt, efb,

@@ -71,7 +71,9 @@ def test_state_bytes_and_kernel_calls_at_world_size_one(monkeypatch):
     """The host mesh: the state's bytes are those of the params and AdamW
     state the launcher builds, exactly; each kernel's calls in the traced
     step are the calls the same step makes on the CPU (counted by wrapping
-    the wrappers the model calls)."""
+    the wrappers the model calls), flash's backward ("flash_attention_bwd")
+    as the gradients that reach a flash output (once a layer, whatever the
+    remat recomputes)."""
     for arch in ("jamba-1.5-large-398b", "xlstm-125m", "stablelm-1.6b"):
         cfg = registry.get_smoke_config(arch).scaled(train_microbatch=0)
         shape = ShapeConfig("t", "train", 32, 2)
@@ -83,10 +85,16 @@ def test_state_bytes_and_kernel_calls_at_world_size_one(monkeypatch):
         assert rec["state_bytes"] == rec["state_bytes_per_dev"] == held
         calls = {}
 
+        def bump(name):
+            calls[name] = calls.get(name, 0) + 1
+
         def counting(name, fn):
             def wrapped(*a, **k):
-                calls[name] = calls.get(name, 0) + 1
-                return fn(*a, **k)
+                bump(name)
+                out = fn(*a, **k)
+                if name == "flash_attention" and out.requires_grad:
+                    out.register_hook(lambda g: bump("flash_attention_bwd"))
+                return out
             return wrapped
 
         with monkeypatch.context() as m:
@@ -98,6 +106,42 @@ def test_state_bytes_and_kernel_calls_at_world_size_one(monkeypatch):
                   params=params, log_every=1)
         assert {k: v["calls"] for k, v in rec["kernel_calls"].items()} == \
             calls, arch
+
+
+@pytest.mark.parametrize("softcap", [0.0, 2.0])
+def test_the_trace_records_the_flash_backward(softcap):
+    """On `meta` under the trace, a flash call that needs gradients records
+    its forward ("flash_attention", `cost`) and, when the gradient reaches
+    it, one backward ("flash_attention_bwd", `bwd_cost`, softcap's tanh in
+    its exps); the gradients come back empty in the inputs' shapes, and
+    nothing launches."""
+    from repro_torch.analysis import trace
+    from repro_torch.kernels.flash_attention import ops
+    q = torch.empty(2, 8, 64, 64, device="meta", dtype=torch.bfloat16,
+                    requires_grad=True)
+    k, v = (torch.empty(2, 2, 96, 64, device="meta", dtype=torch.bfloat16,
+                        requires_grad=True) for _ in range(2))
+    before = (ops.flash_attention.launches, ops.flash_attention.bwd_launches)
+
+    def step():
+        out = ops.flash_attention(q, k, v, window=16, softcap=softcap)
+        return torch.autograd.grad(out.float().sum(), (q, k, v))
+    res, grads = trace.analyze_trace(step)
+    assert [g.shape for g in grads] == [q.shape, k.shape, v.shape]
+    mask = {"causal": True, "window": 16, "softcap": softcap}
+    fwd, bwd = ops.cost(q, k, v, **mask), ops.bwd_cost(q, k, v, **mask)
+    pairs = 2 * 8 * ops.valid_pairs(64, 96, True, 16)
+    assert bwd.flops == 2 * pairs * (3 * 64 + 2 * 64)
+    # q, out, dout, dq and k, v, dk, dv in bf16; lse and delta in fp32
+    assert bwd.bytes == 2 * (4 * 2 * 8 * 64 * 64 + 4 * 2 * 2 * 96 * 64) \
+        + 4 * 2 * 2 * 8 * 64
+    assert fwd.exps == bwd.exps == (pairs if softcap else 0)
+    for name, c in (("flash_attention", fwd), ("flash_attention_bwd", bwd)):
+        call = res.kernels[name]
+        assert (call.calls, call.flops, call.bytes, call.exps) == (
+            1, c.flops, c.bytes, c.exps), name
+    assert (ops.flash_attention.launches,
+            ops.flash_attention.bwd_launches) == before
 
 
 def test_cli_writes_one_record_a_cell_and_skips_cached(tmp_path, monkeypatch,

@@ -1,7 +1,10 @@
 """The port's flash attention on the CPU: the plain version against the JAX
-kernel (interpret mode) and the JAX oracle, the wrapper's routing and
-checks, and the kernel build logic. The Hopper kernel itself is held
-against the plain version on the card by chip_smoke.py."""
+kernel (interpret mode) and the JAX oracle, the plain backward against the
+VJP of the reference's `blockwise_sdpa`, the wrapper's routing and checks,
+and the kernel build logic. The Hopper kernels themselves are held against
+the plain versions on the card by chip_smoke.py (phase 2,
+`check_flash_backward`)."""
+import jax
 import numpy as np
 import pytest
 
@@ -10,9 +13,11 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels.flash_attention import attention_ref as jax_attention_ref  # noqa: E402
 from repro.kernels.flash_attention import flash_attention as jax_flash_attention  # noqa: E402
+from repro.models import attention as jax_attention  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import ops  # noqa: E402
-from repro_torch.kernels.flash_attention import attention_ref, flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    attention_bwd_ref, attention_ref, flash_attention)
 
 # fp32 2e-5; bf16 2e-2 (one bf16 rounding of the output), compared in fp32
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
@@ -133,9 +138,10 @@ def test_non_cpu_tensors_never_fall_back(monkeypatch):
     assert flash_attention.launches == 0
 
 
-# Recompute backward against autograd through the plain version: the same
-# ops in the same order, so fp32 to 1e-6; bf16 grads are rounded to bf16
-# once on each side (2e-2).
+# `_FlashAttention` with the plain pair (the blockwise backward) against
+# autograd through the plain version: fp32 sums of 24 keys or rows in
+# another order, to 1e-6; bf16 grads are rounded to bf16 once on each side
+# (2e-2).
 GRAD_TOL = {"float32": dict(rtol=1e-6, atol=1e-6),
             "bfloat16": dict(rtol=2e-2, atol=2e-2)}
 
@@ -145,9 +151,9 @@ GRAD_TOL = {"float32": dict(rtol=1e-6, atol=1e-6),
     (True, 0, (True, True, True)), (True, 5, (True, True, True)),
     (False, 0, (True, True, True)), (True, 5, (False, True, False))])
 def test_recompute_backward_matches_autograd(dtype, causal, window, needs):
-    """`_FlashAttention` with the plain forward injected in place of the
-    launch: its output, and dq, dk, dv (only those asked for) against
-    autograd through `attention_ref`."""
+    """`_FlashAttention` with the plain versions injected in place of the
+    launches (`plain_fwd`, `attention_bwd_ref`): its output, and dq, dk, dv
+    (only those asked for) against autograd through `attention_ref`."""
     _, ins = _inputs(11, 2, 4, 2, 24, 24, 32, dtype)
     dout = torch.randn(2, 4, 24, 32, generator=torch.Generator().manual_seed(
         12)).to(ins[0].dtype)
@@ -155,7 +161,8 @@ def test_recompute_backward_matches_autograd(dtype, causal, window, needs):
     for fn in ("function", "autograd"):
         xs = [t.clone().requires_grad_(n) for t, n in zip(ins, needs)]
         if fn == "function":
-            out = ops._FlashAttention.apply(attention_ref, causal, window, *xs)
+            out = ops._FlashAttention.apply(ops.plain_fwd, attention_bwd_ref,
+                                            causal, window, 0.0, *xs)
         else:
             out = attention_ref(*xs, causal=causal, window=window)
         out.backward(dout)
@@ -168,29 +175,48 @@ def test_recompute_backward_matches_autograd(dtype, causal, window, needs):
 
 
 def test_card_tensors_that_need_grad_go_through_the_function(monkeypatch):
-    """On a non-CPU tensor that needs a gradient the wrapper launches inside
-    `_FlashAttention` (its output has that grad_fn and backward reaches q, k,
-    v); without grad, or under no_grad, it launches bare. Meta tensors and
-    a stub launch stand in for the card."""
-    calls = []
+    """On a non-CPU tensor that needs a gradient the wrapper launches the
+    forward with its lse inside `_FlashAttention` (its output has that
+    grad_fn), and backward reaches q, k, v through the backward launch,
+    given the forward's out and lse and the mask, softcap included; the
+    plain version is never called. Without grad, or under no_grad, it
+    launches bare, without lse. Meta tensors and stub launches stand in for
+    the card."""
+    calls, bwd_calls = [], []
 
-    def launch(q, k, v, *, causal, window):
-        calls.append((causal, window))
-        return torch.empty_like(q)
+    def launch(q, k, v, *, causal, window, softcap=0.0, with_lse=False):
+        calls.append((causal, window, softcap, with_lse))
+        out = torch.empty_like(q)
+        if not with_lse:
+            return out
+        return out, torch.empty(q.shape[:3], device=q.device)
+
+    def launch_bwd(q, k, v, out, lse, dout, *, causal, window, softcap):
+        assert lse.shape == q.shape[:3] and dout.shape == out.shape
+        bwd_calls.append((causal, window, softcap))
+        return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+    def no_plain(*args, **kw):
+        raise AssertionError("the plain version ran on a card tensor")
 
     monkeypatch.setattr(ops, "_launch", launch)
+    monkeypatch.setattr(ops, "_launch_bwd", launch_bwd)
+    monkeypatch.setattr(ops, "attention_ref", no_plain)
     q, k, v = (torch.empty(1, 4, 16, 32, device="meta") for _ in range(3))
     out = flash_attention(q, k, v)
     assert out.grad_fn is None
     qg, kg, vg = (t.requires_grad_() for t in (q.clone(), k.clone(), v.clone()))
     with torch.no_grad():
         assert flash_attention(qg, kg, vg).grad_fn is None
-    out = flash_attention(qg, kg, vg, window=8)
+    out = flash_attention(qg, kg, vg, window=8, softcap=2.0)
     assert type(out.grad_fn).__name__ == "_FlashAttentionBackward"
+    assert bwd_calls == []
     out.sum().backward()
     assert all(t.grad is not None and t.grad.shape == t.shape
                for t in (qg, kg, vg))
-    assert calls == [(True, 0), (True, 0), (True, 8)]
+    assert calls == [(True, 0, 0.0, False), (True, 0, 0.0, False),
+                     (True, 8, 2.0, True)]
+    assert bwd_calls == [(True, 8, 2.0)]
 
 
 @pytest.mark.parametrize("hd,wide", [(48, 64), (96, 128), (20, 32)])
@@ -200,7 +226,7 @@ def test_head_dims_between_the_kernels_are_padded(monkeypatch, hd, wide):
     padding through the plain version gives the unpadded result (fp32)."""
     shapes = []
 
-    def launch(q, k, v, *, causal, window):
+    def launch(q, k, v, *, causal, window, softcap=0.0):
         shapes.append(tuple(q.shape))
         return torch.empty_like(q)
 
@@ -230,6 +256,130 @@ def test_row_chunked_plain_version_equals_the_whole(s, t, causal, window,
         rtol=1e-6, atol=1e-6)
 
 
+# --------------------------------------------- the backward and the softcap
+
+# GQA 4:1 over the reference's masks: name -> (causal, window, S, T)
+BWD_MASKS = {"causal": (True, 0, 128, 128),
+             "causal window 64": (True, 64, 128, 128),
+             "non-causal S=64 T=256": (False, 0, 64, 256)}
+
+
+def _bwd_inputs(seed, s, t, dtype, b=2, h=8, hkv=2, hd=32):
+    """q, k, v and dout as torch tensors of `dtype` and the same numbers as
+    fp32 numpy arrays (B,H|Hkv,S|T,hd)."""
+    rng = np.random.default_rng(seed)
+    tt = [torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+          .to(getattr(torch, dtype))
+          for shape in ((b, h, s, hd), (b, hkv, t, hd), (b, hkv, t, hd),
+                        (b, h, s, hd))]
+    return [x.float().numpy() for x in tt], tt
+
+
+def _to_jax(x, hkv, dtype):
+    """(B,H,S,hd) -> the reference's (B,S,Kv,G,hd); (B,Hkv,T,hd) with
+    hkv=None -> (B,T,Kv,hd)."""
+    b, h, s, d = x.shape
+    if hkv is None:
+        return jnp.asarray(x.transpose(0, 2, 1, 3)).astype(dtype)
+    return jnp.asarray(x.reshape(b, hkv, h // hkv, s, d)
+                       .transpose(0, 3, 1, 2, 4)).astype(dtype)
+
+
+def _from_jax(x):
+    """(B,S,Kv,G,hd) -> (B,H,S,hd); (B,T,Kv,hd) -> (B,Kv,T,hd)."""
+    x = np.asarray(x, np.float32)
+    if x.ndim == 4:
+        return x.transpose(0, 2, 1, 3)
+    b, s, kv, g, d = x.shape
+    return x.transpose(0, 2, 3, 1, 4).reshape(b, kv * g, s, d)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mask", list(BWD_MASKS))
+@pytest.mark.parametrize("softcap", [0.0, 2.0])
+def test_plain_backward_matches_the_jax_blockwise_vjp(dtype, mask, softcap):
+    """`attention_bwd_ref` (chunks of 64) from the plain forward's out and
+    lse against `jax.vjp` of the reference's `blockwise_sdpa` (chunks of
+    64), GQA 4:1: fp32 to 1e-5 (sums in other orders); bf16 to 2e-2 of the
+    largest entry (the reference rounds P to bf16 before P.V, so the two
+    outputs, and with them delta, differ by a bf16 rounding)."""
+    causal, window, s, t = BWD_MASKS[mask]
+    (qn, kn, vn, don), (q, k, v, do) = _bwd_inputs(31, s, t, dtype)
+    jdt = getattr(jnp, dtype)
+    qp, kp = jnp.arange(s), jnp.arange(t)
+
+    def blockwise(a, b_, c):
+        return jax_attention.blockwise_sdpa(a, b_, c, qp, kp, window, causal,
+                                            softcap, 64, 64)
+    _, vjp = jax.vjp(blockwise, _to_jax(qn, 2, jdt), _to_jax(kn, None, jdt),
+                     _to_jax(vn, None, jdt))
+    want = [_from_jax(g) for g in vjp(_to_jax(don, 2, jdt))]
+    out, lse = attention_ref(q, k, v, causal=causal, window=window,
+                             softcap=softcap, return_lse=True)
+    got = attention_bwd_ref(q, k, v, out, lse, do, causal=causal,
+                            window=window, softcap=softcap, q_chunk=64,
+                            kv_chunk=64)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == q.dtype and g.shape == w.shape, name
+        g = g.float().numpy()
+        if dtype == "float32":
+            np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-5,
+                                       err_msg=name)
+        else:
+            assert np.abs(g - w).max() <= 2e-2 * np.abs(w).max(), name
+
+
+@pytest.mark.parametrize("mask", list(BWD_MASKS))
+@pytest.mark.parametrize("softcap", [0.0, 2.0])
+def test_plain_lse_matches_the_jax_blockwise_forward(mask, softcap):
+    """The plain version's lse (whole and row-chunked) against the lse
+    `blockwise_sdpa`'s forward saves (fp32, 1e-5)."""
+    causal, window, s, t = BWD_MASKS[mask]
+    (qn, kn, vn, _), (q, k, v, _) = _bwd_inputs(32, s, t, "float32")
+    _, want = jax_attention._blockwise_fwd_impl(
+        _to_jax(qn, 2, jnp.float32), _to_jax(kn, None, jnp.float32),
+        _to_jax(vn, None, jnp.float32), jnp.arange(s), jnp.arange(t),
+        window, causal, softcap, 64, 64)
+    want = np.asarray(want).reshape(q.shape[:3])
+    for chunk in (0, 48):
+        _, lse = attention_ref(q, k, v, causal=causal, window=window,
+                               softcap=softcap, row_chunk=chunk,
+                               return_lse=True)
+        assert lse.dtype == torch.float32
+        np.testing.assert_allclose(lse.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("mask", list(BWD_MASKS))
+def test_softcap_plain_version_matches_jax_naive_sdpa(mask):
+    """`attention_ref(softcap=)` against the reference's `naive_sdpa` with
+    the same softcap (fp32, TOL), whole and row-chunked."""
+    causal, window, s, t = BWD_MASKS[mask]
+    (qn, kn, vn, _), (q, k, v, _) = _bwd_inputs(33, s, t, "float32")
+    want = jax_attention.naive_sdpa(
+        _to_jax(qn, 2, jnp.float32), _to_jax(kn, None, jnp.float32),
+        _to_jax(vn, None, jnp.float32), jnp.arange(s), jnp.arange(t),
+        window=window, causal=causal, softcap=2.0)
+    for chunk in (0, 48):
+        got = attention_ref(q, k, v, causal=causal, window=window,
+                            softcap=2.0, row_chunk=chunk)
+        np.testing.assert_allclose(got.numpy(), _from_jax(want),
+                                   **TOL["float32"])
+
+
+@pytest.mark.parametrize("hd", [48, 96, 20])
+def test_padded_head_dims_keep_the_softcap(hd):
+    """`_padded` scales q so that the kernel's scaled score is the unpadded
+    one, and so is its softcap: through the plain version it equals the
+    unpadded plain version with the same softcap (fp32)."""
+    _, (q, k, v) = _inputs(14, 2, 4, 2, 24, 24, hd, "float32")
+    for causal, window in ((True, 0), (True, 7), (False, 0)):
+        torch.testing.assert_close(
+            ops._padded(q, k, v, causal=causal, window=window, softcap=2.0),
+            attention_ref(q, k, v, causal=causal, window=window,
+                          softcap=2.0),
+            rtol=1e-6, atol=1e-6)
+
+
 @pytest.mark.parametrize("shapes,kw,err", [
     (((1, 2, 8, 48), (1, 2, 8, 48)), {}, "head_dim 48"),
     (((1, 2, 8, 96), (1, 2, 8, 96)), {}, "head_dim 96"),
@@ -239,12 +389,14 @@ def test_row_chunked_plain_version_equals_the_whole(s, t, causal, window,
     (((1, 2, 0, 32), (1, 2, 8, 32)), {}, "empty"),
     (((1, 2, 80, 32), (1, 2, 8, 32)), {"window": 16}, "see no key"),
     (((1, 2, 8, 32), (1, 2, 8, 32)), {"window": -1}, "window"),
+    (((1, 2, 8, 32), (1, 2, 8, 32)), {"softcap": -1.0}, "softcap"),
+    (((1, 2, 8, 32), (1, 2, 8, 32)), {"softcap": float("inf")}, "softcap"),
 ])
 def test_wrapper_checks(shapes, kw, err):
     q = torch.zeros(shapes[0])
     k = torch.zeros(shapes[1])
     with pytest.raises(ValueError, match=err):
-        ops._check(q, k, k, kw.get("window", 0))
+        ops._check(q, k, k, kw.get("window", 0), kw.get("softcap", 0.0))
 
 
 def test_wrapper_checks_dtype_and_strides():
@@ -319,7 +471,8 @@ echo built > "$out"
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     monkeypatch.setattr(_build, "_nvcc", lambda: nvcc)
     paths = _build.build_all()
-    names = {"flash_attention", "int8_matmul", "mlstm_scan", "ssm_scan"}
+    names = {"flash_attention", "flash_attention_bwd", "int8_matmul",
+             "mlstm_scan", "ssm_scan"}
     assert set(paths) == names
     assert all(p.read_text() == "built\n" for p in paths.values())
     calls = sorted(log.read_text().splitlines(), key=lambda c: c.split()[-1])

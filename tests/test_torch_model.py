@@ -122,8 +122,8 @@ def test_naive_sdpa_matches_jax(window, causal, softcap):
 
 
 def test_attention_softcap_on_cpu_matches_jax():
-    """A nonzero attention softcap has no kernel yet: on the CPU it takes
-    the plain `sdpa`, as the reference does."""
+    """A nonzero attention softcap on the CPU: the flash wrapper's plain
+    version with the softcap, against the reference's `sdpa`."""
     from repro.models.attention import attention_forward as jax_forward
     from repro.models.attention import attention_init
     from repro_torch.models.attention import attention_forward
@@ -137,6 +137,44 @@ def test_attention_softcap_on_cpu_matches_jax():
     got = attention_forward(params_from_numpy(jax.tree.map(np.asarray, jp),
                                               "cpu"), tcfg, torch.from_numpy(x))
     _close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("s", [256, 3072])
+def test_softcap_attention_layer_matches_jax_with_grads(s):
+    """stablelm's smoke attention layer with attn_logit_softcap 2.0, fp32,
+    one sequence of S rows: the output and the gradients of a random
+    projection of it, in every weight and in x, against the reference's
+    `attention_forward` (`naive_sdpa` at S = 256, `blockwise_sdpa` and its
+    custom VJP above 2048). Sums over 3072 rows in other orders: to 1e-5 of
+    each array's largest entry."""
+    from repro.models.attention import attention_forward as jax_forward
+    from repro.models.attention import attention_init
+    from repro_torch.models.attention import attention_forward
+    jcfg = get_smoke_config("stablelm-1.6b").scaled(
+        param_dtype="float32", attn_logit_softcap=2.0)
+    tcfg = registry.get_smoke_config("stablelm-1.6b").scaled(
+        param_dtype="float32", attn_logit_softcap=2.0)
+    jp = attention_init(jax.random.PRNGKey(2), jcfg)
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((1, s, jcfg.d_model), dtype=np.float32)
+    ct = rng.standard_normal((1, s, jcfg.d_model), dtype=np.float32)
+
+    def jax_loss(p, xx):
+        y = jax_forward(p, jcfg, xx)
+        return jnp.sum(y * ct), y
+    (_, want), (jg, jgx) = jax.value_and_grad(jax_loss, argnums=(0, 1),
+                                              has_aux=True)(jp, jnp.asarray(x))
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+    for leaf in tp.values():
+        leaf.requires_grad_()
+    xt = torch.from_numpy(x).requires_grad_()
+    got = attention_forward(tp, tcfg, xt)
+    (got * torch.from_numpy(ct)).sum().backward()
+    pairs = [(got.detach(), want), (xt.grad, jgx)] + [
+        (tp[name].grad, jg[name]) for name in sorted(jg)]
+    for g, w in pairs:
+        w = np.asarray(w, np.float32)
+        assert np.abs(g.numpy() - w).max() <= 1e-5 * np.abs(w).max()
 
 
 def test_forward_matches_jax(pair):

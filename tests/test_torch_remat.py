@@ -147,7 +147,9 @@ def _out_of_band(launches):
     """Stand-ins for the ssm_scan and flash launches: each allocates its
     outputs with `torch.empty` and writes them through numpy, unseen by
     autograd and by the remat policy, as a ctypes kernel does, and counts
-    itself; both go through the kernels' autograd Functions."""
+    itself; both go through the kernels' autograd Functions (flash's with
+    its lse, and autograd through the plain version in place of the
+    backward launch: the plain versions' own arithmetic)."""
     def ssm_launch(x, dt, b_t, c_t, a, d, h0):
         launches["ssm_scan"] += 1
         y = torch.empty(x.shape, dtype=x.dtype)
@@ -158,21 +160,33 @@ def _out_of_band(launches):
         h1.numpy()[...] = hr.numpy()
         return y, h1
 
-    def flash_launch(q, k, v, *, causal, window):
+    def flash_launch(q, k, v, *, causal, window, softcap):
         launches["flash_attention"] += 1
         out = torch.empty((q.shape[0], q.shape[2], q.shape[1], q.shape[3]),
                           dtype=q.dtype).transpose(1, 2)
+        lse = torch.empty(q.shape[:3])
         with torch.no_grad():
-            ref = attention_ref(q, k, v, causal=causal, window=window)
+            ref, ref_lse = attention_ref(q, k, v, causal=causal,
+                                         window=window, softcap=softcap,
+                                         return_lse=True)
         out.numpy()[...] = ref.numpy()
-        return out
+        lse.numpy()[...] = ref_lse.numpy()
+        return out, lse
+
+    def flash_bwd(q, k, v, out, lse, dout, *, causal, window, softcap):
+        xs = [t.detach().requires_grad_() for t in (q, k, v)]
+        with torch.enable_grad():
+            ref = attention_ref(*xs, causal=causal, window=window,
+                                softcap=softcap)
+        return torch.autograd.grad(ref, xs, dout)
 
     def ssm_scan(x, dt, b_t, c_t, a, d, h0=None):
         return ssm_ops._SSMScan.apply(ssm_launch, x, dt, b_t, c_t, a, d, h0)
 
-    def flash(q, k, v, *, causal=True, window=0):
-        return flash_ops._FlashAttention.apply(flash_launch, causal, window,
-                                               q, k, v)
+    def flash(q, k, v, *, causal=True, window=0, softcap=0.0):
+        return flash_ops._FlashAttention.apply(flash_launch, flash_bwd,
+                                               causal, window, softcap, q, k,
+                                               v)
     return ssm_scan, flash
 
 

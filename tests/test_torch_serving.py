@@ -132,7 +132,7 @@ def test_port_imports_neither_jax_nor_reference():
             "launch/serve.py", "launch/mesh.py",
             "parallel/compression.py"} <= {
         p.relative_to(pkg).as_posix() for p in files}
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "chip_smoke.py", ROOT / "chip_probes.py"]
     assert len(files) > 10
     for path in files:
         for name in _imports(path):

@@ -337,16 +337,26 @@ def test_the_production_plans_of_seamless_and_internvl2_execute(arch, kind):
 
 
 @pytest.mark.parametrize("arch, over, item", [
-    ("stablelm-1.6b", {"attn_logit_softcap": 50.0},
-     "attention logit softcapping"),
-    ("seamless-m4t-medium", {"attn_logit_softcap": 50.0},
-     "attention logit softcapping"),
     ("internvl2-2b", {"kind": "prefill"}, "a prefill step"),
     ("seamless-m4t-medium", {"kind": "decode"}, "a decode step")])
 def test_the_executing_rules_name_what_they_do_not_run(arch, over, item):
     with pytest.raises(NotImplementedError, match="ROADMAP A18") as err:
         _executing(arch, **over)
     assert item in str(err.value)
+
+
+@pytest.mark.parametrize("arch, mesh_shape", [
+    ("stablelm-1.6b", (4, 1)), ("seamless-m4t-medium", (2, 2))])
+def test_the_executing_rules_run_softcapping(arch, mesh_shape):
+    """Attention logit softcapping runs over many ranks: a rank's local
+    heads take the softcap as they are (the flash kernels carry it), so
+    the executing rules accept it, at the production plan's widths too."""
+    from repro_torch.launch import dryrun
+    rules = _executing(arch, mesh_shape, attn_logit_softcap=50.0)
+    assert rules.cfg.attn_logit_softcap == 50.0
+    full = _executing(arch, mesh_shape, smoke=False, seq_len=4096,
+                      attn_logit_softcap=50.0)
+    assert dryrun.executes(full)
 
 
 @pytest.mark.parametrize("arch, over", [
