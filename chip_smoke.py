@@ -701,6 +701,42 @@ def _flash_window_times(q, k, v, window: int) -> dict:
 MIXTRAL_TRAIN_LABEL = "mixtral training 2x2048"
 
 
+# The backward's training shapes beside mixtral's (phase 5c's attention
+# calls): (label, B, H, Hkv, S = T, q/k hd, v hd, window), all causal bf16.
+BWD_TRAIN_SHAPES = (
+    ("stablelm 2x32x2048x64", 2, 32, 32, 2048, 64, 64, 0),
+    ("gemma3 1x16(8)x2048x256 window 1024", 1, 16, 8, 2048, 256, 256, 1024),
+    ("gemma3 1x16(8)x2048x256 global", 1, 16, 8, 2048, 256, 256, 0),
+    ("MLA 1x128x2048x192, v padded from 128", 1, 128, 128, 2048, 192, 128,
+     0),
+    ("phi3 1x40(10)x2048x128", 1, 40, 10, 2048, 128, 128, 0),
+)
+
+
+def _sdpa_bwd(q, k, v, dout, window: int) -> dict:
+    """SDPA's backward alone on the backward's inputs, the library call
+    nearest the function: one forward (causal; a window shorter than S as
+    an explicit boolean mask, which computes the same function), then
+    `torch.autograd.grad` of its output with the graph kept, timed (CUDA
+    events), and the device kernels it ran (`_bwd_kernel_split`)."""
+    import torch.nn.functional as F
+    b, h, s, hd = q.shape
+    hkv, t = k.shape[1], k.shape[2]
+    xs = [x.detach().requires_grad_() for x in (q, k, v)]
+    kw = {"enable_gqa": True} if hkv != h else {}
+    if 0 < window < s:
+        qi = torch.arange(s, device=q.device)[:, None]
+        kj = torch.arange(t, device=q.device)[None, :]
+        kw["attn_mask"] = (kj <= qi) & ((qi - kj) < window)
+    else:
+        kw["is_causal"] = True
+    out = F.scaled_dot_product_attention(*xs, **kw)
+
+    def bwd():
+        return torch.autograd.grad(out, xs, dout, retain_graph=True)
+    return {"ms": cuda_ms(bwd, 10), "kernels_ms": _bwd_kernel_split(bwd)}
+
+
 def _bwd_cases() -> list:
     """The shapes `check_flash_backward` holds the backward at: (label, B,
     H, Hkv, S, T, q/k hd, v hd, causal, window, softcap, dtypes)."""
@@ -786,6 +822,7 @@ def _flash_bwd_times(q, k, v, dout, window: int) -> dict:
         return torch.autograd.grad(F.scaled_dot_product_attention(
             *xs, is_causal=True, **gqa), xs, dout)
     times = {
+        "path": ops.bwd_path(q.dtype, hd),
         "fwd_ms": cuda_ms(lambda: ops.flash_attention(q, k, v, **mask), 10),
         "fwd_bwd_ms": cuda_ms(fwd_bwd, 10),
         "ms": cuda_ms(bwd, 10),
@@ -796,6 +833,9 @@ def _flash_bwd_times(q, k, v, dout, window: int) -> dict:
         "recompute_fwd_bwd_ms": cuda_ms(recompute, 1, warmup=1),
     }
     times["kernels_ms"] = _bwd_kernel_split(bwd)
+    sdpa_bwd = _sdpa_bwd(q, k, v, dout, window)
+    times["library_ms"] = sdpa_bwd["ms"]
+    times["library_kernels_ms"] = sdpa_bwd["kernels_ms"]
     flops, nbytes, _ = ops.bwd_cost(q, k, v, **mask)
     t_ops, t_bytes = flops / PEAK_FLOPS[q.dtype], nbytes / PEAK_BYTES_PER_S
     times.update(
@@ -805,7 +845,8 @@ def _flash_bwd_times(q, k, v, dout, window: int) -> dict:
         bound_by="operations" if t_ops >= t_bytes else "bytes",
         flops=flops, bytes=nbytes)
     times["share_of_bound"] = times["bound_ms"] / times["ms"]
-    log(f"[kernels] flash_attention backward at {times['shape']}: forward "
+    log(f"[kernels] flash_attention backward ({times['path']}) at "
+        f"{times['shape']}: forward "
         f"{times['fwd_ms']:.4f} ms, forward + backward "
         f"{times['fwd_bwd_ms']:.4f} ms, backward alone {times['ms']:.4f} ms "
         f"a call and {times['alone_ms']:.4f} ms on the card alone, bound "
@@ -815,8 +856,50 @@ def _flash_bwd_times(q, k, v, dout, window: int) -> dict:
         f"causal without the window {times['sdpa_fwd_bwd_ms']:.4f} ms; the "
         f"recompute backward (forward kernel + autograd through "
         f"attention_ref) {times['recompute_fwd_bwd_ms']:.4f} ms once; its "
-        f"kernels' device ms in one call {times['kernels_ms']}")
+        f"kernels' device ms in one call {times['kernels_ms']}; SDPA's "
+        f"backward alone {times['library_ms']:.4f} ms, its kernels "
+        f"{times['library_kernels_ms']}")
     return times
+
+
+def _bwd_train_shape_times(gen) -> dict:
+    """The backward at each BWD_TRAIN_SHAPES shape: its design
+    (`ops.bwd_path`), ms a call and on the card alone, each kernel's device
+    ms, the bound (`ops.bwd_cost`) and its share, and SDPA's backward
+    alone (`_sdpa_bwd`)."""
+    from repro_torch.kernels.flash_attention import ops
+    out = {}
+    for label, b, h, hkv, s, hd, v_hd, window in BWD_TRAIN_SHAPES:
+        q, k, v, dout = _bwd_case_inputs(gen, b, h, hkv, s, s, hd, v_hd,
+                                         torch.bfloat16)
+        mask = {"causal": True, "window": window, "softcap": 0.0}
+        o, lse = ops._launch(q, k, v, with_lse=True, **mask)
+
+        def bwd():
+            return ops._launch_bwd(q, k, v, o, lse, dout, **mask)
+        flops, nbytes, _ = ops.bwd_cost(q, k, v, v_head_dim=v_hd, **mask)
+        t_ops = flops / PEAK_FLOPS[torch.bfloat16]
+        t_bytes = nbytes / PEAK_BYTES_PER_S
+        r = {"path": ops.bwd_path(q.dtype, hd), "ms": cuda_ms(bwd, 10),
+             "alone_ms": queued_ms(bwd), "kernels_ms": _bwd_kernel_split(bwd),
+             "bound_ms": max(t_ops, t_bytes) * 1e3,
+             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+             "flops": flops, "bytes": nbytes}
+        r["share_of_bound"] = r["bound_ms"] / r["ms"]
+        sdpa_bwd = _sdpa_bwd(q, k, v, dout, window)
+        r["library_ms"] = sdpa_bwd["ms"]
+        r["library_kernels_ms"] = sdpa_bwd["kernels_ms"]
+        log(f"[kernels] flash_attention backward ({r['path']}) at {label}: "
+            f"{r['ms']:.4f} ms a call, {r['alone_ms']:.4f} on the card "
+            f"alone, bound {r['bound_ms']:.4f} ({r['bound_by']}: {flops} "
+            f"flop, {nbytes} bytes; {r['share_of_bound']:.3f} of it); "
+            f"kernels {r['kernels_ms']}; SDPA's backward alone "
+            f"{r['library_ms']:.4f} ms, its kernels "
+            f"{r['library_kernels_ms']}")
+        out[label] = r
+        del q, k, v, dout, o, lse
+        release_memory()
+    return out
 
 
 def _bwd_kernel_split(call) -> dict:
@@ -955,11 +1038,18 @@ def check_flash_backward(gen) -> dict:
         "launches": None,
         "max_abs_err": err,
         **_flash_bwd_times(q, k, v, dout, window),
-        "library_ms": None,
         "cases": res,
+        # which design serves each dtype and head_dim on the card
+        "designs": {f"{str(dt)[6:]} {hd}": ops.bwd_path(dt, hd)
+                    for dt in (torch.float32, torch.bfloat16)
+                    for hd in ops.HEAD_DIMS},
     }
+    if entry["path"] == ops.SM90_PATH:
+        entry["source"] = ("src/repro_torch/kernels/flash_attention/csrc/"
+                           "flash_attention_bwd_sm90.cu")
     del q, k, v, dout
     release_memory()
+    entry["at_train_shapes"] = _bwd_train_shape_times(gen)
     entry["at_1x8192"] = _bwd_peak_8192(gen)
     return entry
 

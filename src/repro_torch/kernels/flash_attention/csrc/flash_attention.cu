@@ -65,7 +65,8 @@
 //     warp's rows in the q tile's shared memory and stores 16 bytes a
 //     thread. Every row start must be 16-byte aligned (the wrapper checks
 //     the pointers and strides and raises otherwise).
-//   wgmma, TMA and warp specialisation are the next step.
+//   The backward has taken the next step (wgmma fed by TMA, warp
+//   specialisation: flash_attention_bwd_sm90.cu); this forward has not.
 //
 // fp32: `flash_fwd_kernel`, the first design. The card-vs-CPU
 //   parity runs the model in fp32 and needs full fp32 products (no TF32),

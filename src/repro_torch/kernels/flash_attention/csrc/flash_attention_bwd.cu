@@ -17,9 +17,15 @@
 //      its heads in registers and needs no atomics.
 //   3. dQ, one block per (batch, head, q-tile) over the key tiles it reaches,
 //      as the forward does.
-// Every sum has one owner and a fixed order: the result is the same every
-// run. Masked entries take weight 0, as keys past T and rows past S do; a
-// row whose lse is -inf (it saw no key) takes weight 0 too, not NaN.
+// Here every sum has one owner and a fixed order: the result is the same
+// every run. Masked entries take weight 0, as keys past T and rows past S
+// do; a row whose lse is -inf (it saw no key) takes weight 0 too, not NaN.
+//
+// This design serves fp32 at every head_dim and bf16 at head_dim 32, 192
+// and 256. bf16 at 64 and 128 runs the single-pass wgmma + TMA backward of
+// flash_attention_bwd_sm90.cu (`dispatch_bwd` refuses it here), whose dQ is
+// a sum of fp32 reduce-adds in no fixed order: its last bits may differ
+// from run to run.
 //
 // What bounds it: five products a score (S, dP, dV, dK, dQ) against the
 // forward's two, so it is operations-bound wherever the forward is; at
@@ -905,10 +911,11 @@ cudaError_t dispatch_bwd(const BwdArgs& a, int dtype, cudaStream_t s) {
     }
   }
   if (dtype == 1) {
+    // Which design serves each head_dim is fixed by head_dim alone: 64 and
+    // 128 are flash_attention_bwd_sm90.cu's (its own C entry point; the
+    // wrapper routes by `ops.bwd_path`), the rest these kernels'.
     switch (a.D) {
       case 32: return tcb::launch_bwd<32>(a, s);
-      case 64: return tcb::launch_bwd<64>(a, s);
-      case 128: return tcb::launch_bwd<128>(a, s);
       case 192: return tcb::launch_bwd<192>(a, s);
       case 256: return tcb::launch_bwd<256>(a, s);
       default: return cudaErrorInvalidValue;

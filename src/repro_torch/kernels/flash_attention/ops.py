@@ -17,8 +17,13 @@ head_dim: MLA pads its values to it.
 
 Where autograd needs a gradient on the card, `_FlashAttention` runs the
 forward kernel with its log-sum-exp (lse) and saves (q, k, v, out, lse); its
-backward launches the backward kernels (delta, dK/dV, dQ), the reference's
-blockwise backward (`repro.models.attention._blockwise_bwd`) for the card.
+backward launches the backward kernels, the reference's blockwise backward
+(`repro.models.attention._blockwise_bwd`) for the card, in one of two
+designs fixed by dtype and head_dim (`bwd_path`): bf16 at head_dim 64 and
+128 the single-pass wgmma + TMA kernel (`csrc/flash_attention_bwd_sm90.cu`:
+row stats and a zeroed fp32 dQ accumulator, dK/dV/dQ, dQ cast), everything
+else the two-kernel design of `csrc/flash_attention_bwd.cu` (delta, dK/dV,
+dQ).
 Without a gradient the forward writes no lse. The plain versions of the
 pair are `ref.attention_ref(..., return_lse=True)` and
 `ref.attention_bwd_ref`.
@@ -49,8 +54,18 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128, 192, 256)
 # The paths each dtype takes on the card (chip_smoke.py names them); each
-# takes every head dim of HEAD_DIMS, forward and backward.
+# takes every head dim of HEAD_DIMS forward, and backward but where
+# `bwd_path` names the wgmma backward.
 PATHS = {torch.float32: "cuda-core fp32", torch.bfloat16: "mma.sync bf16"}
+# The backward's design by dtype and head_dim, fixed (no switch at run time):
+# bf16 at these head dims runs the wgmma + TMA kernel, one pass for dK, dV
+# and dQ (`csrc/flash_attention_bwd_sm90.cu`); the rest PATHS' kernels of
+# `csrc/flash_attention_bwd.cu`.
+BWD_SM90_HEAD_DIMS = (64, 128)
+SM90_PATH = "wgmma+TMA bf16"
+# q rows a tile of the wgmma backward: its row stats and dQ accumulator are
+# padded to a multiple of it
+SM90_BQ = 64
 # rows a block for the grid check below: the bf16 kernels' tiles of 64 or
 # 128 q rows (and the backward's 64 keys) are their grids' z axis, at most
 # 65535, and 64 keeps the check on the safe side (the fp32 kernels' tiles
@@ -82,6 +97,29 @@ def _bwd_entry():
                    + [i32, i32, ctypes.c_float, ptr])
     fn.restype = i32
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _sm90_entry():
+    """The wgmma + TMA backward's C entry point and its last tensor-map
+    encoding's CUresult."""
+    lib = _build.load("flash_attention_bwd_sm90")
+    fn = lib.repro_flash_attention_bwd_sm90
+    i32, ptr = ctypes.c_int, ctypes.c_void_p
+    fn.argtypes = ([ptr] * 11 + [i32] * 6 + [ptr] * 2
+                   + [i32, i32, ctypes.c_float, ptr])
+    fn.restype = i32
+    cu = lib.repro_flash_attention_bwd_sm90_cu_result
+    cu.restype = i32
+    return fn, cu
+
+
+def bwd_path(dtype: torch.dtype, hd: int) -> str:
+    """The design that computes the backward at `dtype` and `hd` on the
+    card."""
+    if dtype == torch.bfloat16 and hd in BWD_SM90_HEAD_DIMS:
+        return SM90_PATH
+    return PATHS[dtype]
 
 
 def _row_problem(name: str, x: torch.Tensor) -> Optional[str]:
@@ -172,41 +210,110 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def _bwd_buffers(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     """dq, dk, dv as (B,H|Hkv,S|T,hd) views of (B,S|T,H|Hkv,hd) tensors (the
-    layout of the inputs the model hands the kernel), and delta (B,H,S)
-    fp32."""
+    layout of the inputs the model hands the kernel), and the backward's
+    fp32 scratch: for the wgmma + TMA design (`bwd_path`) the row stats
+    (2,B,H,Sp) (lse log2(e), delta) and the dQ accumulator (B,H,Sp,hd), Sp
+    = S rounded up to 64; for the others delta (B,H,S)."""
     b, h, s, hd = q.shape
     hkv, t = k.shape[1], k.shape[2]
     dq = torch.empty((b, s, h, hd), dtype=q.dtype,
                      device=q.device).transpose(1, 2)
     dk, dv = (torch.empty((b, t, hkv, hd), dtype=q.dtype,
                           device=q.device).transpose(1, 2) for _ in range(2))
-    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    return dq, dk, dv, delta
+    f32 = {"dtype": torch.float32, "device": q.device}
+    if bwd_path(q.dtype, hd) == SM90_PATH:
+        sp = -(-s // SM90_BQ) * SM90_BQ
+        scratch = (torch.empty((2, b, h, sp), **f32),
+                   torch.empty((b, h, sp, hd), **f32))
+    else:
+        scratch = (torch.empty((b, h, s), **f32),)
+    return dq, dk, dv, scratch
+
+
+def _tma_geometry(x: torch.Tensor) -> tuple:
+    """The wgmma backward's TMA descriptor of a (B,H|Hkv,S|T,hd) bf16 view:
+    its dims innermost first (hd, rows, heads, batch) and the byte strides
+    of rows, heads and batch. An axis of length 1 is never stepped along,
+    so its stride is given as the byte span of the whole tensor (a multiple
+    of 16 that the encoder accepts whatever the view's own stride)."""
+    b, h, s, hd = x.shape
+    sb, sh, ss, _ = x.stride()
+    es = x.element_size()
+    span = -(-(b * h * s * hd * es) // 16) * 16
+    return (hd, s, h, b, ss * es if s > 1 else span,
+            sh * es if h > 1 else span, sb * es if b > 1 else span)
+
+
+def _tma_ready(x: torch.Tensor) -> torch.Tensor:
+    """`x`, or a contiguous copy where an axis longer than 1 has stride 0
+    (a broadcast view, which a TMA descriptor cannot describe)."""
+    if any(st == 0 and n > 1 for st, n in zip(x.stride(), x.shape)):
+        return x.contiguous()
+    return x
+
+
+def _sm90_args(q, k, v, out, lse, dout, dq, dk, dv, scratch, *, causal: bool,
+               window: int, softcap: float) -> tuple:
+    """The wgmma + TMA entry point's arguments but the stream: pointers,
+    shapes, the four TMA geometries (q, k, v, dout) and the element strides
+    of out, dout, dq, dk and dv as int64 arrays."""
+    b, h, s, hd = q.shape
+    hkv, t = k.shape[1], k.shape[2]
+    rows, acc = scratch
+    tma = (ctypes.c_int64 * 28)(*_tma_geometry(q), *_tma_geometry(k),
+                                *_tma_geometry(v), *_tma_geometry(dout))
+    strides = (ctypes.c_int64 * 15)(*out.stride()[:3], *dout.stride()[:3],
+                                    *dq.stride()[:3], *dk.stride()[:3],
+                                    *dv.stride()[:3])
+    return (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), rows.data_ptr(), acc.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, hkv, s, t, hd,
+            tma, strides, int(causal), int(window), float(softcap))
+
+
+def _mma_args(q, k, v, out, lse, dout, dq, dk, dv, delta, *, causal: bool,
+              window: int, softcap: float) -> tuple:
+    """`csrc/flash_attention_bwd.cu`'s entry point's arguments but the
+    stream."""
+    b, h, s, hd = q.shape
+    hkv, t = k.shape[1], k.shape[2]
+    return (_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, hkv, s, t, hd,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *out.stride()[:3], *dout.stride()[:3], *dq.stride()[:3],
+            *dk.stride()[:3], *dv.stride()[:3], int(causal), int(window),
+            float(softcap))
 
 
 def _launch_bwd(q, k, v, out, lse, dout, *, causal: bool, window: int,
                 softcap: float = 0.0):
-    """The backward kernels (delta, dK/dV, dQ: one call of the C entry
-    point) on the forward's checked inputs, its out and lse: (dq, dk, dv).
-    A `dout` the kernels cannot read by its strides is copied first."""
+    """The backward kernels (one call of the C entry point of the design
+    `bwd_path` names, three launches) on the forward's checked inputs, its
+    out and lse: (dq, dk, dv). A `dout` the kernels cannot read by its
+    strides is copied first."""
     if _row_problem("dout", dout):
         dout = dout.contiguous()
-    b, h, s, hd = q.shape
-    hkv, t = k.shape[1], k.shape[2]
-    dq, dk, dv, delta = _bwd_buffers(q, k, v)
-    bwd, (_, err_str) = _bwd_entry(), _entry()
+    mask = {"causal": causal, "window": window, "softcap": softcap}
+    dq, dk, dv, scratch = _bwd_buffers(q, k, v)
+    _, err_str = _entry()
+    sm90 = bwd_path(q.dtype, q.shape[-1]) == SM90_PATH
+    if sm90:
+        q, k, v, dout = (_tma_ready(x) for x in (q, k, v, dout))
+        fn, cu_result = _sm90_entry()
+        args = _sm90_args(q, k, v, out, lse, dout, dq, dk, dv, scratch,
+                          **mask)
+    else:
+        fn = _bwd_entry()
+        args = _mma_args(q, k, v, out, lse, dout, dq, dk, dv, *scratch,
+                         **mask)
     with torch.cuda.device(q.device):
-        err = bwd(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                  out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-                  delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                  dv.data_ptr(), b, h, hkv, s, t, hd,
-                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                  *out.stride()[:3], *dout.stride()[:3], *dq.stride()[:3],
-                  *dk.stride()[:3], *dv.stride()[:3], int(causal),
-                  int(window), float(softcap), _stream(q.device))
+        err = fn(*args, _stream(q.device))
     if err:
+        detail = f", tensor-map CUresult {cu_result()}" if sm90 else ""
         raise RuntimeError(f"flash_attention backward launch failed: "
-                           f"{err_str(err).decode()} (cudaError {err})")
+                           f"{err_str(err).decode()} (cudaError {err}"
+                           f"{detail})")
     with _LAUNCHES_LOCK:
         flash_attention.bwd_launches += 1
     return dq, dk, dv
@@ -276,7 +383,7 @@ def _meta_launch_bwd(q, k, v, out, lse, dout, *, causal: bool, window: int,
     allocates it), its call recorded in the trace."""
     trace.record_kernel("flash_attention_bwd", bwd_cost(
         q, k, v, causal=causal, window=window, softcap=softcap))
-    dq, dk, dv, _ = _bwd_buffers(q, k, v)
+    dq, dk, dv, _ = _bwd_buffers(q, k, v)   # the scratch too, as the card
     return dq, dk, dv
 
 

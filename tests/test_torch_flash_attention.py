@@ -4,6 +4,8 @@ VJP of the reference's `blockwise_sdpa`, the wrapper's routing and checks,
 and the kernel build logic. The Hopper kernels themselves are held against
 the plain versions on the card by chip_smoke.py (phase 2,
 `check_flash_backward`)."""
+import math
+
 import jax
 import numpy as np
 import pytest
@@ -451,6 +453,185 @@ def test_paths_name_each_dtype():
                          torch.bfloat16: "mma.sync bf16"}
 
 
+# ------------------------------------------ the wgmma + TMA backward's host side
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", ops.HEAD_DIMS)
+def test_bwd_path_by_dtype_and_head_dim(dtype, hd):
+    """bf16 at head_dim 64 and 128 takes the single-pass wgmma + TMA
+    backward; fp32, and bf16 at 32, 192 and 256, the two-kernel design."""
+    want = (ops.SM90_PATH if dtype == torch.bfloat16 and hd in (64, 128)
+            else ops.PATHS[dtype])
+    assert ops.bwd_path(dtype, hd) == want
+
+
+def _bshd(b, s, h, hd, dtype=torch.bfloat16, device="cpu", pad=0):
+    """A (B,H,S,hd) view of a (B,S,H*hd+pad) tensor, as the model hands the
+    kernel its activations."""
+    x = torch.zeros(b, s, h * hd + pad, dtype=dtype, device=device)
+    return x[..., :h * hd].unflatten(-1, (h, hd)).transpose(1, 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", ops.HEAD_DIMS)
+def test_bwd_buffers_hold_the_designs_scratch(dtype, hd):
+    """dq, dk, dv in the inputs' (B,S,H,hd) layout; the wgmma design's
+    scratch is fp32 row stats (2,B,H,Sp) and a dQ accumulator (B,H,Sp,hd)
+    with Sp = S rounded up to 64 (ragged S = 200 -> 256); the other
+    design's is delta (B,H,S)."""
+    q = _bshd(2, 200, 8, hd, dtype, "meta")
+    k = _bshd(2, 130, 2, hd, dtype, "meta")
+    dq, dk, dv, scratch = ops._bwd_buffers(q, k, k)
+    assert dq.shape == q.shape and dk.shape == dv.shape == k.shape
+    assert dq.transpose(1, 2).is_contiguous()
+    assert dk.transpose(1, 2).is_contiguous()
+    assert {x.dtype for x in (dq, dk, dv)} == {dtype}
+    if ops.bwd_path(dtype, hd) == ops.SM90_PATH:
+        rows, acc = scratch
+        assert rows.shape == (2, 2, 8, 256) and acc.shape == (2, 8, 256, hd)
+        assert rows.is_contiguous() and acc.is_contiguous()
+        assert rows.dtype == acc.dtype == torch.float32
+    else:
+        (delta,) = scratch
+        assert delta.shape == (2, 8, 200) and delta.dtype == torch.float32
+
+
+@pytest.mark.parametrize("dtype,hd", [(torch.bfloat16, 64),
+                                      (torch.bfloat16, 128),
+                                      (torch.bfloat16, 256),
+                                      (torch.float32, 64)])
+def test_meta_backward_allocates_the_card_scratch(monkeypatch, dtype, hd):
+    """Under the dry run's trace the backward's `meta` path allocates the
+    card path's buffers through the one `_bwd_buffers` (the fp32 dQ
+    accumulator where the wgmma design runs), so the traced peak holds
+    them."""
+    from repro_torch.analysis import trace
+    made = []
+    real = ops._bwd_buffers
+
+    def recording(q, k, v):
+        out = real(q, k, v)
+        made.append([(tuple(x.shape), x.dtype) for x in (*out[:3], *out[3])])
+        return out
+    monkeypatch.setattr(ops, "_bwd_buffers", recording)
+    q = _bshd(1, 96, 4, hd, dtype, "meta").requires_grad_()
+    k, v = (_bshd(1, 96, 2, hd, dtype, "meta").requires_grad_()
+            for _ in range(2))
+
+    def step():
+        out = ops.flash_attention(q, k, v)
+        return torch.autograd.grad(out.float().sum(), (q, k, v))
+    res, _ = trace.analyze_trace(step)
+    want = [(tuple(x.shape), x.dtype) for x in (*real(q, k, v)[:3],
+                                                *real(q, k, v)[3])]
+    assert made == [want]
+    scratch = sum(math.prod(s) * (4 if d == torch.float32 else 2)
+                  for s, d in want[3:])
+    if ops.bwd_path(dtype, hd) == ops.SM90_PATH:
+        assert want[4] == ((1, 4, 128, hd), torch.float32)
+    assert res.peak_bytes >= scratch
+
+
+@pytest.mark.parametrize("b,s,h,hd,pad,want", [
+    # (hd, rows, heads, batch) and byte strides of rows, heads, batch
+    (2, 200, 8, 128, 0, (128, 200, 8, 2, 2 * 8 * 128, 2 * 128,
+                         2 * 200 * 8 * 128)),          # ragged S
+    (2, 130, 2, 64, 0, (64, 130, 2, 2, 2 * 2 * 64, 2 * 64,
+                        2 * 130 * 2 * 64)),            # keys: T != S
+    (1, 2048, 48, 128, 0, (128, 2048, 48, 1, 2 * 48 * 128, 2 * 128,
+                           2 * 2048 * 48 * 128)),      # batch 1: the span
+    (2, 64, 1, 64, 64, (64, 64, 1, 2, 2 * 128, 2 * 2 * 64 * 64,
+                        2 * 64 * 128)),                # one head, padded rows
+])
+def test_tma_geometry_of_the_bshd_views(b, s, h, hd, pad, want):
+    """The TMA descriptor of a (B,S,H,hd) tensor viewed as (B,H,S,hd):
+    dims innermost first and the byte strides of rows, heads and batch; an
+    axis of length 1 gets the tensor's byte span (a multiple of 16)."""
+    x = _bshd(b, s, h, hd, pad=pad)
+    got = ops._tma_geometry(x)
+    assert got == want
+    assert all(st % 16 == 0 for st in got[4:])
+
+
+def test_tma_ready_copies_only_broadcast_views():
+    x = _bshd(1, 16, 4, 64)
+    assert ops._tma_ready(x) is x
+    y = torch.zeros(1, 1, 16, 64, dtype=torch.bfloat16).expand(1, 4, 16, 64)
+    z = ops._tma_ready(y)
+    assert z is not y and z.stride(1) == 16 * 64 and torch.equal(z, y)
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("s,t", [(200, 200), (64, 160)])
+def test_sm90_args_take_the_tma_strides(hd, s, t):
+    """The bf16 wrapper hands the wgmma entry point the four TMA geometries
+    (q, k, v and a dout whose rows are padded), the element strides of out,
+    dout, dq, dk, dv, and the scratch's pointers."""
+    q, out = _bshd(2, s, 4, hd), _bshd(2, s, 4, hd)
+    dout = _bshd(2, s, 4, hd, pad=8)
+    k, v = _bshd(2, t, 2, hd), _bshd(2, t, 2, hd)
+    lse = torch.zeros(2, 4, s)
+    dq, dk, dv, scratch = ops._bwd_buffers(q, k, v)
+    args = ops._sm90_args(q, k, v, out, lse, dout, dq, dk, dv, scratch,
+                          causal=True, window=0, softcap=2.0)
+    rows, acc = scratch
+    assert args[:11] == tuple(x.data_ptr() for x in (
+        q, k, v, out, dout, lse, rows, acc, dq, dk, dv))
+    assert args[11:17] == (2, 4, 2, s, t, hd)
+    tma, strides = list(args[17]), list(args[18])
+    row = 2 * 4 * hd
+    assert tma[:7] == [hd, s, 4, 2, row, 2 * hd, row * s]
+    assert tma[7:14] == tma[14:21] == [hd, t, 2, 2, 2 * 2 * hd, 2 * hd,
+                                       2 * 2 * hd * t]
+    assert tma[21:] == [hd, s, 4, 2, row + 16, 2 * hd, (row + 16) * s]
+    assert strides == [s * 4 * hd, hd, 4 * hd,            # out
+                       s * (4 * hd + 8), hd, 4 * hd + 8,  # dout
+                       s * 4 * hd, hd, 4 * hd,            # dq
+                       t * 2 * hd, hd, 2 * hd,            # dk
+                       t * 2 * hd, hd, 2 * hd]            # dv
+    assert args[19:] == (1, 0, 2.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", ops.HEAD_DIMS)
+def test_launch_bwd_calls_the_designs_entry(monkeypatch, dtype, hd):
+    """`_launch_bwd` calls the entry point of the design `bwd_path` names,
+    once, and counts one backward launch; a failing call raises (no
+    fallback). Meta tensors and stub entry points stand in for the card."""
+    import contextlib
+    calls = []
+
+    def entry(name, rc=0):
+        def fn(*args):
+            calls.append((name, len(args)))
+            return rc
+        return fn
+    monkeypatch.setattr(ops, "_sm90_entry",
+                        lambda: (entry("sm90"), lambda: 0))
+    monkeypatch.setattr(ops, "_bwd_entry", lambda: entry("mma"))
+    monkeypatch.setattr(ops, "_entry", lambda: (None, lambda e: b"stub"))
+    monkeypatch.setattr(ops, "_stream", lambda device: 0)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda device: contextlib.nullcontext())
+    q, out, dout = (_bshd(1, 80, 4, hd, dtype, "meta") for _ in range(3))
+    k, v = (_bshd(1, 80, 2, hd, dtype, "meta") for _ in range(2))
+    lse = torch.empty(1, 4, 80, device="meta")
+    before = flash_attention.bwd_launches
+    dq, dk, dv = ops._launch_bwd(q, k, v, out, lse, dout, causal=True,
+                                 window=0)
+    assert (dq.shape, dk.shape, dv.shape) == (q.shape, k.shape, v.shape)
+    sm90 = ops.bwd_path(dtype, hd) == ops.SM90_PATH
+    assert calls == [("sm90", 23) if sm90 else ("mma", 45)]   # stream last
+    assert flash_attention.bwd_launches == before + 1
+    flash_attention.bwd_launches = before
+    monkeypatch.setattr(ops, "_sm90_entry",
+                        lambda: (entry("sm90", 1), lambda: 1))
+    monkeypatch.setattr(ops, "_bwd_entry", lambda: entry("mma", 1))
+    with pytest.raises(RuntimeError, match="backward launch failed"):
+        ops._launch_bwd(q, k, v, out, lse, dout, causal=True, window=0)
+    assert flash_attention.bwd_launches == before
+
+
 # ---------------------------------------------------------------- the build
 
 def _fake_nvcc(path, body):
@@ -471,8 +652,9 @@ echo built > "$out"
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     monkeypatch.setattr(_build, "_nvcc", lambda: nvcc)
     paths = _build.build_all()
-    names = {"flash_attention", "flash_attention_bwd", "int8_matmul",
-             "mlstm_scan", "ssm_scan"}
+    names = {"flash_attention", "flash_attention_bwd",
+             "flash_attention_bwd_sm90", "int8_matmul", "mlstm_scan",
+             "ssm_scan"}
     assert set(paths) == names
     assert all(p.read_text() == "built\n" for p in paths.values())
     calls = sorted(log.read_text().splitlines(), key=lambda c: c.split()[-1])
