@@ -32,6 +32,19 @@ a kernel or a measurement that does not need the whole run.
         (`ops.bwd_cost`); SDPA's backward alone; the largest |change -
         parent| of dq, dk and dv. Prints one `ABBWD {...}` line a shape.
 
+    python3 chip_probes.py ab-forward PARENT
+        The flash forward of the parent checkout PARENT (its
+        csrc/flash_attention.cu, built here with this tree's nvcc flags and
+        loaded beside this tree's kernels) against this tree's (`ops._launch`,
+        the design `ops.fwd_path` names), in one process on one card, bf16,
+        causal, at each of FWD_AB_SHAPES: in turn parent, change, change,
+        parent, each ms a call (CUDA events, the host's descriptor encoding
+        included) and on the card alone (`queued_ms`); the bound
+        (`ops.cost`) and its share; SDPA on the card alone (causal, GQA; a
+        window as a boolean mask over k, v expanded to the query heads); the
+        largest |change - parent| of out and lse. Prints one `ABFWD {...}`
+        line a shape.
+
 Exits 1 without a card, as chip_smoke.py does.
 """
 from __future__ import annotations
@@ -157,6 +170,122 @@ def ab_backward(parent: str) -> None:
         cs.release_memory()
 
 
+# (label, B, H, Hkv, S = T, q/k hd, v hd, window) of the forward's A/B, all
+# causal bf16: the serve and train paths' shapes (phases 4-4g, 5c)
+FWD_AB_SHAPES = (
+    ("stablelm 2x32x2048x64", 2, 32, 32, 2048, 64, 64, 0),
+    ("FrontDoor wave 2x32x64x64", 2, 32, 32, 64, 64, 64, 0),
+    ("jamba 2x64(8)x2048x128", 2, 64, 8, 2048, 128, 128, 0),
+    ("mixtral 1x48(8)x8192x128 window 4096", 1, 48, 8, 8192, 128, 128,
+     4096),
+    ("gemma3 1x16(8)x8192x256 window 1024", 1, 16, 8, 8192, 256, 256, 1024),
+    ("gemma3 1x16(8)x2048x256 global", 1, 16, 8, 2048, 256, 256, 0),
+    ("MLA 2x128x2048x192, v padded from 128", 2, 128, 128, 2048, 192, 128,
+     0),
+    ("phi3 1x40(10)x2048x128 (5c)", 1, 40, 10, 2048, 128, 128, 0),
+)
+
+
+def _parent_forward(parent: str):
+    """The parent's forward C entry point, built from its own
+    csrc/flash_attention.cu and headers with this tree's flags into
+    build/ab_parent/, as a function of (q, k, v, **mask) -> (out, lse)."""
+    import ctypes
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import ops
+    kernels = Path(parent).resolve() / "src" / "repro_torch" / "kernels"
+    src = kernels / "flash_attention" / "csrc" / "flash_attention.cu"
+    out = ROOT / "build" / "ab_parent" / "libflash_attention_parent.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I",
+                    str(kernels / "include"), "-o", str(out), str(src)],
+                   check=True, capture_output=True, text=True, timeout=600)
+    fn = ctypes.CDLL(str(out)).repro_flash_attention_fwd
+    i32, i64, ptr = ctypes.c_int, ctypes.c_int64, ctypes.c_void_p
+    fn.argtypes = ([i32] + [ptr] * 5 + [i32] * 6 + [i64] * 12
+                   + [i32, i32, ctypes.c_float, ptr])
+    fn.restype = i32
+
+    def fwd(q, k, v, *, causal, window, softcap):
+        b, h, s, hd = q.shape
+        hkv, t = k.shape[1], k.shape[2]
+        o = torch.empty((b, s, h, hd), dtype=q.dtype,
+                        device=q.device).transpose(1, 2)
+        lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+        err = fn(ops._DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
+                 v.data_ptr(), o.data_ptr(), lse.data_ptr(), b, h, hkv, s, t,
+                 hd, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                 *o.stride()[:3], int(causal), int(window), float(softcap),
+                 ops._stream(q.device))
+        if err:
+            raise RuntimeError(f"the parent's forward failed: cudaError {err}")
+        return o, lse
+    return fwd
+
+
+def _sdpa_alone(cs, q, k, v, v_hd: int, window: int) -> float:
+    """SDPA on the card alone on q, k and the unpadded v: causal (GQA), or
+    the window as a boolean mask over k, v expanded to the query heads."""
+    import torch
+    import torch.nn.functional as F
+    b, h, s, _ = q.shape
+    hkv = k.shape[1]
+    v = v[..., :v_hd]
+    if not window:
+        return cs.queued_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=hkv != h))
+    i = torch.arange(s, device=q.device)
+    mask = (i[None, :] <= i[:, None]) & ((i[:, None] - i[None, :]) < window)
+    kx, vx = (x.repeat_interleave(h // hkv, dim=1) for x in (k, v))
+    return cs.queued_ms(lambda: F.scaled_dot_product_attention(
+        q, kx, vx, attn_mask=mask))
+
+
+def ab_forward(parent: str) -> None:
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops
+    _card(cs)
+    cs.build_report()
+    old = _parent_forward(parent)
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 29)
+    bf16 = torch.bfloat16
+    for label, b, h, hkv, s, hd, v_hd, window in FWD_AB_SHAPES:
+        q, k, v = cs._attn_inputs(gen, b, h, hkv, s, s, hd, bf16)
+        if v_hd != hd:
+            v = F.pad(v[..., :v_hd], (0, hd - v_hd))
+        mask = {"causal": True, "window": window, "softcap": 0.0}
+        calls = {"parent": lambda: old(q, k, v, **mask),
+                 "change": lambda: ops._launch(q, k, v, with_lse=True,
+                                               **mask)}
+        got = {n: f() for n, f in calls.items()}
+        apart = {n: float((a.float() - b_.float()).abs().max())
+                 for n, a, b_ in zip(("out", "lse"), got["change"],
+                                     got["parent"])}
+        del got
+        times = {n: {"ms": [], "alone_ms": []} for n in calls}
+        for n in ("parent", "change", "change", "parent"):
+            times[n]["ms"].append(cs.cuda_ms(calls[n], 20))
+            times[n]["alone_ms"].append(cs.queued_ms(calls[n]))
+        flops, nbytes, _ = ops.cost(q, k, v, v_head_dim=v_hd, **mask)
+        bound = max(flops / cs.PEAK_FLOPS[bf16],
+                    nbytes / cs.PEAK_BYTES_PER_S) * 1e3
+        sdpa = _sdpa_alone(cs, q, k, v, v_hd, window)
+        print("ABFWD", json.dumps({
+            "shape": label, "path": ops.fwd_path(bf16, hd),
+            "bound_ms": bound, "flops": flops, "bytes": nbytes,
+            **{n: dict(t, share_of_bound=[bound / m for m in t["alone_ms"]])
+               for n, t in times.items()},
+            "sdpa_alone_ms": sdpa,
+            "change_over_sdpa": [m / sdpa for m in times["change"]["alone_ms"]],
+            "change_minus_parent": apart}), flush=True)
+        del q, k, v
+        cs.release_memory()
+
+
 def train_steps(root: str) -> None:
     """The A/B steps of one checkout, in this process."""
     sys.path[:0] = [str(Path(root) / "src"), root]
@@ -200,6 +329,10 @@ def main(argv: list) -> int:
     if argv[:1] == ["ab-backward"] and len(argv) == 2:
         sys.path.insert(0, str(ROOT / "src"))
         ab_backward(argv[1])
+        return 0
+    if argv[:1] == ["ab-forward"] and len(argv) == 2:
+        sys.path.insert(0, str(ROOT / "src"))
+        ab_forward(argv[1])
         return 0
     if argv[:1] == ["ab-train"] and len(argv) > 1:
         return ab_train(argv[1:])

@@ -485,57 +485,84 @@ def _err_within(label, got, want, tol) -> float:
 
 def check_flash_attention(gen):
     from repro_torch.kernels.flash_attention import attention_ref, flash_attention
-    from repro_torch.kernels.flash_attention.ops import PATHS
-    cases = [  # (label, B, H, Hkv, S, T, hd, causal, window, dtypes)
-        *[(f"stablelm prefill S={s}", 2, 32, 32, s, s, 64, True, 0,
-           (torch.bfloat16,)) for s in (8, 64, 2048)],
-        ("GQA 4:1 window 64", 2, 8, 2, 256, 256, 64, True, 64,
+    from repro_torch.kernels.flash_attention import ops
+    bf16 = (torch.bfloat16,)
+    cases = [  # (label, B, H, Hkv, S, T, hd, causal, window, softcap, dtypes)
+        *[(f"stablelm prefill S={s}", 2, 32, 32, s, s, 64, True, 0, 0.0,
+           bf16) for s in (8, 64, 2048)],
+        ("GQA 4:1 window 64", 2, 8, 2, 256, 256, 64, True, 64, 0.0,
          (torch.float32, torch.bfloat16)),
-        ("non-causal S!=T", 1, 2, 2, 64, 256, 64, False, 0,
+        ("non-causal S!=T", 1, 2, 2, 64, 256, 64, False, 0, 0.0,
          (torch.float32, torch.bfloat16)),
-        ("MQA hd=128", 2, 4, 1, 128, 128, 128, True, 0,
+        ("MQA hd=128", 2, 4, 1, 128, 128, 128, True, 0, 0.0,
          (torch.float32, torch.bfloat16)),
-        ("ragged S=40 hd=32", 2, 4, 4, 40, 40, 32, True, 0,
+        ("ragged S=40 hd=32", 2, 4, 4, 40, 40, 32, True, 0, 0.0,
          (torch.float32, torch.bfloat16)),
-        ("one row S=1", 1, 4, 4, 1, 1, 64, True, 0,
+        ("one row S=1", 1, 4, 4, 1, 1, 64, True, 0, 0.0,
          (torch.float32, torch.bfloat16)),
         ("odd S=129 GQA 2:1 window 100", 1, 4, 2, 129, 129, 64, True, 100,
-         (torch.float32, torch.bfloat16)),
-        ("non-causal window 64 S<T", 1, 4, 4, 100, 160, 32, False, 64,
+         0.0, (torch.float32, torch.bfloat16)),
+        ("non-causal window 64 S<T", 1, 4, 4, 100, 160, 32, False, 64, 0.0,
          (torch.float32, torch.bfloat16)),
         (f"S stride H*hd+{FLASH_PAD} (views)", 2, 8, 2, 200, 200, 64, True, 0,
-         (torch.bfloat16,)),
+         0.0, bf16),
         ("jamba prefill GQA 8:1 hd=128", 2, 64, 8, 2048, 2048, 128, True, 0,
-         (torch.bfloat16,)),
+         0.0, bf16),
     ]
+    # the edges of the wgmma forward's 64-key tiles at hd 192 and 256, from
+    # a generator of their own: the checks after this one keep their draws
+    edges = [case for hd in (192, 256) for case in (
+            (f"odd S=129 GQA 2:1 window 100 hd={hd}", 1, 4, 2, 129, 129, hd,
+             True, 100, 0.0, bf16),
+            (f"non-causal S<T 100 over 160 hd={hd}", 1, 4, 4, 100, 160, hd,
+             False, 0, 0.0, bf16),
+            (f"one row S=1 hd={hd}", 1, 4, 4, 1, 1, hd, True, 0, 0.0, bf16),
+            (f"softcap 50 S=300 hd={hd}", 1, 4, 2, 300, 300, hd, True, 0,
+             50.0, bf16))]
+    edge_gen = torch.Generator(device="cuda").manual_seed(SEED + 31)
     main = jamba = None
-    for label, b, h, hkv, s, t, hd, causal, window, dtypes in cases:
+    for label, b, h, hkv, s, t, hd, causal, window, cap, dtypes, g in [
+            *((*c, gen) for c in cases), *((*c, edge_gen) for c in edges)]:
         for dt in dtypes:
             pad = FLASH_PAD if label.startswith("S stride") else 0
-            q, k, v = _attn_inputs(gen, b, h, hkv, s, t, hd, dt, pad)
+            q, k, v = _attn_inputs(g, b, h, hkv, s, t, hd, dt, pad)
             if pad and q.stride(2) != h * hd + pad:
                 raise AssertionError(f"{label}: q strides {q.stride()}")
-            out = flash_attention(q, k, v, causal=causal, window=window)
-            ref = attention_ref(q, k, v, causal=causal, window=window)
-            err = _err_within(f"flash_attention {label} {dt}", out, ref,
-                              TOL[dt])
+            mask = {"causal": causal, "window": window, "softcap": cap}
+            out = flash_attention(q, k, v, **mask)
+            ref, ref_lse = attention_ref(q, k, v, return_lse=True, **mask)
+            what = f"flash_attention {label} {dt}"
+            err = _err_within(what, out, ref, TOL[dt])
+            lse_err = _err_within(f"{what} lse",
+                                  ops._launch(q, k, v, with_lse=True,
+                                              **mask)[1],
+                                  ref_lse, FLASH_LSE_TOL)
             log(f"[kernels] flash_attention {label} {str(dt)[6:]} "
-                f"({PATHS[dt]}) B={b} H={h} Hkv={hkv} S={s} T={t} "
-                f"hd={hd} causal={causal} window={window}: max_abs_err={err} "
-                f"(tol {TOL[dt]}) ok")
+                f"({ops.fwd_path(dt, hd)}) B={b} H={h} Hkv={hkv} S={s} T={t} "
+                f"hd={hd} causal={causal} window={window} softcap={cap:g}: "
+                f"max_abs_err={err} (tol {TOL[dt]}), lse {lse_err} (tol "
+                f"{FLASH_LSE_TOL}) ok")
             if label == "stablelm prefill S=2048":
                 main = (q, k, v, err)
             elif label.startswith("jamba"):
                 jamba = (q, k, v, err)
 
     q, k, v, err = main
+    csrc = "src/repro_torch/kernels/flash_attention/csrc/"
+    designs = {f"{str(dt)[6:]} {hd}": ops.fwd_path(dt, hd)
+               for dt in (torch.float32, torch.bfloat16)
+               for hd in ops.HEAD_DIMS}
     entry = {
         "name": "flash_attention",
         "route": "cuda",
-        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "source": csrc + "flash_attention_fwd_sm90.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:27",
-        "path": PATHS[q.dtype],
-        "paths": {str(dt)[6:]: path for dt, path in PATHS.items()},
+        "path": ops.fwd_path(q.dtype, q.shape[-1]),
+        # the forward's two sources and the design of each (dtype, head_dim)
+        "sources": {
+            csrc + "flash_attention_fwd_sm90.cu": [ops.SM90_PATH],
+            csrc + "flash_attention.cu": list(ops.PATHS.values())},
+        "designs": designs,
         "launches": None,
         "max_abs_err": err,
         **_flash_times(q, k, v),
@@ -549,8 +576,8 @@ def _flash_times(q, k, v) -> dict:
     """Kernel, plain and SDPA ms of one causal call, its bound, the achieved
     rate and share of the bound, and the kernel/SDPA ratio."""
     from repro_torch.kernels.flash_attention import attention_ref, flash_attention
-    from repro_torch.kernels.flash_attention.ops import PATHS
     from repro_torch.kernels.flash_attention.ops import cost as flash_cost
+    from repro_torch.kernels.flash_attention.ops import fwd_path
     b, h, s, hd = q.shape
     hkv, t = k.shape[1], k.shape[2]
     kernel_ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True), 20)
@@ -564,7 +591,7 @@ def _flash_times(q, k, v) -> dict:
     times = {
         "shape": f"{str(q.dtype)[6:]} B={b} H={h} Hkv={hkv} S={s} T={t} "
                  f"hd={hd} causal",
-        "path": PATHS[q.dtype],
+        "path": fwd_path(q.dtype, hd),
         "ms": kernel_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
@@ -610,6 +637,7 @@ def check_flash_mixtral(gen) -> dict:
     query rows at a time; their times, bound and SDPA yardstick; whether
     the kernel skips the key tiles outside the window."""
     from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+    from repro_torch.kernels.flash_attention.ops import fwd_path
     h, hkv = MIXTRAL_HEADS
     out = {}
     for label, b, s in (("1x8192", 1, 8192), ("2x2048", 2, 2048)):
@@ -619,7 +647,8 @@ def check_flash_mixtral(gen) -> dict:
                             row_chunk=PLAIN_ROW_CHUNK)
         err = _err_within(f"flash_attention mixtral {label}", got, ref,
                           TOL[torch.bfloat16])
-        log(f"[kernels] flash_attention mixtral {label} bf16 B={b} H={h} "
+        log(f"[kernels] flash_attention mixtral {label} bf16 "
+            f"({fwd_path(torch.bfloat16, 128)}) B={b} H={h} "
             f"Hkv={hkv} S=T={s} hd=128 causal window={MIXTRAL_WINDOW}: "
             f"max_abs_err={err} (tol {TOL[torch.bfloat16]}) ok")
         out[label] = dict(_flash_window_times(q, k, v, MIXTRAL_WINDOW),
@@ -628,7 +657,7 @@ def check_flash_mixtral(gen) -> dict:
     long = out["1x8192"]
     log(f"[kernels] flash_attention skips the key tiles outside the window: "
         f"each q-tile's key range starts at max(0, q0 - window + 1) "
-        f"(flash_attention.cu, kv_lo); at 1x8192 window 4096 takes "
+        f"(flash_attention_fwd_sm90.cu, kv_lo); at 1x8192 window 4096 takes "
         f"{long['ms']:.4f} ms against {long['no_window_ms']:.4f} ms causal "
         f"without one ({long['ms'] / long['no_window_ms']:.3f}; valid pairs "
         f"{long['valid_pairs'] / long['no_window_pairs']:.3f})")
@@ -1125,8 +1154,8 @@ def check_flash_new_head_dims(gen) -> dict:
     internvl2, phi3, mistral-large, the trace waves). Times beside the bound
     and SDPA (the backends that take MLA's 192/128 heads named)."""
     from repro_torch.kernels.flash_attention import attention_ref, flash_attention
-    from repro_torch.kernels.flash_attention.ops import PATHS
     from repro_torch.kernels.flash_attention.ops import cost as flash_cost
+    from repro_torch.kernels.flash_attention.ops import fwd_path
     import torch.nn.functional as F
     bf16 = torch.bfloat16
     h, hkv = GEMMA3_HEADS
@@ -1141,7 +1170,8 @@ def check_flash_new_head_dims(gen) -> dict:
                             row_chunk=PLAIN_ROW_CHUNK)
         err = _err_within(f"flash_attention gemma3 {label}", got, ref,
                           TOL[bf16])
-        log(f"[kernels] flash_attention gemma3 {label} bf16 ({PATHS[bf16]}) "
+        log(f"[kernels] flash_attention gemma3 {label} bf16 "
+            f"({fwd_path(bf16, GEMMA3_HD)}) "
             f"B={b} H={h} Hkv={hkv} S=T={s} hd={GEMMA3_HD} causal "
             f"window={window}: max_abs_err={err} (tol {TOL[bf16]}) ok")
         times = (_flash_window_times(q, k, v, window) if window
@@ -1158,7 +1188,7 @@ def check_flash_new_head_dims(gen) -> dict:
         raise AssertionError("MLA flash: the padded output columns are not 0")
     ref = attention_ref(q, k, vp, causal=True, row_chunk=PLAIN_ROW_CHUNK)
     err = _err_within("flash_attention MLA", got, ref, TOL[bf16])
-    log(f"[kernels] flash_attention MLA bf16 ({PATHS[bf16]}) B={b} "
+    log(f"[kernels] flash_attention MLA bf16 ({fwd_path(bf16, MLA_QK)}) B={b} "
         f"H=Hkv={MLA_HEADS} S=T={s} q,k hd={MLA_QK} v {MLA_V} zero-padded "
         f"to {MLA_QK}: max_abs_err={err} (tol {TOL[bf16]}), padded columns "
         f"0 ok")
@@ -1208,7 +1238,7 @@ def check_flash_new_head_dims(gen) -> dict:
                               attention_ref(q, k, v, causal=causal,
                                             window=window), TOL[dt])
             log(f"[kernels] flash_attention {label} {str(dt)[6:]} "
-                f"({PATHS[dt]}) B={b} H={h_} Hkv={hkv_} S={s} T={t} hd={hd} "
+                f"({fwd_path(dt, hd)}) B={b} H={h_} Hkv={hkv_} S={s} T={t} hd={hd} "
                 f"causal={causal} window={window}: max_abs_err={err} (tol "
                 f"{TOL[dt]}) ok")
             if dt == f32:
@@ -1231,7 +1261,7 @@ def check_flash_new_head_dims(gen) -> dict:
         t_ops, t_bytes = flops / PEAK_FLOPS[bf16], nbytes / PEAK_BYTES_PER_S
         bound_ms = max(t_ops, t_bytes) * 1e3
         bound_by = "operations" if t_ops >= t_bytes else "bytes"
-        log(f"[kernels] flash_attention {label} bf16 ({PATHS[bf16]}) B={b} "
+        log(f"[kernels] flash_attention {label} bf16 ({fwd_path(bf16, hd)}) B={b} "
             f"H={h_} Hkv={hkv_} S={s} T={t} hd={hd} causal={causal}: "
             f"max_abs_err={err} (tol {TOL[bf16]}) ok; kernel {ms:.4f} ms, "
             f"sdpa {library_ms:.4f} ms (kernel / sdpa "
@@ -1333,6 +1363,7 @@ def check_flash_launch_shapes(gen) -> dict:
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import attention_ref, flash_attention
     from repro_torch.kernels.flash_attention.ops import cost as flash_cost
+    from repro_torch.kernels.flash_attention.ops import fwd_path
     out = {}
     for label, dt, b, h, hkv, s, t, hd, v_hd, causal, window in \
             _launch_flash_shapes():
@@ -1372,7 +1403,8 @@ def check_flash_launch_shapes(gen) -> dict:
         t_ops, t_bytes = flops / PEAK_FLOPS[dt], nbytes / PEAK_BYTES_PER_S
         bound_ms = max(t_ops, t_bytes) * 1e3
         bound_by = "operations" if t_ops >= t_bytes else "bytes"
-        log(f"[kernels] flash_attention {label} {str(dt)[6:]} B={b} H={h} "
+        log(f"[kernels] flash_attention {label} {str(dt)[6:]} "
+            f"({fwd_path(dt, hd)}) B={b} H={h} "
             f"Hkv={hkv} S={s} T={t} hd={hd} v hd={v_hd} causal={causal} "
             f"window={window}: max_abs_err={err} (tol {TOL[dt]}) ok; kernel "
             f"{ms:.4f} ms, sdpa" + (" (the window as a mask)" if window
@@ -4149,6 +4181,7 @@ def _sharded_rank(rank: int, world: int, backend: str, case: int,
     routes = _recording_routes(moe)
     q_scales = _recording_scales() if sc.compress else []
     wrapper.launches = wrapper.bwd_launches = 0
+    wrapper.launches_by_design = dict.fromkeys(wrapper.launches_by_design, 0)
     scan.launches = mlstm.launches = 0
     ends, per_step, held, norms = [], [], {}, []
 
@@ -4243,6 +4276,7 @@ def _sharded_rank(rank: int, world: int, backend: str, case: int,
         "worst_m_table": worst["m_table"],
         "worst_leaf_from_zero": worst["params_from_zero"],
         "flash_launches": wrapper.launches,
+        "flash_by_design": wrapper.launches_by_design,
         "flash_bwd_launches": wrapper.bwd_launches,
         "flash_heads": sorted(set(seen)), "flash_calls": len(seen),
         "ssm_launches": scan.launches, "ssm_calls": len(scan_seen),
@@ -4716,6 +4750,8 @@ def _check_sharded(case: int, ref: dict, ranks: list, mesh_shape: tuple,
             "one_card_max_memory": ref["max_memory_allocated"],
             "worst_leaf": max(r["worst_leaf"] for r in ranks),
             "flash_launches": sum(r["flash_launches"] for r in ranks),
+            "flash_by_design": {d: sum(r["flash_by_design"][d] for r in ranks)
+                                for d in ranks[0]["flash_by_design"]},
             "one_card_flash_launches": ref["flash_launches"],
             "flash_bwd_launches": sum(r["flash_bwd_launches"]
                                       for r in ranks),
@@ -5925,6 +5961,10 @@ def main() -> int:
     timed("parity new arches", check_new_archs_card_vs_cpu)
     timed("parity gemma3 chunked loss", check_gemma3_chunked_loss)
     release_memory()
+    # the forward's launches by design (`ops.fwd_path`) over the main paths
+    # of phases 4-10 in this process; the ranks of phase 10 count their own
+    by_design = _wrappers()["flash_attention"].launches_by_design
+    by_design.update(dict.fromkeys(by_design, 0))
     stablelm = timed("serve stablelm", serve_full_model, card)
     frontdoor = timed("serve frontdoor", serve_frontdoor, stablelm, card)
     stablelm_flash = stablelm["flash"]
@@ -6024,6 +6064,17 @@ def main() -> int:
                     r[f"one_card_{key}"]
     for entry in (flash, flash_bwd, ssm, mlstm):
         entry["launches"] = sum(entry["launches_by_path"].values())
+    flash["launches_by_design"] = {
+        d: n + sum(r["flash_by_design"][d] for r in sharded.values()
+                   if "flash_by_design" in r)
+        for d, n in by_design.items()}
+    log(f"[slice] flash_attention forward launches by design over phases "
+        f"4-10 (this process and the phase 10 ranks): "
+        f"{flash['launches_by_design']}")
+    from repro_torch.kernels.flash_attention.ops import SM90_PATH
+    if not flash["launches_by_design"][SM90_PATH]:
+        raise AssertionError("flash's wgmma forward never launched on a "
+                             "main path")
     if not flash_bwd["launches"]:
         raise AssertionError("flash's backward kernels never launched on a "
                              "main path")

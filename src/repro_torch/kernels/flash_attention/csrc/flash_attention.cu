@@ -17,8 +17,12 @@
 // fp32 (attention.py:139), written where the caller asks for it (training)
 // and not otherwise (serving).
 //
-// The backward, the reference's `_blockwise_bwd` (attention.py:153) written
-// for the card, is flash_attention_bwd.cu (the Pallas kernel has none).
+// bf16 at head_dim 64, 128, 192 and 256 runs the wgmma + TMA forward of
+// flash_attention_fwd_sm90.cu (`ops.fwd_path`); this file serves fp32 at
+// every head_dim and bf16 at 32. The backward, the reference's
+// `_blockwise_bwd` (attention.py:153) written for the card, is
+// flash_attention_bwd.cu and flash_attention_bwd_sm90.cu (the Pallas kernel
+// has none).
 //
 // What bounds it on the H100. At stablelm-1.6b prefill (B=2, H=32, S=2048,
 // hd=64, causal, bf16) the function does 34.4 GFLOP over the causal pairs
@@ -29,25 +33,21 @@
 //
 // Two designs, chosen by dtype in the C entry point:
 //
-// bf16: `flash_fwd_mma_kernel`, FlashAttention-2 in shape.
+// bf16 at hd 32: `flash_fwd_mma_kernel`, FlashAttention-2 in shape (a
+//   64-byte row is half of the 128-byte swizzled box the wgmma forward
+//   reads).
 //   - One block per (head, batch, q-tile of 128 rows); q-tiles are the
-//     slowest grid axis, longest causal tiles first. A warp owns whole rows
-//     (32 at hd 32 and 64, sharing each K and V fragment between two m16
-//     tiles; 16 at hd 128, 192 and 256), so row max and row sum stay in the
-//     warp (two quad shuffles); 2 blocks an SM at hd 64 and 128, one at 192
-//     (150 KB of shared memory) and 256 (198 KB). `Config` holds the tile
-//     shapes of each head dim. Head dims 192 (deepseek-v2's MLA queries and
-//     keys, nope 128 + rope 64; its 128-wide values come zero-padded) and
-//     256 (gemma3) keep a warp's output, HD/8 n-tiles of 16 rows, in 96 and
-//     128 fp32 registers a thread.
+//     slowest grid axis, longest causal tiles first. A warp owns 32 whole
+//     rows, sharing each K and V fragment between two m16 tiles, so row
+//     max and row sum stay in the warp (two quad shuffles). `Config` holds
+//     the tile shape.
 //   - q, K and V come in by cp.async, 16 bytes a thread, into shared rows
 //     padded by 16 bytes (ldmatrix's 8 row addresses then fall in 8
 //     distinct groups of 4 banks). K and V sit in a ring of 2 stages: the
 //     copy of tile j+1 is in flight while tile j is multiplied, and one
 //     barrier a tile both publishes tile j and frees the stage of j-1.
 //   - q moves into mma A fragments by ldmatrix.x4, once for the whole KV
-//     loop at hd 32 and 64, again at each k-step at hd 128 (registers
-//     for 2 blocks an SM). S = q K^T runs as
+//     loop. S = q K^T runs as
 //     mma.sync.m16n8k16 bf16 with fp32 accumulation, K's rows taken as the
 //     .col operand as they lie (ldmatrix.x4).
 //   - Masks are applied only on tiles that touch the causal diagonal, the
@@ -65,8 +65,8 @@
 //     warp's rows in the q tile's shared memory and stores 16 bytes a
 //     thread. Every row start must be 16-byte aligned (the wrapper checks
 //     the pointers and strides and raises otherwise).
-//   The backward has taken the next step (wgmma fed by TMA, warp
-//   specialisation: flash_attention_bwd_sm90.cu); this forward has not.
+//   The wider bf16 heads have taken the next step (wgmma fed by TMA, warp
+//   specialisation: flash_attention_fwd_sm90.cu).
 //
 // fp32: `flash_fwd_kernel`, the first design. The card-vs-CPU
 //   parity runs the model in fp32 and needs full fp32 products (no TF32),
@@ -317,36 +317,13 @@ namespace tc {
 
 using bf16 = __nv_bfloat16;
 
-// Tile shapes by head dim: each warp owns MI m16-tiles (16 MI whole rows),
-// a block WARPS warps (BQ = 16 MI WARPS q rows), a KV tile BKV keys. Q_REGS
-// keeps q's A fragments in registers for the whole KV loop; otherwise they
-// are read again from shared memory at each k-step (fewer registers).
-// MIN_BLOCKS blocks fit on an SM (registers capped to match). Chosen by
-// timing the alternatives on the H100 at stablelm's (hd 64) and jamba's
-// (hd 128) prefill shapes (PERF.md).
+// The tile shape: each warp owns MI m16-tiles (16 MI whole rows), a block
+// WARPS warps (BQ = 16 MI WARPS q rows), a KV tile BKV keys; q's A
+// fragments stay in registers for the whole KV loop. MIN_BLOCKS blocks fit
+// on an SM (registers capped to match).
 template <int HD> struct Config;
 template <> struct Config<32> {
   static constexpr int MI = 2, BKV = 64, WARPS = 4, MIN_BLOCKS = 1;
-  static constexpr bool Q_REGS = true;
-};
-template <> struct Config<64> {
-  static constexpr int MI = 2, BKV = 64, WARPS = 4, MIN_BLOCKS = 2;
-  static constexpr bool Q_REGS = true;
-};
-template <> struct Config<128> {
-  static constexpr int MI = 1, BKV = 64, WARPS = 8, MIN_BLOCKS = 2;
-  static constexpr bool Q_REGS = false;
-};
-// hd 192 (MLA's nope + rope) and 256 (gemma3): one block an SM. A warp's
-// 16 rows hold NO = HD/8 output n-tiles, 96 and 128 fp32 registers a
-// thread, beside BKV/2 of scores: q is read again at each k-step.
-template <> struct Config<192> {
-  static constexpr int MI = 1, BKV = 64, WARPS = 8, MIN_BLOCKS = 1;
-  static constexpr bool Q_REGS = false;
-};
-template <> struct Config<256> {
-  static constexpr int MI = 1, BKV = 64, WARPS = 8, MIN_BLOCKS = 1;
-  static constexpr bool Q_REGS = false;
 };
 
 template <int HD>
@@ -383,7 +360,6 @@ __global__ void __launch_bounds__(Layout<HD>::THREADS,
   static_assert(HD % 16 == 0, "head_dim must be a multiple of 16");
   using L = Layout<HD>;
   constexpr int MI = L::MI, BKV = L::BKV, BQ = L::BQ, LD = L::LD;
-  constexpr bool Q_REGS = Config<HD>::Q_REGS;
   constexpr int KSTEPS = HD / 16;   // k-steps of q K^T
   constexpr int NS = BKV / 8;       // n-tiles of S
   constexpr int NO = HD / 8;        // n-tiles of the output
@@ -431,7 +407,7 @@ __global__ void __launch_bounds__(Layout<HD>::THREADS,
   const int wrow = warp * 16 * MI;   // the warp's first row in the tile
   const int row_a = q0 + wrow + g;   // global row of c0/c1 in m-tile 0
   const bf16* Qw = Qs + wrow * LD;
-  uint32_t qf[Q_REGS ? MI : 1][Q_REGS ? KSTEPS : 1][4];
+  uint32_t qf[MI][KSTEPS][4];
   float o[MI][NO][4];
 #pragma unroll
   for (int i = 0; i < MI; ++i)
@@ -463,16 +439,14 @@ __global__ void __launch_bounds__(Layout<HD>::THREADS,
                     tid);
       repro_ptx::cp_async_commit();
     }
-    if constexpr (Q_REGS) {
-      if (it == 0) {
+    if (it == 0) {
 #pragma unroll
-        for (int i = 0; i < MI; ++i)
+      for (int i = 0; i < MI; ++i)
 #pragma unroll
-          for (int kk = 0; kk < KSTEPS; ++kk)
-            repro_ptx::ldmatrix_x4(
-                qf[i][kk], Qw + (i * 16 + (lane & 15)) * LD + kk * 16 +
-                               (lane >> 4) * 8);
-      }
+        for (int kk = 0; kk < KSTEPS; ++kk)
+          repro_ptx::ldmatrix_x4(
+              qf[i][kk], Qw + (i * 16 + (lane & 15)) * LD + kk * 16 +
+                             (lane >> 4) * 8);
     }
     // Under a causal mask a warp whose rows all lie before k0 sees no key
     // of this tile: its weights there are exactly 0, so it skips the math.
@@ -492,15 +466,9 @@ __global__ void __launch_bounds__(Layout<HD>::THREADS,
       for (int kk = 0; kk < KSTEPS; ++kk) {
         uint32_t qa[MI][4];
 #pragma unroll
-        for (int i = 0; i < MI; ++i) {
-          if constexpr (Q_REGS) {
+        for (int i = 0; i < MI; ++i)
 #pragma unroll
-            for (int e = 0; e < 4; ++e) qa[i][e] = qf[i][kk][e];
-          } else {
-            repro_ptx::ldmatrix_x4(qa[i], Qw + (i * 16 + (lane & 15)) * LD +
-                                              kk * 16 + (lane >> 4) * 8);
-          }
-        }
+          for (int e = 0; e < 4; ++e) qa[i][e] = qf[i][kk][e];
 #pragma unroll
         for (int np = 0; np < NS / 2; ++np) {
           uint32_t r[4];
@@ -660,15 +628,9 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// bf16 at hd 32 only: the wider heads are flash_attention_fwd_sm90.cu's.
 cudaError_t dispatch_head_dim(const Args& a, int hd, cudaStream_t stream) {
-  switch (hd) {
-    case 32: return launch<32>(a, stream);
-    case 64: return launch<64>(a, stream);
-    case 128: return launch<128>(a, stream);
-    case 192: return launch<192>(a, stream);
-    case 256: return launch<256>(a, stream);
-    default: return cudaErrorInvalidValue;
-  }
+  return hd == 32 ? launch<32>(a, stream) : cudaErrorInvalidValue;
 }
 
 }  // namespace tc
@@ -677,9 +639,9 @@ cudaError_t dispatch_head_dim(const Args& a, int hd, cudaStream_t stream) {
 
 extern "C" {
 
-// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores; every row
-// start 16-byte aligned). Strides are in elements, for the (B, H, S|T, hd)
-// view of each tensor; the hd axis has stride 1. `lse` (B, H, S) fp32 is
+// dtype: 0 = float32 (CUDA cores, hd 32 to 256), 1 = bfloat16 (tensor
+// cores, hd 32; every row start 16-byte aligned). Strides are in elements,
+// for the (B, H, S|T, hd) view of each tensor; the hd axis has stride 1. `lse` (B, H, S) fp32 is
 // written where it is not null; softcap > 0 caps the scaled scores.
 // Returns cudaGetLastError() after the launch (0 on success).
 int repro_flash_attention_fwd(

@@ -500,58 +500,6 @@ __global__ void __launch_bounds__(256) flash_bwd_sm90_dq_kernel(DqArgs p) {
   }
 }
 
-// cuTensorMapEncodeTiled from libcuda, reached through the CUDA runtime's
-// entry-point query (no -lcuda at link time).
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-int g_last_cu_result = 0;   // the last encode's CUresult, for the message
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = []() -> EncodeTiled {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    return err == cudaSuccess && q == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// A 4-D bf16 tensor map over (hd, rows, heads, batch): geometry g = those 4
-// dims, then the byte strides of rows, heads and batch; boxes of 64
-// columns by `box_rows` rows, 128-byte swizzled, zero fill out of bounds.
-cudaError_t encode(CUtensorMap* map, const void* ptr, const int64_t* g,
-                   int box_rows) {
-  const EncodeTiled fn = encode_tiled();
-  if (!fn) return cudaErrorNotSupported;
-  const cuuint64_t dims[4] = {cuuint64_t(g[0]), cuuint64_t(g[1]),
-                              cuuint64_t(g[2]), cuuint64_t(g[3])};
-  const cuuint64_t strides[3] = {cuuint64_t(g[4]), cuuint64_t(g[5]),
-                                 cuuint64_t(g[6])};
-  const cuuint32_t box[4] = {64, cuuint32_t(box_rows), 1, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                        const_cast<void*>(ptr), dims, strides, box, elem,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  g_last_cu_result = int(r);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 template <int HD>
 cudaError_t launch_sm90(const void* q, const void* k, const void* v,
                         const PrepArgs& prep, Sm90Args a, const DqArgs& dq,
@@ -568,10 +516,11 @@ cudaError_t launch_sm90(const void* q, const void* k, const void* v,
   if (attr[0] != cudaSuccess) return attr[0];
   if (attr[1] != cudaSuccess) return attr[1];
   CUtensorMap tm_q, tm_k, tm_v, tm_do;
-  cudaError_t err = encode(&tm_q, q, tma, kBQ);
-  if (err == cudaSuccess) err = encode(&tm_k, k, tma + 7, kBK);
-  if (err == cudaSuccess) err = encode(&tm_v, v, tma + 14, kBK);
-  if (err == cudaSuccess) err = encode(&tm_do, prep.dout, tma + 21, kBQ);
+  cudaError_t err = encode_tma_4d(&tm_q, q, tma, kBQ);
+  if (err == cudaSuccess) err = encode_tma_4d(&tm_k, k, tma + 7, kBK);
+  if (err == cudaSuccess) err = encode_tma_4d(&tm_v, v, tma + 14, kBK);
+  if (err == cudaSuccess)
+    err = encode_tma_4d(&tm_do, prep.dout, tma + 21, kBQ);
   if (err != cudaSuccess) return err;
   const int64_t rows = int64_t(prep.B) * prep.H * prep.Sp;
   flash_bwd_sm90_prep_kernel<HD>
@@ -633,6 +582,8 @@ int repro_flash_attention_bwd_sm90(
 }
 
 // The CUresult of the last tensor-map encoding (0: CUDA_SUCCESS).
-int repro_flash_attention_bwd_sm90_cu_result() { return g_last_cu_result; }
+int repro_flash_attention_bwd_sm90_cu_result() {
+  return repro_sm90::g_last_cu_result;
+}
 
 }  // extern "C"

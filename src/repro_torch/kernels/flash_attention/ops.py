@@ -2,17 +2,20 @@
 
 A CPU tensor goes to the plain version (`ref.attention_ref`, under
 autograd where a gradient is wanted). A CUDA tensor launches the Hopper
-kernels (`csrc/flash_attention.cu`, and `csrc/flash_attention_bwd.cu` for
-the gradient) or raises: there is no fallback on the card. bf16 runs on
-the tensor cores (`mma.sync`, every row start 16-byte aligned for its
-`cp.async` copies), fp32 on the CUDA cores, each at head_dim 32, 64, 128,
-192 (MLA's queries and keys) and 256 (gemma3). A smaller head_dim between
-these (deepseek's smoke MLA, 48) is zero-padded on the card to the next
-one, q scaled to keep the softmax scale 1/sqrt(head_dim), and the output
-cropped back (`_padded`); one above 256 raises. q, k and v share one
-head_dim: MLA pads its values to it.
+kernels or raises: there is no fallback on the card. The forward's design
+is fixed by dtype and head_dim (`fwd_path`): bf16 at head_dim 64, 128, 192
+(MLA's queries and keys) and 256 (gemma3) runs the wgmma + TMA kernel
+(`csrc/flash_attention_fwd_sm90.cu`: a producer warp, two consumer
+warpgroups, FlashAttention-3's shape); bf16 at 32 runs `mma.sync` and fp32
+the CUDA cores (`csrc/flash_attention.cu`, every row start 16-byte aligned
+for its `cp.async` copies). A smaller head_dim between these (deepseek's
+smoke MLA, 48) is zero-padded on the card to the next one, q scaled to keep
+the softmax scale 1/sqrt(head_dim), and the output cropped back
+(`_padded`); one above 256 raises. q, k and v share one head_dim: MLA pads
+its values to it.
 `softcap` > 0 caps the scaled scores, c tanh(s / c), before the mask.
 `flash_attention.launches` counts forward launches,
+`flash_attention.launches_by_design` the same by `fwd_path`,
 `flash_attention.bwd_launches` backward ones.
 
 Where autograd needs a gradient on the card, `_FlashAttention` runs the
@@ -53,10 +56,15 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128, 192, 256)
-# The paths each dtype takes on the card (chip_smoke.py names them); each
-# takes every head dim of HEAD_DIMS forward, and backward but where
-# `bwd_path` names the wgmma backward.
+# The designs of `csrc/flash_attention.cu` and `csrc/flash_attention_bwd.cu`
+# by dtype (chip_smoke.py names them); each takes every head dim of
+# HEAD_DIMS but where `fwd_path` or `bwd_path` names the wgmma design.
 PATHS = {torch.float32: "cuda-core fp32", torch.bfloat16: "mma.sync bf16"}
+# The forward's design by dtype and head_dim, fixed (no switch at run time):
+# bf16 at these head dims runs the wgmma + TMA kernel
+# (`csrc/flash_attention_fwd_sm90.cu`); bf16 at 32 (a 64-byte row, half a
+# 128-byte swizzled box) and fp32 (full fp32 products) PATHS' kernels.
+FWD_SM90_HEAD_DIMS = (64, 128, 192, 256)
 # The backward's design by dtype and head_dim, fixed (no switch at run time):
 # bf16 at these head dims runs the wgmma + TMA kernel, one pass for dK, dV
 # and dQ (`csrc/flash_attention_bwd_sm90.cu`); the rest PATHS' kernels of
@@ -89,6 +97,20 @@ def _entry():
 
 
 @functools.lru_cache(maxsize=None)
+def _fwd_sm90_entry():
+    """The wgmma + TMA forward's C entry point and its last tensor-map
+    encoding's CUresult."""
+    lib = _build.load("flash_attention_fwd_sm90")
+    fn = lib.repro_flash_attention_fwd_sm90
+    i32, ptr = ctypes.c_int, ctypes.c_void_p
+    fn.argtypes = [ptr] * 5 + [i32] * 6 + [ptr, i32, i32, ctypes.c_float, ptr]
+    fn.restype = i32
+    cu = lib.repro_flash_attention_fwd_sm90_cu_result
+    cu.restype = i32
+    return fn, cu
+
+
+@functools.lru_cache(maxsize=None)
 def _bwd_entry():
     """The backward's C entry point (its own source, built with the rest)."""
     fn = _build.load("flash_attention_bwd").repro_flash_attention_bwd
@@ -112,6 +134,14 @@ def _sm90_entry():
     cu = lib.repro_flash_attention_bwd_sm90_cu_result
     cu.restype = i32
     return fn, cu
+
+
+def fwd_path(dtype: torch.dtype, hd: int) -> str:
+    """The design that computes the forward at `dtype` and `hd` on the
+    card."""
+    if dtype == torch.bfloat16 and hd in FWD_SM90_HEAD_DIMS:
+        return SM90_PATH
+    return PATHS[dtype]
 
 
 def bwd_path(dtype: torch.dtype, hd: int) -> str:
@@ -184,27 +214,38 @@ def _stream(device: torch.device) -> int:
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             causal: bool, window: int, softcap: float = 0.0,
             with_lse: bool = False):
-    """One launch of the forward kernel on checked inputs: out, or (out,
-    lse) with `with_lse`."""
+    """One launch of the forward kernel of the design `fwd_path` names, on
+    checked inputs: out, or (out, lse) with `with_lse`."""
     b, h, s, hd = q.shape
     hkv, t = k.shape[1], k.shape[2]
     out = torch.empty((b, s, h, hd), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
     lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
            if with_lse else None)
+    mask = {"causal": causal, "window": window, "softcap": softcap}
     fn, err_str = _entry()
+    path = fwd_path(q.dtype, hd)
+    sm90 = path == SM90_PATH
+    if sm90:
+        q, k, v = (_tma_ready(x) for x in (q, k, v))
+        fn, cu_result = _fwd_sm90_entry()
+        args = _fwd_sm90_args(q, k, v, out, lse, **mask)
+    else:
+        args = (_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                out.data_ptr(), None if lse is None else lse.data_ptr(),
+                b, h, hkv, s, t, hd,
+                *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                *out.stride()[:3], int(causal), int(window), float(softcap))
     with torch.cuda.device(q.device):
-        err = fn(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 out.data_ptr(), None if lse is None else lse.data_ptr(),
-                 b, h, hkv, s, t, hd,
-                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                 *out.stride()[:3], int(causal), int(window),
-                 float(softcap), _stream(q.device))
+        err = fn(*args, _stream(q.device))
     if err:
+        detail = f", tensor-map CUresult {cu_result()}" if sm90 else ""
         raise RuntimeError(f"flash_attention kernel launch failed: "
-                           f"{err_str(err).decode()} (cudaError {err})")
+                           f"{err_str(err).decode()} (cudaError {err}"
+                           f"{detail})")
     with _LAUNCHES_LOCK:   # device lanes and callers may launch at once
         flash_attention.launches += 1
+        flash_attention.launches_by_design[path] += 1
     return (out, lse) if with_lse else out
 
 
@@ -231,7 +272,7 @@ def _bwd_buffers(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
 
 
 def _tma_geometry(x: torch.Tensor) -> tuple:
-    """The wgmma backward's TMA descriptor of a (B,H|Hkv,S|T,hd) bf16 view:
+    """The wgmma kernels' TMA descriptor of a (B,H|Hkv,S|T,hd) bf16 view:
     its dims innermost first (hd, rows, heads, batch) and the byte strides
     of rows, heads and batch. An axis of length 1 is never stepped along,
     so its stride is given as the byte span of the whole tensor (a multiple
@@ -247,9 +288,25 @@ def _tma_geometry(x: torch.Tensor) -> tuple:
 def _tma_ready(x: torch.Tensor) -> torch.Tensor:
     """`x`, or a contiguous copy where an axis longer than 1 has stride 0
     (a broadcast view, which a TMA descriptor cannot describe)."""
-    if any(st == 0 and n > 1 for st, n in zip(x.stride(), x.shape)):
+    strides = x.stride()
+    if 0 in strides and any(st == 0 and n > 1
+                            for st, n in zip(strides, x.shape)):
         return x.contiguous()
     return x
+
+
+def _fwd_sm90_args(q, k, v, out, lse, *, causal: bool, window: int,
+                   softcap: float) -> tuple:
+    """The wgmma + TMA forward's arguments but the stream: pointers (lse's
+    None where it is not written), shapes, and the four TMA geometries (q,
+    k, v, out) as an int64 array."""
+    b, h, s, hd = q.shape
+    hkv, t = k.shape[1], k.shape[2]
+    tma = (ctypes.c_int64 * 28)(*_tma_geometry(q), *_tma_geometry(k),
+                                *_tma_geometry(v), *_tma_geometry(out))
+    return (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), b, h, hkv, s, t, hd,
+            tma, int(causal), int(window), float(softcap))
 
 
 def _sm90_args(q, k, v, out, lse, dout, dq, dk, dv, scratch, *, causal: bool,
@@ -472,4 +529,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_design = dict.fromkeys(
+    (SM90_PATH, *PATHS.values()), 0)
 flash_attention.bwd_launches = 0

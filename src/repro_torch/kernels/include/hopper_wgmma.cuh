@@ -20,10 +20,17 @@
 // 8 (i / 4) + 2 (l % 4) + i % 2. An A operand in registers takes the
 // m16n8k16 A layout of hopper_mma.cuh for the warp's 16 rows, so two
 // neighbouring n-tiles of an fp32 D, rounded to bf16 pairs, are the A
-// registers of one k-step of the next product.
+// registers of one k-step of the next product. The D fragment of an N = 128
+// product is those of two N = 64 products side by side (columns 0-63, then
+// 64-127), so a wide accumulator can be a row of 64-column pieces.
+//
+// Host side: `encode_tma_4d` builds the tensor map of a 4-D bf16 tensor
+// (cuTensorMapEncodeTiled, reached through the runtime's entry-point query:
+// no -lcuda at link time).
 #pragma once
 
 #include <cuda.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace repro_sm90 {
@@ -87,6 +94,19 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// The box at shared address `src` into a 4-D tensor map at coordinates (c0
+// .. c3); elements out of the tensor's bounds are not written. Tracked by
+// the issuing thread's bulk groups.
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             uint32_t src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, "
+      "%4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
 
@@ -155,6 +175,20 @@ __device__ __forceinline__ void stmatrix_x4_trans(uint32_t addr, uint32_t r0,
       : "memory");
 }
 
+// The same without the transpose: lane l gives the address of memory row
+// l % 8 of matrix l / 8; register i holds lane l's elements (row l / 4,
+// columns 2 (l % 4), + 1) of matrix i, as an m16n8k16 A or C fragment
+// rounded to bf16 pairs holds them.
+__device__ __forceinline__ void stmatrix_x4(uint32_t addr, uint32_t r0,
+                                            uint32_t r1, uint32_t r2,
+                                            uint32_t r3) {
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n" ::
+          "r"(addr),
+      "r"(r0), "r"(r1), "r"(r2), "r"(r3)
+      : "memory");
+}
+
 __device__ __forceinline__ void st_shared_v2_f32(uint32_t addr, float x,
                                                  float y) {
   asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(addr), "f"(x),
@@ -208,6 +242,13 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
+// The same for A registers an asynchronous product still reads: they stay
+// live, and unmoved, until the fence after its wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(a[i])::"memory");
+}
 
 // D (64 x N fp32, N / 2 registers a thread) = A (64 x 16) B (16 x N) + D if
 // scale_d, else A B; A and B in shared memory, TA / TB 1 where the operand
@@ -233,6 +274,37 @@ template <int TA, int TB> struct WgmmaSS<64, TA, TB> {
           "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
           "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
+  }
+};
+
+template <int TA, int TB> struct WgmmaSS<128, TA, TB> {
+  static __device__ __forceinline__ void run(float (&d)[64], uint64_t a,
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, %67, %68;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
         : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
   }
 };
@@ -292,5 +364,58 @@ template <int TB> struct WgmmaRS<128, TB> {
           "n"(TB));
   }
 };
+
+// ---------------------------------------------------------------- host
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// The CUresult of the library's last tensor-map encoding (0: CUDA_SUCCESS).
+inline int g_last_cu_result = 0;
+
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = []() -> EncodeTiled {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    return err == cudaSuccess && q == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A 4-D bf16 tensor map over (hd, rows, heads, batch): geometry g = those 4
+// dims, then the byte strides of rows, heads and batch; boxes of 64
+// columns by `box_rows` rows, 128-byte swizzled, zero fill out of bounds.
+inline cudaError_t encode_tma_4d(CUtensorMap* map, const void* ptr,
+                                 const int64_t* g, int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (!fn) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {cuuint64_t(g[0]), cuuint64_t(g[1]),
+                              cuuint64_t(g[2]), cuuint64_t(g[3])};
+  const cuuint64_t strides[3] = {cuuint64_t(g[4]), cuuint64_t(g[5]),
+                                 cuuint64_t(g[6])};
+  const cuuint32_t box[4] = {64, cuuint32_t(box_rows), 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                        const_cast<void*>(ptr), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  g_last_cu_result = int(r);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
 
 }  // namespace repro_sm90

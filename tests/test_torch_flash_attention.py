@@ -653,8 +653,8 @@ echo built > "$out"
     monkeypatch.setattr(_build, "_nvcc", lambda: nvcc)
     paths = _build.build_all()
     names = {"flash_attention", "flash_attention_bwd",
-             "flash_attention_bwd_sm90", "int8_matmul", "mlstm_scan",
-             "ssm_scan"}
+             "flash_attention_bwd_sm90", "flash_attention_fwd_sm90",
+             "int8_matmul", "mlstm_scan", "ssm_scan"}
     assert set(paths) == names
     assert all(p.read_text() == "built\n" for p in paths.values())
     calls = sorted(log.read_text().splitlines(), key=lambda c: c.split()[-1])
