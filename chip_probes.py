@@ -9,12 +9,20 @@ a kernel or a measurement that does not need the whole run.
         (`check_flash_new_head_dims`), and phase 3's softcap parity
         (`check_softcap_card_vs_cpu`).
 
+    python3 chip_probes.py mlstm
+        Builds the kernels, then runs phase 2's mlstm_scan checks
+        (`check_mlstm_scan`) and its seed sweep (`sweep_mlstm_seeds`: every
+        bf16 case on 16 more seeds, gated against the fp32 and the two-pass
+        plain versions).
+
     python3 chip_probes.py ab-train ROOT [ROOT ...]
         For each checkout ROOT in turn, in a process of its own, phase 5c's
         training steps (`_launch_train_one`: 1 warm-up and 3 timed steps of
         `launch.train`) of stablelm-1.6b whole at 2x2048, seamless-m4t-medium
-        whole at 2x1024 and mixtral-8x22b cut to 1 layer at 2x2048, each
-        through that checkout's own package and chip_smoke.py. Give the
+        whole at 2x1024, mixtral-8x22b cut to 1 layer at 2x2048, gemma3-12b
+        cut to 6 layers at 1x2048 and deepseek-v2-236b cut to 2 layers at
+        1x2048, each through that checkout's own package and chip_smoke.py.
+        Give the
         parent commit unpacked into an ignored directory and `.` in the
         order parent, change, change, parent, so that both are measured on
         the same card in one call. Prints one `AB <root> {...}` line a
@@ -23,8 +31,10 @@ a kernel or a measurement that does not need the whole run.
 
     python3 chip_probes.py ab-backward PARENT
         The flash backward of the parent checkout PARENT (its
-        csrc/flash_attention_bwd.cu, built here with this tree's nvcc flags
-        and loaded beside this tree's kernels) against this tree's, in one
+        csrc/flash_attention_bwd.cu and csrc/flash_attention_bwd_sm90.cu,
+        built here with this tree's nvcc flags, loaded beside this tree's
+        kernels and chosen by the parent's BWD_SM90_HEAD_DIMS) against
+        this tree's, in one
         process on one card, at mixtral's 2x48(8)x2048x128 window 4096 and
         each of chip_smoke.py's BWD_TRAIN_SHAPES: in turn parent, change,
         change, parent, each ms a call (CUDA events) and on the card alone
@@ -58,7 +68,9 @@ ROOT = Path(__file__).resolve().parent
 # (arch, depth cut or None, global batch, seq_len) of the A/B steps
 AB_CONFIGS = (("stablelm-1.6b", None, 2, 2048),
               ("seamless-m4t-medium", None, 2, 1024),
-              ("mixtral-8x22b", 1, 2, 2048))
+              ("mixtral-8x22b", 1, 2, 2048),
+              ("gemma3-12b", 6, 1, 2048),
+              ("deepseek-v2-236b", 2, 1, 2048))
 
 
 def _card(cs) -> None:
@@ -87,26 +99,65 @@ def backward() -> None:
              torch.Generator(device="cuda").manual_seed(cs.SEED + 11))
 
 
+def mlstm() -> None:
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+    import torch
+    _card(cs)
+    cs.build_report()
+    entry = cs.timed("mlstm_scan", cs.check_mlstm_scan,
+                     torch.Generator(device="cuda").manual_seed(cs.SEED + 3))
+    sweep = cs.timed("mlstm_scan sweep", cs.sweep_mlstm_seeds)
+    print(json.dumps({"mlstm_scan": entry, "sweep": sweep}), flush=True)
+
+
+def _parent_bwd_sm90_head_dims(parent: Path) -> tuple:
+    """BWD_SM90_HEAD_DIMS of the parent's `ops.py` (read, not imported: the
+    two trees' packages share a name)."""
+    import ast
+    src = (parent / "src" / "repro_torch" / "kernels" / "flash_attention" /
+           "ops.py").read_text()
+    for node in ast.parse(src).body:
+        if isinstance(node, ast.Assign) and \
+                getattr(node.targets[0], "id", None) == "BWD_SM90_HEAD_DIMS":
+            return ast.literal_eval(node.value)
+    return ()
+
+
 def _parent_backward(parent: str):
-    """The parent's backward C entry point, built from its own source and
-    headers with this tree's flags into build/ab_parent/, as a function of
-    (q, k, v, out, lse, dout, **mask) -> (dq, dk, dv)."""
+    """The parent's backward, each of its two designs built from its own
+    source and headers with this tree's flags into build/ab_parent/ and
+    chosen as the parent's `ops.bwd_path` chooses (bf16 at the parent's
+    BWD_SM90_HEAD_DIMS: `flash_attention_bwd_sm90.cu`, else
+    `flash_attention_bwd.cu`), as a function of (q, k, v, out, lse, dout,
+    **mask) -> (dq, dk, dv)."""
     import ctypes
     import torch
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import ops
-    kernels = Path(parent).resolve() / "src" / "repro_torch" / "kernels"
-    src = kernels / "flash_attention" / "csrc" / "flash_attention_bwd.cu"
-    out = ROOT / "build" / "ab_parent" / "libflash_attention_bwd_parent.so"
-    out.parent.mkdir(parents=True, exist_ok=True)
-    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I",
-                    str(kernels / "include"), "-o", str(out), str(src)],
-                   check=True, capture_output=True, text=True, timeout=600)
-    fn = ctypes.CDLL(str(out)).repro_flash_attention_bwd
+    root = Path(parent).resolve()
+    kernels = root / "src" / "repro_torch" / "kernels"
+    out_dir = ROOT / "build" / "ab_parent"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    libs = {}
+    for name in ("flash_attention_bwd", "flash_attention_bwd_sm90"):
+        out = out_dir / f"lib{name}_parent.so"
+        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I",
+                        str(kernels / "include"), "-o", str(out),
+                        str(kernels / "flash_attention" / "csrc" /
+                            f"{name}.cu")],
+                       check=True, capture_output=True, text=True,
+                       timeout=600)
+        libs[name] = ctypes.CDLL(str(out))
     i32, i64, ptr = ctypes.c_int, ctypes.c_int64, ctypes.c_void_p
-    fn.argtypes = ([i32] + [ptr] * 10 + [i32] * 6 + [i64] * 24
-                   + [i32, i32, ctypes.c_float, ptr])
-    fn.restype = i32
+    mma = libs["flash_attention_bwd"].repro_flash_attention_bwd
+    mma.argtypes = ([i32] + [ptr] * 10 + [i32] * 6 + [i64] * 24
+                    + [i32, i32, ctypes.c_float, ptr])
+    sm90 = libs["flash_attention_bwd_sm90"].repro_flash_attention_bwd_sm90
+    sm90.argtypes = ([ptr] * 11 + [i32] * 6 + [ptr] * 2
+                     + [i32, i32, ctypes.c_float, ptr])
+    mma.restype = sm90.restype = i32
+    sm90_dims = _parent_bwd_sm90_head_dims(root)
 
     def bwd(q, k, v, o, lse, dout, **mask):
         b, h, s, hd = q.shape
@@ -116,9 +167,20 @@ def _parent_backward(parent: str):
         dk, dv = (torch.empty((b, t, hkv, hd), dtype=q.dtype,
                               device=q.device).transpose(1, 2)
                   for _ in range(2))
-        delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-        err = fn(*ops._mma_args(q, k, v, o, lse, dout, dq, dk, dv, delta,
-                                **mask), ops._stream(q.device))
+        f32 = {"dtype": torch.float32, "device": q.device}
+        if q.dtype == torch.bfloat16 and hd in sm90_dims:
+            sp = -(-s // ops.SM90_BQ) * ops.SM90_BQ
+            scratch = (torch.empty((2, b, h, sp), **f32),
+                       torch.empty((b, h, sp, hd), **f32),
+                       torch.empty(0, dtype=torch.int32, device=q.device))
+            args = list(ops._sm90_args(q, k, v, o, lse, dout, dq, dk, dv,
+                                       scratch, **mask))
+            del args[8]   # the parent's entry takes no counts a q tile
+            err = sm90(*args, ops._stream(q.device))
+        else:
+            delta = torch.empty((b, h, s), **f32)
+            err = mma(*ops._mma_args(q, k, v, o, lse, dout, dq, dk, dv,
+                                     delta, **mask), ops._stream(q.device))
         if err:
             raise RuntimeError(f"the parent's backward failed: cudaError {err}")
         return dq, dk, dv
@@ -325,6 +387,9 @@ def main(argv: list) -> int:
         return 1
     if argv[:1] == ["backward"]:
         backward()
+        return 0
+    if argv[:1] == ["mlstm"]:
+        mlstm()
         return 0
     if argv[:1] == ["ab-backward"] and len(argv) == 2:
         sys.path.insert(0, str(ROOT / "src"))

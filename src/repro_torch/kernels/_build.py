@@ -11,7 +11,8 @@ library with a plain C interface:
 The library name carries a hash of the source, the headers beside it, the
 headers the kernels share (`include/*.cuh`) and the flags, so an unchanged
 tree does not rebuild. ptxas's report of each kernel (registers, shared
-memory, spills) is kept beside its library (`ptxas_report`). Only sources
+memory, spills, and any note that it serialized the kernel's wgmma) is
+kept beside its library (`ptxas_report`). Only sources
 in the repository are compiled; a failed build raises with nvcc's stderr.
 """
 from __future__ import annotations
@@ -102,16 +103,25 @@ _STACK = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                     r"(\d+) bytes spill loads")
 _USED = re.compile(r"Used (\d+) registers")
 _SMEM = re.compile(r"(\d+) bytes smem")
+# ptxas's note that it serialized a function's wgmma (C7515, C7520, ...)
+_SERIAL = re.compile(r"\((C\d+)\) Potential Performance Loss: "
+                     r"wgmma\.mma_async instructions are serialized.*"
+                     r"in the function '(\w+)")
 
 
 def parse_ptxas(text: str) -> List[Dict]:
     """Each entry function in nvcc's `-Xptxas -v` output: {"kernel"
     (mangled name), "registers", "smem_bytes" (static; dynamic shared
-    memory is set at launch), "spill_stores", "spill_loads"}."""
+    memory is set at launch), "spill_stores", "spill_loads",
+    "wgmma_serialized" (the codes of ptxas's notes that it serialized the
+    function's wgmma, in order; [] for none)}."""
     kernels: List[Dict] = []
     props = None   # the function whose properties the next line gives
+    serialized: Dict[str, List[str]] = {}
     for line in text.splitlines():
-        if m := _ENTRY.search(line):
+        if m := _SERIAL.search(line):
+            serialized.setdefault(m.group(2), []).append(m.group(1))
+        elif m := _ENTRY.search(line):
             kernels.append({"kernel": m.group(1), "registers": None,
                             "smem_bytes": 0, "spill_stores": None,
                             "spill_loads": None})
@@ -128,6 +138,8 @@ def parse_ptxas(text: str) -> List[Dict]:
                 kernels[-1]["registers"] = int(m.group(1))
             if m := _SMEM.search(line):
                 kernels[-1]["smem_bytes"] = int(m.group(1))
+    for k in kernels:
+        k["wgmma_serialized"] = serialized.get(k["kernel"], [])
     return kernels
 
 

@@ -21,29 +21,24 @@
 // every run. Masked entries take weight 0, as keys past T and rows past S
 // do; a row whose lse is -inf (it saw no key) takes weight 0 too, not NaN.
 //
-// This design serves fp32 at every head_dim and bf16 at head_dim 32, 192
-// and 256. bf16 at 64 and 128 runs the single-pass wgmma + TMA backward of
+// This design serves fp32 at every head_dim and bf16 at head_dim 32 (a
+// 64-byte row, half a 128-byte swizzled TMA box). bf16 at 64, 128, 192 and
+// 256 runs the single-pass wgmma + TMA backward of
 // flash_attention_bwd_sm90.cu (`dispatch_bwd` refuses it here), whose dQ is
 // a sum of fp32 reduce-adds in no fixed order: its last bits may differ
 // from run to run.
 //
 // What bounds it: five products a score (S, dP, dV, dK, dQ) against the
-// forward's two, so it is operations-bound wherever the forward is; at
-// mixtral's training shape (2 x 48 heads over 8, 2048 rows, hd 128, window
-// 4096) 2,098,176 causal pairs a head make 0.258 TFLOP a call: 0.26 ms at
-// the bf16 tensor cores' 989 TFLOP/s (ops.bwd_cost), against 0.24 GB to
-// move (0.07 ms at 3.35 TB/s).
+// forward's two, so it is operations-bound wherever the forward is
+// (`ops.bwd_cost`): fp32 against the CUDA cores' 67 TFLOP/s, bf16 at
+// head_dim 32 against the tensor cores' 989.
 //
 // bf16 runs on the tensor cores (mma.sync m16n8k16, fp32 accumulators; P
 // and dS rounded to bf16 as the operands of their products, as the forward
 // rounds P); a warp owns 16 rows of its block's side (keys for dK/dV, q rows
-// for dQ). dK and dV at head_dim 192 and 256 would take 192 and 256 fp32
-// registers a thread: there the block makes two passes over the q-tiles,
-// each accumulating half of the columns (96 or 128), and recomputes S and dP
-// in the second (`BwdConfig::HC`). q-tiles of 32 rows above hd 64 keep the
-// score tiles at 16 registers. fp32 runs on the CUDA cores in full fp32 (no
-// TF32), q pre-scaled as the fp32 forward scales it, so that P there is the
-// forward's to the last bit but for lse.
+// for dQ); only its head_dim 32 is built. fp32 runs on the CUDA cores in
+// full fp32 (no TF32), q pre-scaled as the fp32 forward scales it, so that
+// P there is the forward's to the last bit but for lse.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -455,13 +450,11 @@ using bf16 = __nv_bfloat16;
 
 // A block is 4 warps of 16 own rows (BM = 64: keys for dK/dV, q rows for
 // dQ); the other side comes in tiles of BN_KV q rows (dK/dV) or BN_Q keys
-// (dQ), through a ring of 2 stages as the forward's K and V do. HC columns
-// of dK and dV a pass (two passes at hd 192 and 256).
+// (dQ), through a ring of 2 stages as the forward's K and V do.
 template <int HD> struct BwdConfig {
   static constexpr int BM = 64;
   static constexpr int BN_KV = HD <= 64 ? 64 : 32;
   static constexpr int BN_Q = HD <= 128 ? 64 : 32;
-  static constexpr int HC = HD == 192 ? 96 : (HD == 256 ? 128 : HD);
   static constexpr int LD = HD + 8;   // bf16 row stride: +16 bytes
   static constexpr size_t dkdv_smem =
       sizeof(bf16) * size_t(2 * BM + 4 * BN_KV) * LD;
@@ -523,11 +516,10 @@ __global__ void __launch_bounds__(kBwdThreads)
     flash_bwd_dkdv_mma_kernel(BwdArgs a) {
   static_assert(HD % 16 == 0, "head_dim must be a multiple of 16");
   using C = BwdConfig<HD>;
-  constexpr int BM = C::BM, BN = C::BN_KV, LD = C::LD, HC = C::HC;
-  constexpr int PASSES = HD / HC;
+  constexpr int BM = C::BM, BN = C::BN_KV, LD = C::LD;
   constexpr int KSTEPS = HD / 16;   // k-steps of S^T and dP^T
   constexpr int NQ = BN / 8;        // n-tiles of S^T and dP^T (q columns)
-  constexpr int NC = HC / 8;        // n-tiles of a pass's dK and dV
+  constexpr int NC = HD / 8;        // n-tiles of dK and dV
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Ks = reinterpret_cast<bf16*>(smem_raw);   // BM x LD
   bf16* Vs = Ks + BM * LD;                        // BM x LD
@@ -554,14 +546,13 @@ __global__ void __launch_bounds__(kBwdThreads)
   bf16* dvp = static_cast<bf16*>(a.dv) + b * a.dv_sb + hk * a.dv_sh;
 
   // the q rows these keys reach, as q-tiles of BN rows, for each of the G
-  // heads, in every pass
+  // heads
   const int k_end = min(k0 + BM, a.T);
   const int q_lo = a.causal ? k0 : 0;
   const int q_hi = a.window > 0 ? min(a.S, k_end - 1 + a.window) : a.S;
   const int first = q_lo / BN;
   const int nqt = q_hi > q_lo ? (q_hi + BN - 1) / BN - first : 0;
-  const int n_iter = G * nqt;
-  const int total = PASSES * n_iter;
+  const int total = G * nqt;
 
   // one cp.async group a tile: (K, V, q_0, dO_0), then q and dO of tile
   // it+1 issued at the top of tile it
@@ -585,17 +576,15 @@ __global__ void __launch_bounds__(kBwdThreads)
     for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
 
   for (int it = 0; it < total; ++it) {
-    const int pass = it / n_iter, rem = it % n_iter;
-    const int h = hk * G + rem / nqt;
-    const int q0 = (first + rem % nqt) * BN;
+    const int h = hk * G + it / nqt;
+    const int q0 = (first + it % nqt) * BN;
     const int st = it & 1;
     repro_ptx::cp_async_wait<0>();   // this tile's q, dO (and K, V) landed
     __syncthreads();                 // ... for every thread; and every warp
                                      // is done with stage st ^ 1
     if (it + 1 < total) {
-      const int nrem = (it + 1) % n_iter;
-      const int nh = hk * G + nrem / nqt;
-      const int nq0 = (first + nrem % nqt) * BN;
+      const int nh = hk * G + (it + 1) / nqt;
+      const int nq0 = (first + (it + 1) % nqt) * BN;
       copy_rows<HD>(Qs + (st ^ 1) * BN * LD,
                     static_cast<const bf16*>(a.q) + b * a.q_sb + nh * a.q_sh,
                     a.q_ss, nq0, BN, a.S, tid);
@@ -603,12 +592,6 @@ __global__ void __launch_bounds__(kBwdThreads)
                     static_cast<const bf16*>(a.dout) + b * a.do_sb +
                         nh * a.do_sh, a.do_ss, nq0, BN, a.S, tid);
       repro_ptx::cp_async_commit();
-    }
-    if (rem == 0) {
-#pragma unroll
-      for (int j = 0; j < NC; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
     }
     const bf16* Qt = Qs + st * BN * LD;
     const bf16* dOt = dOs + st * BN * LD;
@@ -674,8 +657,8 @@ __global__ void __launch_bounds__(kBwdThreads)
         }
       }
 
-      // dV += P^T dO and dK += dS^T q over this pass's columns, the q rows
-      // as the k axis (ldmatrix.trans), P^T and dS^T rounded to bf16
+      // dV += P^T dO and dK += dS^T q, the q rows as the k axis
+      // (ldmatrix.trans), P^T and dS^T rounded to bf16
 #pragma unroll
       for (int kk = 0; kk < BN / 16; ++kk) {
         uint32_t pa[4], da[4];
@@ -690,7 +673,7 @@ __global__ void __launch_bounds__(kBwdThreads)
 #pragma unroll
         for (int np = 0; np < NC / 2; ++np) {
           const int off = (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
-                          pass * HC + np * 16 + (lane >> 4) * 8;
+                          np * 16 + (lane >> 4) * 8;
           uint32_t r[4];
           repro_ptx::ldmatrix_x4_trans(r, dOt + off);
           repro_ptx::mma_bf16_16816(dv[2 * np], pa, r[0], r[1]);
@@ -701,19 +684,11 @@ __global__ void __launch_bounds__(kBwdThreads)
         }
       }
     }
-    if (rem == n_iter - 1) {   // the pass is done: its columns out
-      store_tiles<NC>(dkp, a.dk_st, kw0, a.T, pass * HC, dk, scale, g, t);
-      store_tiles<NC>(dvp, a.dv_st, kw0, a.T, pass * HC, dv, 1.f, g, t);
-    }
   }
   repro_ptx::cp_async_wait<0>();
-  if (total == 0) {   // keys no row sees: dK = dV = 0
-#pragma unroll
-    for (int pass = 0; pass < PASSES; ++pass) {
-      store_tiles<NC>(dkp, a.dk_st, k0 + wrow, a.T, pass * HC, dk, 1.f, g, t);
-      store_tiles<NC>(dvp, a.dv_st, k0 + wrow, a.T, pass * HC, dv, 1.f, g, t);
-    }
-  }
+  // dK and dV out (0 for keys no row sees)
+  store_tiles<NC>(dkp, a.dk_st, k0 + wrow, a.T, 0, dk, scale, g, t);
+  store_tiles<NC>(dvp, a.dv_st, k0 + wrow, a.T, 0, dv, 1.f, g, t);
 }
 
 template <int HD>
@@ -911,15 +886,11 @@ cudaError_t dispatch_bwd(const BwdArgs& a, int dtype, cudaStream_t s) {
     }
   }
   if (dtype == 1) {
-    // Which design serves each head_dim is fixed by head_dim alone: 64 and
-    // 128 are flash_attention_bwd_sm90.cu's (its own C entry point; the
-    // wrapper routes by `ops.bwd_path`), the rest these kernels'.
-    switch (a.D) {
-      case 32: return tcb::launch_bwd<32>(a, s);
-      case 192: return tcb::launch_bwd<192>(a, s);
-      case 256: return tcb::launch_bwd<256>(a, s);
-      default: return cudaErrorInvalidValue;
-    }
+    // Which design serves each head_dim is fixed by head_dim alone: 64,
+    // 128, 192 and 256 are flash_attention_bwd_sm90.cu's (its own C entry
+    // point; the wrapper routes by `ops.bwd_path`), 32 these kernels'.
+    if (a.D == 32) return tcb::launch_bwd<32>(a, s);
+    return cudaErrorInvalidValue;
   }
   return cudaErrorInvalidValue;
 }

@@ -105,13 +105,6 @@ struct FwdArgs {
   float softcap;
 };
 
-// Piece p of 64 columns of a warpgroup's O, as the N = 128 accumulator of
-// pieces p and p + 1.
-template <int P>
-__device__ __forceinline__ float (&pair(float (&o)[P][32], int p))[64] {
-  return *reinterpret_cast<float(*)[64]>(&o[p][0]);
-}
-
 // S = Q K^T of a key tile, raw, issued and committed (not waited for): q_s
 // the warpgroup's 64 rows of the q tile, k_s the stage's K, both K-major.
 template <int HD, int BK>

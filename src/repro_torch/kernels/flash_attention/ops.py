@@ -16,17 +16,19 @@ its values to it.
 `softcap` > 0 caps the scaled scores, c tanh(s / c), before the mask.
 `flash_attention.launches` counts forward launches,
 `flash_attention.launches_by_design` the same by `fwd_path`,
-`flash_attention.bwd_launches` backward ones.
+`flash_attention.bwd_launches` backward ones and
+`flash_attention.bwd_launches_by_design` those by `bwd_path`.
 
 Where autograd needs a gradient on the card, `_FlashAttention` runs the
 forward kernel with its log-sum-exp (lse) and saves (q, k, v, out, lse); its
 backward launches the backward kernels, the reference's blockwise backward
 (`repro.models.attention._blockwise_bwd`) for the card, in one of two
-designs fixed by dtype and head_dim (`bwd_path`): bf16 at head_dim 64 and
-128 the single-pass wgmma + TMA kernel (`csrc/flash_attention_bwd_sm90.cu`:
-row stats and a zeroed fp32 dQ accumulator, dK/dV/dQ, dQ cast), everything
-else the two-kernel design of `csrc/flash_attention_bwd.cu` (delta, dK/dV,
-dQ).
+designs fixed by dtype and head_dim (`bwd_path`): bf16 at head_dim 64, 128,
+192 and 256 the single-pass wgmma + TMA kernel
+(`csrc/flash_attention_bwd_sm90.cu`: row stats and a zeroed fp32 dQ
+accumulator, dK/dV/dQ, dQ cast; 128 keys a block at 64 and 128, 64 at 192
+and 256), bf16 at 32 and fp32 the two-kernel design of
+`csrc/flash_attention_bwd.cu` (delta, dK/dV, dQ).
 Without a gradient the forward writes no lse. The plain versions of the
 pair are `ref.attention_ref(..., return_lse=True)` and
 `ref.attention_bwd_ref`.
@@ -57,8 +59,9 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128, 192, 256)
 # The designs of `csrc/flash_attention.cu` and `csrc/flash_attention_bwd.cu`
-# by dtype (chip_smoke.py names them); each takes every head dim of
-# HEAD_DIMS but where `fwd_path` or `bwd_path` names the wgmma design.
+# by dtype (chip_smoke.py names them): fp32 at every head dim of HEAD_DIMS,
+# bf16 only where `fwd_path` or `bwd_path` does not name the wgmma design
+# (head_dim 32).
 PATHS = {torch.float32: "cuda-core fp32", torch.bfloat16: "mma.sync bf16"}
 # The forward's design by dtype and head_dim, fixed (no switch at run time):
 # bf16 at these head dims runs the wgmma + TMA kernel
@@ -67,9 +70,10 @@ PATHS = {torch.float32: "cuda-core fp32", torch.bfloat16: "mma.sync bf16"}
 FWD_SM90_HEAD_DIMS = (64, 128, 192, 256)
 # The backward's design by dtype and head_dim, fixed (no switch at run time):
 # bf16 at these head dims runs the wgmma + TMA kernel, one pass for dK, dV
-# and dQ (`csrc/flash_attention_bwd_sm90.cu`); the rest PATHS' kernels of
-# `csrc/flash_attention_bwd.cu`.
-BWD_SM90_HEAD_DIMS = (64, 128)
+# and dQ (`csrc/flash_attention_bwd_sm90.cu`; at 192 and 256 a block of 64
+# keys whose two consumer warpgroups own dV and dK); bf16 at 32 and fp32
+# PATHS' kernels of `csrc/flash_attention_bwd.cu`.
+BWD_SM90_HEAD_DIMS = (64, 128, 192, 256)
 SM90_PATH = "wgmma+TMA bf16"
 # q rows a tile of the wgmma backward: its row stats and dQ accumulator are
 # padded to a multiple of it
@@ -128,7 +132,7 @@ def _sm90_entry():
     lib = _build.load("flash_attention_bwd_sm90")
     fn = lib.repro_flash_attention_bwd_sm90
     i32, ptr = ctypes.c_int, ctypes.c_void_p
-    fn.argtypes = ([ptr] * 11 + [i32] * 6 + [ptr] * 2
+    fn.argtypes = ([ptr] * 12 + [i32] * 6 + [ptr] * 2
                    + [i32, i32, ctypes.c_float, ptr])
     fn.restype = i32
     cu = lib.repro_flash_attention_bwd_sm90_cu_result
@@ -252,9 +256,11 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def _bwd_buffers(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     """dq, dk, dv as (B,H|Hkv,S|T,hd) views of (B,S|T,H|Hkv,hd) tensors (the
     layout of the inputs the model hands the kernel), and the backward's
-    fp32 scratch: for the wgmma + TMA design (`bwd_path`) the row stats
-    (2,B,H,Sp) (lse log2(e), delta) and the dQ accumulator (B,H,Sp,hd), Sp
-    = S rounded up to 64; for the others delta (B,H,S)."""
+    scratch: for the wgmma + TMA design (`bwd_path`) the fp32 row stats
+    (2,B,H,Sp) (lse log2(e), delta), the fp32 dQ accumulator (B,H,Sp,hd)
+    and int32 counts (B*H*Sp/64 + 1: one a q tile, which orders the adds
+    into it, then the blocks' ticket), Sp = S rounded up to 64; for the
+    others fp32 delta (B,H,S)."""
     b, h, s, hd = q.shape
     hkv, t = k.shape[1], k.shape[2]
     dq = torch.empty((b, s, h, hd), dtype=q.dtype,
@@ -265,7 +271,9 @@ def _bwd_buffers(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     if bwd_path(q.dtype, hd) == SM90_PATH:
         sp = -(-s // SM90_BQ) * SM90_BQ
         scratch = (torch.empty((2, b, h, sp), **f32),
-                   torch.empty((b, h, sp, hd), **f32))
+                   torch.empty((b, h, sp, hd), **f32),
+                   torch.empty(b * h * (sp // SM90_BQ) + 1, dtype=torch.int32,
+                               device=q.device))
     else:
         scratch = (torch.empty((b, h, s), **f32),)
     return dq, dk, dv, scratch
@@ -316,7 +324,7 @@ def _sm90_args(q, k, v, out, lse, dout, dq, dk, dv, scratch, *, causal: bool,
     of out, dout, dq, dk and dv as int64 arrays."""
     b, h, s, hd = q.shape
     hkv, t = k.shape[1], k.shape[2]
-    rows, acc = scratch
+    rows, acc, tiles = scratch
     tma = (ctypes.c_int64 * 28)(*_tma_geometry(q), *_tma_geometry(k),
                                 *_tma_geometry(v), *_tma_geometry(dout))
     strides = (ctypes.c_int64 * 15)(*out.stride()[:3], *dout.stride()[:3],
@@ -324,8 +332,9 @@ def _sm90_args(q, k, v, out, lse, dout, dq, dk, dv, scratch, *, causal: bool,
                                     *dv.stride()[:3])
     return (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             dout.data_ptr(), lse.data_ptr(), rows.data_ptr(), acc.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, hkv, s, t, hd,
-            tma, strides, int(causal), int(window), float(softcap))
+            tiles.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b,
+            h, hkv, s, t, hd, tma, strides, int(causal), int(window),
+            float(softcap))
 
 
 def _mma_args(q, k, v, out, lse, dout, dq, dk, dv, delta, *, causal: bool,
@@ -354,7 +363,8 @@ def _launch_bwd(q, k, v, out, lse, dout, *, causal: bool, window: int,
     mask = {"causal": causal, "window": window, "softcap": softcap}
     dq, dk, dv, scratch = _bwd_buffers(q, k, v)
     _, err_str = _entry()
-    sm90 = bwd_path(q.dtype, q.shape[-1]) == SM90_PATH
+    path = bwd_path(q.dtype, q.shape[-1])
+    sm90 = path == SM90_PATH
     if sm90:
         q, k, v, dout = (_tma_ready(x) for x in (q, k, v, dout))
         fn, cu_result = _sm90_entry()
@@ -373,6 +383,7 @@ def _launch_bwd(q, k, v, out, lse, dout, *, causal: bool, window: int,
                            f"{detail})")
     with _LAUNCHES_LOCK:
         flash_attention.bwd_launches += 1
+        flash_attention.bwd_launches_by_design[path] += 1
     return dq, dk, dv
 
 
@@ -532,3 +543,5 @@ flash_attention.launches = 0
 flash_attention.launches_by_design = dict.fromkeys(
     (SM90_PATH, *PATHS.values()), 0)
 flash_attention.bwd_launches = 0
+flash_attention.bwd_launches_by_design = dict.fromkeys(
+    (SM90_PATH, *PATHS.values()), 0)

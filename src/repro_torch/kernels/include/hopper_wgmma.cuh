@@ -13,7 +13,9 @@
 // columns the k axis: `desc_kmajor`) and as an MN-major one (the rows are
 // the k axis: `desc_mnmajor`, `lbo` the bytes from one 64-column chunk to
 // the next). A k-step of 16 advances a K-major descriptor by 32 bytes
-// inside a chunk, an MN-major one by 16 rows (2048 bytes).
+// inside a chunk, an MN-major one by 16 rows (2048 bytes). An MN-major
+// operand starts on a chunk: its M or N index walks whole 128-byte rows,
+// so a start inside one would run into the next k row.
 //
 // wgmma (four warps, 64 rows of D): D element i of a thread (lane l, warp w
 // of its warpgroup) is row 16 w + l / 4 + 8 ((i / 2) % 2), column
@@ -250,12 +252,35 @@ __device__ __forceinline__ void fence_regs(uint32_t (&a)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(a[i])::"memory");
 }
 
+// Pieces p and p + 1 of 64 columns of an accumulator kept as 64-column
+// pieces, as the N = 128 accumulator of one product.
+template <int P>
+__device__ __forceinline__ float (&pair(float (&o)[P][32], int p))[64] {
+  return *reinterpret_cast<float(*)[64]>(&o[p][0]);
+}
+
 // D (64 x N fp32, N / 2 registers a thread) = A (64 x 16) B (16 x N) + D if
 // scale_d, else A B; A and B in shared memory, TA / TB 1 where the operand
-// is MN-major (transposed).
+// is MN-major (transposed). N = 32, 64 or 128.
 template <int N, int TA, int TB> struct WgmmaSS;
 // The same with A from registers (4 a thread, the m16n8k16 A layout).
 template <int N, int TB> struct WgmmaRS;
+
+template <int TA, int TB> struct WgmmaSS<32, TA, TB> {
+  static __device__ __forceinline__ void run(float (&d)[16], uint64_t a,
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p, 1, 1, %19, %20;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
+  }
+};
 
 template <int TA, int TB> struct WgmmaSS<64, TA, TB> {
   static __device__ __forceinline__ void run(float (&d)[32], uint64_t a,

@@ -54,10 +54,12 @@
 //     1/sqrt(hd) (no power of two: applied after the products), the decay
 //     mask in the exp2 domain (ex2.approx; masked entries -inf, weight 0),
 //     the denominator from the row sums of P = S * D and q.n, and
-//     y = (P v + e^{b_i + m_run - m_i} q C) / den with P rounded to bf16 for
-//     its mma; y is stored in bf16.
+//     y = (P v + e^{b_i + m_run - m_i} q C) / den with P split into two
+//     bf16 parts, hi + lo, for two mmas (P rounded once to bf16 could round
+//     either way near a tie, and where the denominator nearly cancels 2^-8
+//     of one P v term moves y past 1e-2); y is stored in bf16.
 //   - No atomics: results repeat bit for bit. Only y uses bf16 chunk-start
-//     states and bf16 P tiles (its tolerance is 5e-2).
+//     states (its tolerance is 5e-2).
 //   - Every row start of q, k, v must be 16-byte aligned (the wrapper checks).
 //
 // fp32: `mlstm_fwd_kernel`, the first design, unchanged: fp32 math on the
@@ -481,6 +483,15 @@ __device__ __forceinline__ void split3(uint32_t k2, float w_lo, float w_hi,
   lo = bits(__floats2bfloat162_rn(r0 - __low2float(m), r1 - __high2float(m)));
 }
 
+// Two fp32 values as two bf16x2 parts, hi = (x0, x1) rounded and lo = the
+// rest rounded: hi + lo equal to the values to about 2^-16 of each.
+__device__ __forceinline__ void split2(float x0, float x1, uint32_t& hi,
+                                       uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  hi = bits(h);
+  lo = bits(__floats2bfloat162_rn(x0 - __low2float(h), x1 - __high2float(h)));
+}
+
 // Pass (a): the recurrence. Block (row block mb, v-tile vt) of (h, b) owns
 // C[d0:d0+MB, v0:v0+BV] and walks the chunks in turn; the vt = 0 blocks
 // also carry n[d0:d0+MB], block (0, 0) m. One barrier a chunk: the last warp
@@ -826,26 +837,31 @@ __global__ void __launch_bounds__(NB) mlstm_fwd_out_kernel(TcArgs t) {
     ws[r] = expf(bi + mc - mi);
     den[r] = fmaxf(fabsf(rs + ws[r] * qni), expf(-mi));
   }
-  // o = w_state q C, then += P v with P rounded to bf16
+  // o = w_state q C, then += P v with P as two bf16 parts, hi + lo = P to
+  // about 2^-16 of P: with P rounded once, an entry that the fp32 sums
+  // before it leave near a bf16 tie could round either way, and 2^-8 of
+  // one term moves y past 1e-2 where the denominator cancels
 #pragma unroll
   for (int ni = 0; ni < NN; ++ni)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[ni][e] *= scale * ws[e >> 1];
 #pragma unroll
   for (int kk = 0; kk < L / 16; ++kk) {
-    uint32_t pa[4];
-    pa[0] = repro_ptx::pack_bf16x2(s[2 * kk][0], s[2 * kk][1]);
-    pa[1] = repro_ptx::pack_bf16x2(s[2 * kk][2], s[2 * kk][3]);
-    pa[2] = repro_ptx::pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-    pa[3] = repro_ptx::pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+    uint32_t ph[4], pl[4];
+#pragma unroll
+    for (int x = 0; x < 4; ++x)
+      split2(s[2 * kk + (x >> 1)][2 * (x & 1)],
+             s[2 * kk + (x >> 1)][2 * (x & 1) + 1], ph[x], pl[x]);
 #pragma unroll
     for (int np = 0; np < NN / 2; ++np) {
       uint32_t r[4];
       repro_ptx::ldmatrix_x4_trans(
           r, Vs + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDV +
                  np * 16 + (lane >> 4) * 8);
-      repro_ptx::mma_bf16_16816(o[2 * np], pa, r[0], r[1]);
-      repro_ptx::mma_bf16_16816(o[2 * np + 1], pa, r[2], r[3]);
+      repro_ptx::mma_bf16_16816(o[2 * np], ph, r[0], r[1]);
+      repro_ptx::mma_bf16_16816(o[2 * np + 1], ph, r[2], r[3]);
+      repro_ptx::mma_bf16_16816(o[2 * np], pl, r[0], r[1]);
+      repro_ptx::mma_bf16_16816(o[2 * np + 1], pl, r[2], r[3]);
     }
   }
   bf16* yp = static_cast<bf16*>(a.y) + b * a.y_sb + h * a.y_sh + v0;

@@ -100,6 +100,14 @@ def _bf16(x):
     return x.to(torch.bfloat16).float()
 
 
+def split_bf16(x):
+    """x as two bf16 values kept in fp32, hi = x rounded and lo = x - hi
+    rounded: hi + lo equals x to about 2^-16 of x (the kernel's P v
+    operands)."""
+    hi = _bf16(x)
+    return hi, _bf16(x - hi)
+
+
 def mlstm_scan_two_pass_ref(q, k, v, log_i, log_f,
                             state: Optional[State] = None, *,
                             chunk: int = 64):
@@ -118,12 +126,16 @@ def mlstm_scan_two_pass_ref(q, k, v, log_i, log_f,
     as 2^(fma(logd, log2 e, -m log2 e)), one rounding of the exponent, as
     the kernel's ex2 takes them (P = (S scale) 2^(...)); q C from the
     chunk-start C rounded to bf16, times (scale w_state); q n in fp32; the
-    weighted scores P summed in fp32 for the denominator and rounded to
-    bf16 for P v. Rows past S (the ragged last chunk) are zero with
-    log_i = -inf and log_f = 0, so they add nothing. What it cannot copy:
-    the order of the fp32 sums inside the kernel's mma tiles, and ex2's
-    approximation (2 ulp), each of which may tip a P or chunk-start C entry
-    to the neighbouring bf16 value."""
+    weighted scores P summed in fp32 for the denominator and split into
+    two bf16 parts for P v (`split_bf16`). Rows past S (the ragged last
+    chunk) are zero with log_i = -inf and log_f = 0, so they add nothing.
+    What it cannot copy: the order of the fp32 sums inside the kernel's mma
+    tiles, the order of its gates' cumulative sum, and ex2's approximation
+    (2 ulp). These move P by about 1e-6 of itself. Rounded once to bf16, P
+    would take them to the neighbouring bf16 value now and then, 2^-8 of a
+    P v term, which moves y past 1e-2 + 1e-2 |y| where the denominator
+    nearly cancels; as hi + lo they move y by about 1e-6. A chunk-start C
+    entry may still tip, which moves y by 2^-8 of one q C term."""
     b, h, s, hd = q.shape
     if state is None:
         state = zero_state(b, h, hd, q.device)
@@ -181,7 +193,8 @@ def mlstm_scan_two_pass_ref(q, k, v, log_i, log_f,
     w_state = torch.exp(bcum + m0[..., None] - m_row)
     den = torch.maximum((p.sum(dim=-1) + w_state * qn).abs(),
                         torch.exp(-m_row))
-    num = (torch.einsum("bhcij,bhcje->bhcie", _bf16(p), vf)
+    num = (sum(torch.einsum("bhcij,bhcje->bhcie", part, vf)
+               for part in split_bf16(p))
            + qc * (scale * w_state)[..., None])
     y = (num / den[..., None]).flatten(2, 3)[:, :, :s]
     return y.to(q.dtype), (c_mat, n_vec, m_run)

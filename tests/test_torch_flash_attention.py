@@ -5,6 +5,7 @@ and the kernel build logic. The Hopper kernels themselves are held against
 the plain versions on the card by chip_smoke.py (phase 2,
 `check_flash_backward`)."""
 import math
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -331,6 +332,60 @@ def test_plain_backward_matches_the_jax_blockwise_vjp(dtype, mask, softcap):
             assert np.abs(g - w).max() <= 2e-2 * np.abs(w).max(), name
 
 
+# (q/k head_dim, v's own head_dim, causal, window, S): gemma3's head_dim
+# with a window, and MLA's 192 with v of 128 zero-padded to 192 as
+# `mla_forward` pads it for the kernel
+WIDE_BWD = {"hd 256 window 40": (256, 256, True, 40, 128),
+            "hd 256 causal": (256, 256, True, 0, 128),
+            "hd 192, v 128 padded": (192, 128, True, 0, 128)}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", list(WIDE_BWD))
+@pytest.mark.parametrize("softcap", [0.0, 2.0])
+def test_plain_backward_matches_the_jax_vjp_at_wide_heads(dtype, case,
+                                                          softcap):
+    """`attention_bwd_ref`, the plain version the card's backward at hd 192
+    and 256 is held to, against `jax.vjp` of the reference's
+    `blockwise_sdpa` (chunks of 64), GQA 2:1, at the tolerances of the hd
+    32 test. MLA's case: the port's v zero-padded from 128 to 192 and an
+    output gradient that is 0 in the padded columns (the output is cropped)
+    against the reference on v of 128; the padded columns of dv are 0."""
+    hd, v_hd, causal, window, s = WIDE_BWD[case]
+    rng = np.random.default_rng(37)
+    b, h, hkv = 1, 4, 2
+    arrays = [rng.standard_normal(shape, dtype=np.float32) for shape in (
+        (b, h, s, hd), (b, hkv, s, hd), (b, hkv, s, v_hd), (b, h, s, v_hd))]
+    tt = [torch.from_numpy(x).to(getattr(torch, dtype)) for x in arrays]
+    qn, kn, vn, don = [x.float().numpy() for x in tt]
+    q, k, v, do = (tt[0], tt[1], torch.nn.functional.pad(tt[2], (0, hd - v_hd)),
+                   torch.nn.functional.pad(tt[3], (0, hd - v_hd)))
+    jdt = getattr(jnp, dtype)
+    pos = jnp.arange(s)
+
+    def blockwise(a, b_, c):
+        return jax_attention.blockwise_sdpa(a, b_, c, pos, pos, window,
+                                            causal, softcap, 64, 64)
+    _, vjp = jax.vjp(blockwise, _to_jax(qn, hkv, jdt),
+                     _to_jax(kn, None, jdt), _to_jax(vn, None, jdt))
+    want = [_from_jax(g) for g in vjp(_to_jax(don, hkv, jdt))]
+    mask = {"causal": causal, "window": window, "softcap": softcap}
+    out, lse = attention_ref(q, k, v, return_lse=True, **mask)
+    assert not out[..., v_hd:].any()
+    got = attention_bwd_ref(q, k, v, out, lse, do, q_chunk=64, kv_chunk=64,
+                            **mask)
+    assert not got[2][..., v_hd:].any()
+    got = [got[0], got[1], got[2][..., :v_hd]]
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == q.dtype and g.shape == w.shape, name
+        g = g.float().numpy()
+        if dtype == "float32":
+            np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-5,
+                                       err_msg=name)
+        else:
+            assert np.abs(g - w).max() <= 2e-2 * np.abs(w).max(), name
+
+
 @pytest.mark.parametrize("mask", list(BWD_MASKS))
 @pytest.mark.parametrize("softcap", [0.0, 2.0])
 def test_plain_lse_matches_the_jax_blockwise_forward(mask, softcap):
@@ -458,10 +513,10 @@ def test_paths_name_each_dtype():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hd", ops.HEAD_DIMS)
 def test_bwd_path_by_dtype_and_head_dim(dtype, hd):
-    """bf16 at head_dim 64 and 128 takes the single-pass wgmma + TMA
-    backward; fp32, and bf16 at 32, 192 and 256, the two-kernel design."""
-    want = (ops.SM90_PATH if dtype == torch.bfloat16 and hd in (64, 128)
-            else ops.PATHS[dtype])
+    """bf16 at head_dim 64, 128, 192 and 256 takes the single-pass wgmma +
+    TMA backward; fp32, and bf16 at 32, the two-kernel design."""
+    want = (ops.SM90_PATH if dtype == torch.bfloat16
+            and hd in (64, 128, 192, 256) else ops.PATHS[dtype])
     assert ops.bwd_path(dtype, hd) == want
 
 
@@ -476,9 +531,10 @@ def _bshd(b, s, h, hd, dtype=torch.bfloat16, device="cpu", pad=0):
 @pytest.mark.parametrize("hd", ops.HEAD_DIMS)
 def test_bwd_buffers_hold_the_designs_scratch(dtype, hd):
     """dq, dk, dv in the inputs' (B,S,H,hd) layout; the wgmma design's
-    scratch is fp32 row stats (2,B,H,Sp) and a dQ accumulator (B,H,Sp,hd)
-    with Sp = S rounded up to 64 (ragged S = 200 -> 256); the other
-    design's is delta (B,H,S)."""
+    scratch is fp32 row stats (2,B,H,Sp), an fp32 dQ accumulator
+    (B,H,Sp,hd) and int32 counts, one a q tile and the blocks' ticket
+    (B*H*Sp/64 + 1), with Sp = S rounded up to 64 (ragged S = 200 -> 256);
+    the other design's is delta (B,H,S)."""
     q = _bshd(2, 200, 8, hd, dtype, "meta")
     k = _bshd(2, 130, 2, hd, dtype, "meta")
     dq, dk, dv, scratch = ops._bwd_buffers(q, k, k)
@@ -487,9 +543,12 @@ def test_bwd_buffers_hold_the_designs_scratch(dtype, hd):
     assert dk.transpose(1, 2).is_contiguous()
     assert {x.dtype for x in (dq, dk, dv)} == {dtype}
     if ops.bwd_path(dtype, hd) == ops.SM90_PATH:
-        rows, acc = scratch
+        rows, acc, tiles = scratch
         assert rows.shape == (2, 2, 8, 256) and acc.shape == (2, 8, 256, hd)
+        assert tiles.shape == (2 * 8 * 4 + 1,)
+        assert tiles.dtype == torch.int32
         assert rows.is_contiguous() and acc.is_contiguous()
+        assert tiles.is_contiguous()
         assert rows.dtype == acc.dtype == torch.float32
     else:
         (delta,) = scratch
@@ -525,8 +584,7 @@ def test_meta_backward_allocates_the_card_scratch(monkeypatch, dtype, hd):
     want = [(tuple(x.shape), x.dtype) for x in (*real(q, k, v)[:3],
                                                 *real(q, k, v)[3])]
     assert made == [want]
-    scratch = sum(math.prod(s) * (4 if d == torch.float32 else 2)
-                  for s, d in want[3:])
+    scratch = sum(math.prod(s) * d.itemsize for s, d in want[3:])
     if ops.bwd_path(dtype, hd) == ops.SM90_PATH:
         assert want[4] == ((1, 4, 128, hd), torch.float32)
     assert res.peak_bytes >= scratch
@@ -561,12 +619,13 @@ def test_tma_ready_copies_only_broadcast_views():
     assert z is not y and z.stride(1) == 16 * 64 and torch.equal(z, y)
 
 
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128, 192, 256])
 @pytest.mark.parametrize("s,t", [(200, 200), (64, 160)])
 def test_sm90_args_take_the_tma_strides(hd, s, t):
     """The bf16 wrapper hands the wgmma entry point the four TMA geometries
     (q, k, v and a dout whose rows are padded), the element strides of out,
-    dout, dq, dk, dv, and the scratch's pointers."""
+    dout, dq, dk, dv, and the scratch's pointers (row stats, accumulator,
+    the counts a q tile)."""
     q, out = _bshd(2, s, 4, hd), _bshd(2, s, 4, hd)
     dout = _bshd(2, s, 4, hd, pad=8)
     k, v = _bshd(2, t, 2, hd), _bshd(2, t, 2, hd)
@@ -574,11 +633,11 @@ def test_sm90_args_take_the_tma_strides(hd, s, t):
     dq, dk, dv, scratch = ops._bwd_buffers(q, k, v)
     args = ops._sm90_args(q, k, v, out, lse, dout, dq, dk, dv, scratch,
                           causal=True, window=0, softcap=2.0)
-    rows, acc = scratch
-    assert args[:11] == tuple(x.data_ptr() for x in (
-        q, k, v, out, dout, lse, rows, acc, dq, dk, dv))
-    assert args[11:17] == (2, 4, 2, s, t, hd)
-    tma, strides = list(args[17]), list(args[18])
+    rows, acc, tiles = scratch
+    assert args[:12] == tuple(x.data_ptr() for x in (
+        q, k, v, out, dout, lse, rows, acc, tiles, dq, dk, dv))
+    assert args[12:18] == (2, 4, 2, s, t, hd)
+    tma, strides = list(args[18]), list(args[19])
     row = 2 * 4 * hd
     assert tma[:7] == [hd, s, 4, 2, row, 2 * hd, row * s]
     assert tma[7:14] == tma[14:21] == [hd, t, 2, 2, 2 * 2 * hd, 2 * hd,
@@ -589,7 +648,7 @@ def test_sm90_args_take_the_tma_strides(hd, s, t):
                        s * 4 * hd, hd, 4 * hd,            # dq
                        t * 2 * hd, hd, 2 * hd,            # dk
                        t * 2 * hd, hd, 2 * hd]            # dv
-    assert args[19:] == (1, 0, 2.0)
+    assert args[20:] == (1, 0, 2.0)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -617,19 +676,37 @@ def test_launch_bwd_calls_the_designs_entry(monkeypatch, dtype, hd):
     k, v = (_bshd(1, 80, 2, hd, dtype, "meta") for _ in range(2))
     lse = torch.empty(1, 4, 80, device="meta")
     before = flash_attention.bwd_launches
+    by_design = dict(flash_attention.bwd_launches_by_design)
     dq, dk, dv = ops._launch_bwd(q, k, v, out, lse, dout, causal=True,
                                  window=0)
     assert (dq.shape, dk.shape, dv.shape) == (q.shape, k.shape, v.shape)
-    sm90 = ops.bwd_path(dtype, hd) == ops.SM90_PATH
-    assert calls == [("sm90", 23) if sm90 else ("mma", 45)]   # stream last
+    path = ops.bwd_path(dtype, hd)
+    sm90 = path == ops.SM90_PATH
+    assert calls == [("sm90", 24) if sm90 else ("mma", 45)]   # stream last
     assert flash_attention.bwd_launches == before + 1
+    assert flash_attention.bwd_launches_by_design == {
+        d: n + (d == path) for d, n in by_design.items()}
     flash_attention.bwd_launches = before
+    flash_attention.bwd_launches_by_design.update(by_design)
     monkeypatch.setattr(ops, "_sm90_entry",
                         lambda: (entry("sm90", 1), lambda: 1))
     monkeypatch.setattr(ops, "_bwd_entry", lambda: entry("mma", 1))
     with pytest.raises(RuntimeError, match="backward launch failed"):
         ops._launch_bwd(q, k, v, out, lse, dout, causal=True, window=0)
     assert flash_attention.bwd_launches == before
+    assert flash_attention.bwd_launches_by_design == by_design
+
+
+def test_bwd_launches_by_design_name_every_design():
+    """The backward's count by design has one key a design `bwd_path` can
+    name, as the forward's has one a design `fwd_path` can name."""
+    assert set(flash_attention.bwd_launches_by_design) == {
+        ops.SM90_PATH, *ops.PATHS.values()}
+    assert set(flash_attention.bwd_launches_by_design) == set(
+        flash_attention.launches_by_design)
+    assert {ops.bwd_path(dt, hd) for dt in ops.PATHS
+            for hd in ops.HEAD_DIMS} <= set(
+        flash_attention.bwd_launches_by_design)
 
 
 # ---------------------------------------------------------------- the build
@@ -716,11 +793,73 @@ cat >&2 <<'PTXAS'
     assert _build.ptxas_report("flash_attention") == []   # not built yet
     _build.build_all()
     want = [{"kernel": "_Z6kernelv", "registers": 128, "smem_bytes": 16384,
-             "spill_stores": 8, "spill_loads": 4},
+             "spill_stores": 8, "spill_loads": 4, "wgmma_serialized": []},
             {"kernel": "_Z2k2v", "registers": 40, "smem_bytes": 0,
-             "spill_stores": 0, "spill_loads": 0}]
+             "spill_stores": 0, "spill_loads": 0, "wgmma_serialized": []}]
     for name in _build.sources():
         assert _build.ptxas_report(name) == want
+
+
+# ptxas's notes on wgmma as the H100's toolkit prints them (names cut)
+PTXAS_WGMMA = """ptxas info    : Compiling entry function '_Z4widev' for 'sm_90a'
+ptxas info    : (C7519) warpgroup.arrive is injected in around line 21439 by compiler to allow use of registers in GMMA in function '_Z4widev'
+ptxas info    : (C7520) Potential Performance Loss: wgmma.mma_async instructions are serialized due to program dependence on compiler-inserted WG.AR in divergent path in the function '_Z4widev'
+ptxas info    : Function properties for _Z4widev
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, 400 bytes cmem[0]
+ptxas info    : (C7515) Potential Performance Loss: wgmma.mma_async instructions are serialized due to non wgmma instructions defining accumulator registers of a wgmma between start and end of the pipeline stage in the function '_Z4loopv'
+ptxas info    : Compiling entry function '_Z4loopv' for 'sm_90a'
+ptxas info    : Function properties for _Z4loopv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, 400 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z4finev' for 'sm_90a'
+ptxas info    : Function properties for _Z4finev
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 90 registers, 400 bytes cmem[0]
+"""
+
+
+def test_ptxas_serialization_notes_stay_with_their_kernel():
+    """A note that ptxas serialized a function's wgmma (C7520, C7515) is
+    kept with that kernel, whether it comes before or after the kernel's
+    own lines; C7519 (an injected arrive) is not a serialization."""
+    got = {k["kernel"]: k for k in _build.parse_ptxas(PTXAS_WGMMA)}
+    assert got["_Z4widev"]["wgmma_serialized"] == ["C7520"]
+    assert got["_Z4loopv"]["wgmma_serialized"] == ["C7515"]
+    assert got["_Z4finev"]["wgmma_serialized"] == []
+    assert got["_Z4widev"]["registers"] == 168
+    assert got["_Z4finev"]["spill_stores"] == 0
+
+
+def _chip_smoke():
+    import importlib.util
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_under_test",
+                                                  path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("serialized", [True, False])
+def test_build_report_raises_on_serialized_wgmma(monkeypatch, serialized):
+    """chip_smoke.py's phase 1 prints every kernel's ptxas figures and
+    raises where ptxas serialized a kernel's wgmma."""
+    cs = _chip_smoke()
+    text = PTXAS_WGMMA if serialized else PTXAS_OUT
+    monkeypatch.setattr(_build, "build_all",
+                        lambda: {"flash_attention_bwd_sm90": None})
+    monkeypatch.setattr(_build, "ptxas_report",
+                        lambda name: _build.parse_ptxas(text))
+    monkeypatch.setattr(cs, "_demangle", lambda names: names)
+    monkeypatch.setattr(cs, "log", lambda line: None)
+    if serialized:
+        with pytest.raises(AssertionError,
+                           match="(?s)serialized wgmma.*_Z4widev.*C7520.*"
+                                 "_Z4loopv.*C7515"):
+            cs.build_report()
+    else:
+        cs.build_report()
 
 
 def test_build_failure_raises_with_nvcc_stderr(tmp_path, monkeypatch):

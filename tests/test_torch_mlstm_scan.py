@@ -322,3 +322,38 @@ def test_wrapper_checks_dtype_and_strides():
     q = _t(1, 8, 2, 384).transpose(1, 2)
     g = _t(1, 8, 2).transpose(1, 2)
     ops._check(q, q, q, g, g, (_t(1, 2, 384, 384), _t(1, 2, 384), _t(1, 2)))
+
+
+@pytest.mark.parametrize("scale", [1e-3, 1.0, 37.0])
+def test_split_bf16_parts_sum_to_the_value(scale):
+    """`split_bf16` (the bf16 kernel's P v operands): hi is x rounded to
+    bf16, lo the rest rounded, both bf16 values, and hi + lo is x to 2^-16
+    of |x| where hi alone is off by up to 2^-9."""
+    from repro_torch.kernels.mlstm_scan.ref import split_bf16
+    x = torch.from_numpy(np.random.default_rng(21).standard_normal(
+        4096, dtype=np.float32)) * scale
+    hi, lo = split_bf16(x)
+    for part in (hi, lo):
+        assert torch.equal(part, part.bfloat16().float())
+    assert torch.equal(hi, x.bfloat16().float())
+    assert bool(((hi + lo - x).abs() <= 2.0 ** -16 * x.abs()).all())
+    assert float(((hi - x).abs() / x.abs()).max()) > 2.0 ** -12
+
+
+@pytest.mark.parametrize("s,hd", [(40, 64), (64, 384)])
+def test_two_pass_p_v_takes_p_in_two_parts(monkeypatch, s, hd):
+    """The two-pass version's P v takes P as two bf16 parts (ROADMAP C7):
+    on one chunk with no state in (so no chunk-start C to round) and
+    bf16-valued fp32 inputs (so y is not rounded), its y is the fp32 plain
+    version's to 1e-4, where P rounded once to bf16 is off by more."""
+    from repro_torch.kernels.mlstm_scan import ref
+    _, tt = _inputs(22, 2, 4, s, hd, "bfloat16")
+    tt = [x.float() for x in tt[:3]] + tt[3:]
+    want = mlstm_scan_ref(*tt)[0]
+    y = mlstm_scan_two_pass_ref(*tt)[0]
+    assert y.dtype == torch.float32
+    torch.testing.assert_close(y, want, rtol=1e-4, atol=1e-4)
+    monkeypatch.setattr(ref, "split_bf16",
+                        lambda x: (ref._bf16(x), torch.zeros_like(x)))
+    once = mlstm_scan_two_pass_ref(*tt)[0]
+    assert float(((once - want).abs() / (1e-4 + 1e-4 * want.abs())).max()) > 1
